@@ -14,6 +14,9 @@ import argparse
 
 
 def main(argv=None) -> int:
+    from ae_wavenet_tpu_torch.utils.precision import set_reference_precision
+
+    set_reference_precision()
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--ckpt", required=True, help="export-format .pt file")
     p.add_argument("--data", required=True, help="packed dataset prefix")

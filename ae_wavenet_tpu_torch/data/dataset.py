@@ -38,6 +38,48 @@ class PackedDataset:
         return np.array(self.data[o : o + n])
 
 
+class WindowSampler:
+    """Deterministic random-window batches: ``batch_at(step)``, as the
+    reference's ``data/dataset.py`` WindowSampler.
+
+    Clips shorter than the window are excluded; eligible clips are drawn
+    in proportion to their number of valid window positions.  The batch
+    at step s is a pure function of (seed, s) (``default_rng([seed, s])``),
+    so a resume needs no iterator state.  The gather is numpy (the
+    reference's C helper ``native/window_gather.c`` is not ported)."""
+
+    def __init__(self, ds: PackedDataset, u_len: int, batch_sz: int,
+                 seed: int = 0, clip_indices=None):
+        """clip_indices: optional subset of clip rows (train/holdout)."""
+        self.ds = ds
+        self.u_len = int(u_len)
+        self.batch_sz = int(batch_sz)
+        self.seed = int(seed)
+        valid = ds.lengths - self.u_len + 1
+        mask = valid > 0
+        if clip_indices is not None:
+            sub = np.zeros(len(ds), bool)
+            sub[np.asarray(clip_indices, np.int64)] = True
+            mask &= sub
+        self.eligible = np.nonzero(mask)[0]
+        if len(self.eligible) == 0:
+            raise ValueError(
+                f"no clip is >= the window length {u_len}; max clip length is "
+                f"{int(ds.lengths.max()) if len(ds) else 0}")
+        w = valid[self.eligible].astype(np.float64)
+        self.probs = w / w.sum()
+
+    def batch_at(self, step: int) -> tuple[np.ndarray, np.ndarray]:
+        """-> (wav [B, u_len] int16, speaker [B] int32)."""
+        rng = np.random.default_rng([self.seed, step])
+        rows = rng.choice(self.eligible, size=self.batch_sz, p=self.probs)
+        max_off = self.ds.lengths[rows] - self.u_len
+        offs = self.ds.offsets[rows] + (
+            rng.random(self.batch_sz) * (max_off + 1)).astype(np.int64)
+        wav = np.stack([self.ds.data[o : o + self.u_len] for o in offs]).astype(np.int16)
+        return wav, self.ds.speakers[rows]
+
+
 def write_packed(prefix: str, clips, speakers, speaker_names,
                  sample_rate: int = 16000) -> dict:
     """Write int16 ``clips`` (one array each) with their speaker indices."""

@@ -1,11 +1,12 @@
-"""The assembled WaveNet autoencoder for reconstruction.
+"""The assembled WaveNet autoencoder: teacher-forced loss and
+reconstruction.
 
-Counterpart of ``ae_wavenet_tpu.models.autoencoder`` on the serving path:
-encoder -> bottleneck (eval) -> upsampled local conditioning -> WaveNet
-decoder sampled autoregressively.  Parameters carry the reference's dotted
-names with the ``params.`` prefix dropped; bottleneck state sits under
-``bottleneck.`` (see training/weights.py).  The teacher-forced forward and
-loss belong to the training slice.
+Counterpart of ``ae_wavenet_tpu.models.autoencoder``: encoder ->
+bottleneck -> upsampled local conditioning -> WaveNet decoder, trained
+teacher-forced (:func:`forward`, :func:`loss_fn`) and sampled
+autoregressively (:func:`reconstruct`).  Parameters carry the reference's
+dotted names with the ``params.`` prefix dropped; bottleneck state sits
+under ``bottleneck.`` (see training/weights.py).
 """
 
 from __future__ import annotations
@@ -17,9 +18,10 @@ from torch import nn
 
 from ae_wavenet_tpu_torch.geometry.vconv import Chain, Range
 from ae_wavenet_tpu_torch.audio import mfcc
-from ae_wavenet_tpu_torch.audio.mulaw import int16_to_float
+from ae_wavenet_tpu_torch.audio.mulaw import int16_to_float, mu_encode
 from ae_wavenet_tpu_torch.models import bottlenecks, common, encoder, wavenet
-from ae_wavenet_tpu_torch.models.common import WindowSpec, normalize_frames
+from ae_wavenet_tpu_torch.models.common import (WindowSpec, btq_layout, mu_ce,
+                                                 normalize_frames)
 from ae_wavenet_tpu_torch.utils.config import RunConfig
 
 
@@ -37,6 +39,15 @@ def aux_frame_active(cfg: RunConfig) -> bool:
     """The latent->MFCC aux head exists when weighted and conditioning
     exists (a training head; kept so checkpoints round-trip)."""
     return cfg.train.aux_frame_weight > 0 and cfg.bottleneck.kind != "zero"
+
+
+def frame_align(cfg: RunConfig) -> tuple[int, int]:
+    """Latent position t <-> encoder-input frame c0 + s*t (receptive-field
+    centre of the encoder geometry)."""
+    ch = encoder.geometry(cfg.encoder)
+    r0, r1 = ch.in_range(Range(0, 1)), ch.in_range(Range(1, 2))
+    c0 = (r0.b + r0.e - 1) // 2
+    return c0, max((r1.b + r1.e - 1) // 2 - c0, 1)
 
 
 class AutoEncoder(nn.Module):
@@ -88,3 +99,58 @@ def reconstruct(model: AutoEncoder, cfg: RunConfig, wav_i16: torch.Tensor,
     sample.  Returns (ids [B, n], start); see models/common.reconstruct."""
     return common.reconstruct(encode, model, cfg, wav_i16, spk, generator,
                               temperature, n_samples, timings)
+
+
+def compute_dtype(cfg: RunConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.train.compute_dtype == "bfloat16" else torch.float32
+
+
+def forward(model: AutoEncoder, cfg: RunConfig, spec: WindowSpec,
+            wav_i16: torch.Tensor, spk: torch.Tensor, step, train: bool,
+            generator: torch.Generator | None = None, draws: dict | None = None):
+    """One teacher-forcing pass over training windows wav_i16 [B, u_len]
+    int16.  Returns (logits, targets, aux): logits [B, Q, n_win] ([B,
+    n_win, Q] under ``btq_layout``), targets [B, n_win].  With ``train``
+    the bottleneck's state updates in place; its draws come from ``draws``
+    or ``generator`` (see models/bottlenecks.py)."""
+    dtype = compute_dtype(cfg)
+    wav = int16_to_float(wav_i16)
+    frames = mfcc.mfcc_delta_stack(wav[..., spec.fb : spec.fe], cfg.spec)
+    frames = normalize_frames(frames, spec=cfg.spec)
+    z = model.encoder(frames, dtype=dtype)
+    zq, aux = model.bottleneck.train_apply(z, step, train, generator, draws)
+    # the aux head reads the pre-jitter latents (jitter regularises the
+    # decoder; jittered targets would be label noise)
+    zq_clean = aux.pop("zq_pre_jitter", zq)
+    if aux_frame_active(cfg):
+        c0, s = frame_align(cfg)
+        tz = zq_clean.shape[-1]
+        tgt = frames[..., c0 : c0 + s * tz : s].detach()
+        head = model.aux_frame
+        pred = (torch.einsum("bdt,cd->bct", zq_clean.float(), head["w"])
+                + head["b"][None, :, None])
+        mse = (pred - tgt.float()).square().mean()
+        aux["aux_frame_mse"] = mse
+        aux["aux_frame_loss"] = cfg.train.aux_frame_weight * mse
+    cond = wavenet.upsample_apply(model.wavenet, cfg.wavenet, zq, spec.up_steps,
+                                  dtype=dtype)
+    ids = mu_encode(wav, cfg.wavenet.n_quant)
+    x_ids = ids[..., spec.w0 : spec.w0 + spec.t_in]
+    logits = wavenet.apply(model.wavenet, cfg.wavenet, x_ids, cond, spk,
+                           dtype=dtype, btq=btq_layout(cfg))
+    targets = ids[..., spec.tgt_b : spec.tgt_b + spec.n_win]
+    return logits, targets, aux
+
+
+def loss_fn(model: AutoEncoder, cfg: RunConfig, spec: WindowSpec,
+            wav_i16: torch.Tensor, spk: torch.Tensor, step, train: bool = True,
+            generator: torch.Generator | None = None, draws: dict | None = None):
+    """-> (total loss, metrics): ``loss``, ``recon_ce`` and the
+    bottleneck's and aux head's terms (``bn_loss``, ``commitment``,
+    ``perplexity``, ``restarts``, ``aux_frame_mse``, ``aux_frame_loss``,
+    ... as the kind gives them), all 0-d tensors."""
+    logits, targets, aux = forward(model, cfg, spec, wav_i16, spk, step, train,
+                                   generator, draws)
+    recon = mu_ce(logits, targets, btq=btq_layout(cfg))
+    total = recon + aux["bn_loss"] + aux.get("aux_frame_loss", 0.0)
+    return total, {"loss": total, "recon_ce": recon, **aux}

@@ -1,7 +1,7 @@
-"""Shared model plumbing: window spec, frame normalization and the
-generation driver.
+"""Shared model plumbing: window spec, the loss, frame normalization and
+the generation driver.
 
-Counterpart of ``ae_wavenet_tpu.models.common`` for the serving path.
+Counterpart of ``ae_wavenet_tpu.models.common``.
 """
 
 from __future__ import annotations
@@ -38,6 +38,27 @@ class WindowSpec:
     @property
     def tgt_b(self) -> int:
         return self.w0 + 1 + self.rf
+
+
+def btq_layout(cfg: RunConfig) -> bool:
+    """True when training logits are time-major [B, T, Q]: the fused
+    stack's layout.  Drives both ``wavenet.apply(btq=...)`` and
+    :func:`mu_ce`."""
+    return (cfg.wavenet.use_pallas_stack
+            and cfg.train.compute_dtype == "bfloat16")
+
+
+def mu_ce(logits: torch.Tensor, targets: torch.Tensor,
+          btq: bool = False) -> torch.Tensor:
+    """Mean mu-law cross-entropy in f32.  btq: logits [B, T, Q]
+    (logsumexp minus the picked logit); otherwise [B, Q, T]
+    (log-softmax over Q)."""
+    lg = logits.float()
+    if btq:
+        picked = lg.gather(-1, targets[..., None].long())[..., 0]
+        return (torch.logsumexp(lg, -1) - picked).mean()
+    logp = torch.log_softmax(lg, 1)
+    return -logp.gather(1, targets[:, None, :].long()).mean()
 
 
 def make_window_spec(cfg: RunConfig, chain: Chain, n_win: int | None,

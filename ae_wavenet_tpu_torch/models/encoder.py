@@ -57,12 +57,13 @@ def _ln(p: nn.ParameterDict, x: torch.Tensor) -> torch.Tensor:
     return xn * p["g"][None, :, None] + p["o"][None, :, None]
 
 
-def _res_pair(p: nn.ModuleDict, x: torch.Tensor) -> torch.Tensor:
+def _res_pair(p: nn.ModuleDict, x: torch.Tensor, dtype) -> torch.Tensor:
     """Two k=3 VALID convs with ReLU, residual added on the trimmed center,
-    channel-LayerNormed."""
-    h = F.relu(conv1d(x, p["a"]["w"], p["a"]["b"]))
-    h = conv1d(h, p["b"]["w"], p["b"]["b"])
-    return _ln(p["ln"], F.relu(x[..., 2:-2] + h))
+    channel-LayerNormed (in f32, cast back to the compute dtype)."""
+    h = F.relu(conv1d(x.to(dtype), p["a"]["w"].to(dtype), p["a"]["b"]))
+    h = conv1d(h.to(dtype), p["b"]["w"].to(dtype), p["b"]["b"])
+    y = F.relu(x[..., 2:-2] + h)
+    return _ln(p["ln"], y.float()).to(y.dtype)
 
 
 class Encoder(nn.Module):
@@ -85,14 +86,19 @@ class Encoder(nn.Module):
         self.post = nn.ModuleList([pair() for _ in range(cfg.n_post_res)])
         self.head = _he(g, cfg.n_out, c, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: [B, n_in, F] MFCC stack -> latents [B, n_out, Tz]."""
-        x = F.relu(conv1d(x, self.stem["w"], self.stem["b"]))
+    def forward(self, x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+        """x: [B, n_in, F] MFCC stack -> latents [B, n_out, Tz] in f32.
+
+        ``dtype`` is the compute dtype: convs take operands in it and give
+        outputs in it (the reference's bf16 training path)."""
+        def conv(p, v, **kw):
+            return conv1d(v.to(dtype), p["w"].to(dtype), p["b"], **kw)
+
+        x = F.relu(conv(self.stem, x))
         for p in self.pre:
-            x = _res_pair(p, x)
-        x = F.relu(conv1d(x, self.down["w"], self.down["b"],
-                          stride=self.cfg.down_stride))
-        x = _ln(self.down_ln, x)
+            x = _res_pair(p, x, dtype)
+        x = F.relu(conv(self.down, x, stride=self.cfg.down_stride))
+        x = _ln(self.down_ln, x.float()).to(x.dtype)
         for p in self.post:
-            x = _res_pair(p, x)
-        return conv1d(x, self.head["w"], self.head["b"])
+            x = _res_pair(p, x, dtype)
+        return conv(self.head, x).float()

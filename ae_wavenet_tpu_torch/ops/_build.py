@@ -1,9 +1,10 @@
 """Build the package's CUDA sources into one shared library, at first use.
 
-``csrc/*.cu`` are compiled with ``nvcc`` for ``sm_90a`` into a library with
-a plain C interface, loaded with ``ctypes``.  The build is cached in
-``_build/`` under a hash of the sources and flags, so only the first CUDA
-call after a change compiles.  Nothing is fetched.
+``csrc/*.cu`` are compiled with ``nvcc`` for ``sm_90a``, one process per
+source, all started together, then linked into one library with a plain C
+interface, loaded with ``ctypes``.  The build is cached in ``_build/``
+under a hash of the sources and flags, so only the first CUDA call after a
+change compiles.  Nothing is fetched.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib: ctypes.CDLL | None = None
 build_info: dict = {}  # path, ptxas report (and nvcc seconds when built here)
@@ -43,6 +44,14 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     ip = ctypes.POINTER(ctypes.c_int)
     lib.awt_fastgen_bf16.argtypes = [p] * 15 + [ip, ip] + [i] * 11 + [f, i, p]
     lib.awt_fastgen_bf16.restype = i
+    for name in ("awt_gated_fwd", "awt_gated_bwd"):
+        getattr(lib, name).argtypes = [i, p, p, p]
+        getattr(lib, name).restype = i
+    lib.awt_gated_dw.argtypes = [p, p, p]
+    lib.awt_gated_dw.restype = i
+    for name in ("awt_gated_fwd_smem", "awt_gated_bwd_smem"):
+        getattr(lib, name).argtypes = [p]
+        getattr(lib, name).restype = i
     lib.awt_cuda_error_string.argtypes = [i]
     lib.awt_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -64,13 +73,30 @@ def load() -> ctypes.CDLL:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         t0 = time.perf_counter()
-        r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                            *map(str, sources)], capture_output=True, text=True)
-        if r.returncode != 0:
+        nvcc = _nvcc()
+        objs = [pathlib.Path(tmp + f".{k}.o") for k in range(len(sources))]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True)
+                 for src, o in zip(sources, objs)]
+        logs, failed = [], []
+        for src, pr in zip(sources, procs):
+            _, err = pr.communicate()
+            logs.append(err)
+            if pr.returncode != 0:
+                failed.append(f"{src.name} ({pr.returncode}):\n{err}")
+        if not failed:
+            r = subprocess.run([nvcc, "-shared", "-o", tmp, *map(str, objs)],
+                               capture_output=True, text=True)
+            if r.returncode != 0:
+                failed.append(f"link ({r.returncode}):\n{r.stderr}")
+        for o in objs:
+            o.unlink(missing_ok=True)
+        if failed:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
         build_info["seconds"] = time.perf_counter() - t0
-        out.with_suffix(".ptxas.txt").write_text(r.stderr)
+        out.with_suffix(".ptxas.txt").write_text("".join(logs))
         os.replace(tmp, out)  # atomic: concurrent builders agree on the file
     build_info["path"] = str(out)
     build_info["ptxas"] = out.with_suffix(".ptxas.txt").read_text()

@@ -13,8 +13,12 @@ import torch.nn.functional as F
 def conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
            *, stride: int = 1, dilation: int = 1) -> torch.Tensor:
     """VALID 1-D correlation. x: [B, Cin, T], w: [Cout, Cin, F] ->
-    [B, Cout, T'] (geometry ``vconv.Conv(F, stride, dilation)``)."""
-    return F.conv1d(x, w, b, stride=stride, dilation=dilation)
+    [B, Cout, T'] (geometry ``vconv.Conv(F, stride, dilation)``).
+
+    The output takes the input's dtype, and the bias is added after the
+    conv in that dtype, as the reference rounds a bf16 conv."""
+    y = F.conv1d(x, w, stride=stride, dilation=dilation)
+    return y if b is None else y + b[None, :, None].to(y.dtype)
 
 
 def tconv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
@@ -34,5 +38,5 @@ def tconv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
     y = F.conv_transpose1d(x, w.flip(-1).transpose(0, 1), stride=stride)
     y = y[..., f - 1 : (x.shape[-1] - 1) * stride + 1]
     if b is not None:
-        y = y + b[None, :, None]
+        y = y + b[None, :, None].to(y.dtype)
     return y

@@ -1,0 +1,195 @@
+"""The gated kernels against their plain versions, on the same inputs.
+
+Shared by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``: seeded
+random stacks with every bias perturbed (so a dropped bias shows), inputs
+for each kernel taken from a plain forward of that stack, and the
+comparisons with their tolerances.
+
+Tolerances.  Kernel and plain version round at the same points (the
+contract in ``ops/gated.py``); only the order of f32 summation differs, so
+an intermediate bf16 value (h, g_out, g_y, x') may land one ulp (2^-8
+relative) apart and carry that into later sums.  Per-kernel outputs:
+max |d| <= SEGMENT_REL_TOL * max |plain|.  Whole stack: logits within
+LOGIT_ABS_TOL and every gradient within GRAD_REL_TOL of the largest, as
+``tests/test_gated_pallas.py:48,131`` hold the Pallas stack.
+"""
+
+from __future__ import annotations
+
+import copy
+
+import torch
+
+from ae_wavenet_tpu_torch.models import wavenet as twn
+from ae_wavenet_tpu_torch.ops import gated
+from ae_wavenet_tpu_torch.ops.fastgen import with_gc
+from ae_wavenet_tpu_torch.utils.config import WaveNetConfig
+
+SEGMENT_REL_TOL = 1e-2
+LOGIT_ABS_TOL = 0.02
+GRAD_REL_TOL = 0.05
+BF16 = torch.bfloat16
+
+
+def random_stack(cfg: WaveNetConfig, batch: int, t_out: int, seed: int, dev):
+    """(wavenet with every bias ~ N(0, 0.3^2), x_ids, cond, speaker ids)."""
+    gen = torch.Generator().manual_seed(seed)
+    wn = twn.WaveNet(cfg, gen)
+    with torch.no_grad():
+        for name, p in wn.named_parameters():
+            if name.endswith(".b"):
+                p.normal_(0.0, 0.3, generator=gen)
+    t_in = t_out + twn.receptive_field(cfg)
+    ids = torch.randint(0, cfg.n_quant, (batch, t_in), generator=gen)
+    cond = torch.randn(batch, cfg.n_lc_out, t_in, generator=gen) * 0.5
+    spk = torch.randint(0, cfg.n_speakers, (batch,), generator=gen)
+    return wn.to(dev), ids.to(dev), cond.to(dev), spk.to(dev)
+
+
+def rel_err(got, want) -> tuple[float, float]:
+    """(max |got - want|, that over max |want|)."""
+    d = float((got.float() - want.float()).abs().max())
+    return d, d / max(float(want.float().abs().max()), 1e-30)
+
+
+# ---------------------------------------------------------- per kernel
+
+def segment_inputs(wn, cfg: WaveNetConfig, ids, cond, spk, seed: int = 0):
+    """The stack's operands from a plain saved forward: (dils, x0, cond_tm,
+    packed, xs, ys) plus random upstream cotangents (gxcur, gxprev, gskip,
+    gcond) of the stack's shape."""
+    dils = gated.stack_dils(cfg)
+    with torch.no_grad():
+        x0 = wn.embed[ids].to(BF16).contiguous()
+        cond_tm = with_gc(wn, cfg, cond, spk).permute(0, 2, 1).to(BF16).contiguous()
+        packed = [tuple(t.detach().contiguous() for t in pk)
+                  for pk in gated.pack_stack_weights(wn, cfg)]
+        sched = gated.Schedule(dils, True, False, gated.PLAIN)
+        _, xs, ys = gated.run_forward(sched, x0, cond_tm, packed, save=True)
+    gen = torch.Generator(device=x0.device).manual_seed(seed)
+
+    def rnd(shape, dtype, scale):
+        return (torch.randn(shape, generator=gen, device=x0.device) * scale).to(dtype)
+
+    b, p, r = x0.shape
+    cot = dict(gxcur=rnd((b, p, r), BF16, 0.1), gxprev=rnd((b, p, r), BF16, 0.1),
+               gskip=rnd((b, p, cfg.n_skp), BF16, 0.1),
+               gcond=rnd((b, p, cond_tm.shape[-1]), torch.float32, 0.1))
+    return dils, x0, cond_tm, packed, xs, ys, cot
+
+
+def segment_calls(dils, cond_tm, packed, xs, ys, cot, skip_seed: int = 1):
+    """{kernel name: (wrapper name, call(fn))} for one segment each, chosen
+    where the schedule is hardest: the pair and the single layer with the
+    largest dilation (the forward's halo spans the most rows) and a pair
+    and a single layer below the top, so the upstream prev-tap cotangent
+    (prev_dd) is read."""
+    n = len(dils)
+    vl = lambda i: gated.valid_lo(dils, i)  # noqa: E731
+    top = n - 2 if n % 2 == 0 else n - 3   # the last pair of the schedule
+    mid = max(top - 2, 0)
+    b, p = xs[0].shape[:2]
+    gen = torch.Generator(device=xs[0].device).manual_seed(skip_seed)
+    skip0 = torch.randn(b, p, packed[0][3].shape[0] - xs[0].shape[2],
+                        generator=gen, device=xs[0].device)
+
+    def fresh(d):
+        return {k: v.clone() for k, v in d.items()}
+
+    def pair_fwd(fn):
+        return fn(xs[top], cond_tm, skip0.clone(), packed[top], packed[top + 1],
+                  dd1=dils[top], dd2=dils[top + 1], r0=vl(top), save_y=True)
+
+    def layer_fwd(fn):
+        i = n - 1
+        return fn(xs[i], cond_tm, skip0.clone(), *packed[i], dd=dils[i],
+                  r0=vl(i), save_y=True)
+
+    def pair_bwd(fn):
+        c = fresh(cot)
+        return fn(xs[mid], xs[mid + 1], cond_tm, c["gxcur"], c["gxprev"],
+                  c["gskip"], c["gcond"], packed[mid], packed[mid + 1],
+                  ys[mid], ys[mid + 1], dd1=dils[mid], dd2=dils[mid + 1],
+                  prev_dd=dils[mid + 2], valid_lo1=vl(mid),
+                  valid_lo2=vl(mid + 1), cur_valid_lo=vl(mid + 2))
+
+    def layer_bwd(fn, saved=True):
+        c, i = fresh(cot), n - 2
+        w_in, b_in, w_out, _ = packed[i]
+        return fn(xs[i], cond_tm, c["gxcur"], c["gxprev"], c["gskip"],
+                  c["gcond"], w_in, w_out, b_in, dd=dils[i], prev_dd=dils[i + 1],
+                  valid_lo=vl(i), cur_valid_lo=vl(i + 1),
+                  y_saved=ys[i] if saved else None)
+
+    return {
+        "gated_pair_fused": ("gated_pair_fused", pair_fwd),
+        "gated_layer_fused": ("gated_layer_fused", layer_fwd),
+        "gated_pair_bwd": ("gated_pair_bwd", pair_bwd),
+        "gated_layer_bwd": ("gated_layer_bwd", layer_bwd),
+        "gated_layer_bwd_recompute": (
+            "gated_layer_bwd", lambda fn: layer_bwd(fn, saved=False)),
+    }
+
+
+def compare_outputs(got, want) -> tuple[float, float]:
+    """Largest (abs, rel) error over every output tensor."""
+    worst = (0.0, 0.0)
+    for g, w in zip(got, want):
+        e = rel_err(g, w)
+        worst = (max(worst[0], e[0]), max(worst[1], e[1]))
+    return worst
+
+
+# ------------------------------------------------------------ the stack
+
+def stack_run(wn, cfg, ids, cond, spk, probe, ops, save_y, fuse_pairs):
+    """Logits [B, T, Q] (f32) and every gradient (wavenet parameters and
+    cond) of mean(logits * probe) through the fused stack."""
+    wn.zero_grad(set_to_none=True)
+    c = cond.detach().clone().requires_grad_(True)
+    logits = gated.stack_apply(wn, cfg, ids, c, spk, btq=True, ops=ops,
+                               save_y=save_y, fuse_pairs=fuse_pairs)
+    (logits.float() * probe).mean().backward()
+    grads = {n: p.grad.detach().clone() for n, p in wn.named_parameters()
+             if p.grad is not None}
+    grads["cond"] = c.grad.detach().clone()
+    return logits.detach().float(), grads
+
+
+def stack_errors(lg_k, g_k, lg_p, g_p) -> tuple[float, float]:
+    """(max |logit diff|, max |grad diff| / max |plain grad|) over all
+    gradient tensors together."""
+    if set(g_k) != set(g_p):
+        raise AssertionError(f"gradient sets differ: {sorted(set(g_k) ^ set(g_p))}")
+    lg = float((lg_k - lg_p).abs().max())
+    num = max(float((g_k[n].float() - g_p[n].float()).abs().max()) for n in g_p)
+    den = max(float(g_p[n].float().abs().max()) for n in g_p)
+    return lg, num / den
+
+
+def stack_passes(lg: float, rel: float) -> bool:
+    return lg < LOGIT_ABS_TOL and rel < GRAD_REL_TOL
+
+
+def planted_faults(wn, cfg: WaveNetConfig):
+    """{name: (wavenet, ops)}: plain versions with a fault planted, which the
+    stack check must reject.  Layer 10's skip dropped; in the pair of stack
+    layers 2 and 3, the pair's layer 2 reading its prev tap (mid, the rows
+    the kernel carries across tiles) one row off."""
+    l_skip = min(10, len(wn.layers) - 1)
+    wn_bad = copy.deepcopy(wn)
+    with torch.no_grad():
+        wn_bad.layers[l_skip].w_skip["w"].zero_()
+        wn_bad.layers[l_skip].w_skip["b"].zero_()
+    dils = gated.stack_dils(cfg)
+    r0_bad = gated.valid_lo(dils, 2)
+
+    def pair_off(x, cond, skip, pk1, pk2, *, dd1, dd2, r0, save_y=False):
+        if r0 == r0_bad:
+            dd2 = dd2 + 1
+        return gated.gated_pair_fused_reference(x, cond, skip, pk1, pk2, dd1=dd1,
+                                                dd2=dd2, r0=r0, save_y=save_y)
+
+    return {f"layer {l_skip} skip dropped": (wn_bad, gated.PLAIN),
+            "pair (2, 3): layer 2's prev tap one row off":
+                (wn, gated.PLAIN._replace(pair_fwd=pair_off))}

@@ -1,0 +1,297 @@
+"""The fused gated stack's kernels: one or two layers, forward and backward.
+
+Wrappers of ``csrc/gated.cu``, a kernel written by hand for Hopper
+(``sm_90a``) that replaces the TPU kernels of
+``ae_wavenet_tpu/ops/gated_pallas.py``: ``gated_pair_fused`` (K1),
+``gated_layer_fused`` (K1b), ``gated_pair_bwd`` (K2) and
+``gated_layer_bwd`` (K2b).  Their signatures and contract are those of the
+plain versions in ``ops/gated.py``.
+
+Each wrapper dispatches on the device of the tensors it is given: CUDA
+tensors launch the kernel on the current stream (and raise on what it
+cannot take or on a CUDA error), CPU tensors run the plain version.  Each
+counts its kernel runs in ``.launches``.
+
+The kernels choose their own tiles (64 rows per tile, chunks of rows per
+block sized to fill the card); the reference's ``gated_tile`` and
+``gated_bwd_tile`` are TPU schedule knobs and are not read.  Shape limits:
+``filter_sz == 2``; n_res, n_cond, n_dil and n_skp multiples of 8 (16-byte
+row loads); the widths' shared-memory footprint within one block's 227 KB.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ae_wavenet_tpu_torch.ops import gated
+
+TM = 64                 # csrc/gated.cu: rows per tile
+SMEM_LIMIT = 232448     # bytes of shared memory one block may use (H100)
+BF16 = torch.bfloat16
+
+
+def _r16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _dims(x: torch.Tensor, cond: torch.Tensor, w_in: torch.Tensor,
+          w_out: torch.Tensor) -> list:
+    b, p, r = x.shape
+    c = cond.shape[-1]
+    d = w_in.shape[1] // 2
+    s = w_out.shape[1] - r
+    return [b, p, r, c, d, s, _r16(r), _r16(c), _r16(d), _r16(s)]
+
+
+def _pad_weights(dims, w_in, b_in, w_out, b_out):
+    """Packed f32 weights -> the kernel's zero-padded layout: win
+    [2Rp + Cp, 2Dp] bf16, bin [2Dp] f32, wout [Dp, Rp + Sp] bf16, bout
+    [Rp + Sp] f32."""
+    _, _, r, c, d, s, rp, cp, dp, sp = dims
+    dev = w_in.device
+    ar = lambda n: torch.arange(n, device=dev)  # noqa: E731
+    rows = torch.cat([ar(r), rp + ar(r), 2 * rp + ar(c)])
+    gcols = torch.cat([ar(d), dp + ar(d)])
+    ocols = torch.cat([ar(r), rp + ar(s)])
+    win = torch.zeros(2 * rp + cp, 2 * dp, dtype=BF16, device=dev)
+    win[rows[:, None], gcols[None, :]] = w_in.detach().to(BF16)
+    wout = torch.zeros(dp, rp + sp, dtype=BF16, device=dev)
+    wout[ar(d)[:, None], ocols[None, :]] = w_out.detach().to(BF16)
+    binp = torch.zeros(2 * dp, device=dev)
+    bout = torch.zeros(rp + sp, device=dev)
+    if b_in is not None:
+        binp[gcols] = b_in.detach().float()
+    if b_out is not None:
+        bout[ocols] = b_out.detach().float()
+    return win, binp, wout, bout
+
+
+def _check(dims, tensors: dict, smem: int) -> None:
+    b, p, r, c, d, s = dims[:6]
+    want = {"x": ((b, p, r), BF16), "cond": ((b, p, c), BF16),
+            "skip": ((b, p, s), torch.float32), "gskip": ((b, p, s), BF16),
+            "gcond": ((b, p, c), torch.float32), "y": ((b, p, 2 * d), BF16)}
+    dev = None
+    for name, v in tensors.items():
+        if v is None:
+            continue
+        dev = v.device if dev is None else dev
+        if v.device != dev:
+            raise ValueError(f"{name} is on {v.device}, the others on {dev}")
+        if v.device.type != "cuda":
+            raise ValueError(f"{name}: the gated kernels take CUDA tensors, "
+                             f"got {v.device}")
+        shape, dtype = want.get(name.rstrip("12"), (None, None))
+        if shape is not None and (tuple(v.shape) != shape or v.dtype != dtype):
+            raise ValueError(f"{name}: {tuple(v.shape)} {v.dtype}, the kernel "
+                             f"takes {shape} {dtype}")
+        if not v.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, n in (("n_res", r), ("n_cond", c), ("n_dil", d), ("n_skp", s)):
+        if n % 8:
+            raise ValueError(f"{name}={n}: the gated kernels take widths that "
+                             "are multiples of 8 (16-byte row loads)")
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"these widths need {smem} bytes of shared memory per "
+                         f"block; the kernel has at most {SMEM_LIMIT}")
+
+
+def _chunk(dev, rows: int, batch: int, dd2: int = 0) -> tuple[int, int]:
+    """Rows per block (a multiple of the tile, at least the pair's dd2, so
+    a halo spans one neighbouring chunk) and the number of chunks, for
+    about two blocks per SM."""
+    target = 2 * torch.cuda.get_device_properties(dev).multi_processor_count
+    chunk = max(-(-rows * batch // target), dd2, TM)
+    chunk = -(-chunk // TM) * TM
+    return chunk, -(-rows // chunk)
+
+
+def _ptrs(*ts) -> ctypes.Array:
+    return (ctypes.c_void_p * len(ts))(
+        *(None if t is None else t.data_ptr() for t in ts))
+
+
+def _ints(*v) -> ctypes.Array:
+    return (ctypes.c_int * len(v))(*(int(i) for i in v))
+
+
+def _call(fn_name: str, nl, ptrs, ints, dev) -> None:
+    from ae_wavenet_tpu_torch.ops import _build
+
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        fn = getattr(lib, fn_name)
+        rc = fn(ptrs, ints, stream) if nl is None else fn(nl, ptrs, ints, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name} failed: CUDA error {rc} "
+                           f"({lib.awt_cuda_error_string(rc).decode()})")
+
+
+def _smem(fn_name: str, dims) -> int:
+    from ae_wavenet_tpu_torch.ops import _build
+
+    return getattr(_build.load(), fn_name)(_ints(*dims))
+
+
+# ---------------------------------------------------------------- forward
+
+def _fwd(nl, x, cond, skip, pks, dds, r0, save_y):
+    dims = _dims(x, cond, pks[0][0], pks[0][2])
+    _check(dims, {"x": x, "cond": cond, "skip": skip},
+           _smem("awt_gated_fwd_smem", dims))
+    b, p, r = dims[:3]
+    dev = x.device
+    chunk, n_chunks = _chunk(dev, p - r0, b, dds[-1] if nl == 2 else 0)
+    outs = [torch.zeros_like(x) for _ in range(nl)]  # (mid,) x'
+    ys = [x.new_zeros(b, p, 2 * dims[4]) for _ in range(nl)] if save_y else []
+    halo = (torch.empty(b * n_chunks, dds[1], r, dtype=BF16, device=dev)
+            if nl == 2 else None)
+    layers = []
+    for l in range(2):
+        if l < nl:
+            layers += [*_pad_weights(dims, *pks[l]), ys[l] if save_y else None]
+        else:
+            layers += [None] * 5
+    _call("awt_gated_fwd", nl,
+          _ptrs(x, cond, skip, outs[0] if nl == 2 else None, outs[-1], halo,
+                *layers),
+          _ints(*dims, r0, chunk, dds[0], dds[1] if nl == 2 else 0, n_chunks),
+          dev)
+    return (*outs, skip, *ys)
+
+
+def gated_layer_fused(x, cond, skip, w_in, b_in, w_out, b_out, *, dd: int,
+                      r0: int, save_y: bool = False):
+    """K1b: one gated layer forward; see ``gated.gated_layer_fused_reference``."""
+    if x.device.type == "cpu":
+        return gated.gated_layer_fused_reference(
+            x, cond, skip, w_in, b_in, w_out, b_out, dd=dd, r0=r0, save_y=save_y)
+    out = _fwd(1, x, cond, skip, [(w_in, b_in, w_out, b_out)], (dd,), r0, save_y)
+    gated_layer_fused.launches += 1
+    return out
+
+
+def gated_pair_fused(x, cond, skip, pk1, pk2, *, dd1: int, dd2: int, r0: int,
+                     save_y: bool = False):
+    """K1: two gated layers forward; see ``gated.gated_pair_fused_reference``."""
+    if x.device.type == "cpu":
+        return gated.gated_pair_fused_reference(
+            x, cond, skip, pk1, pk2, dd1=dd1, dd2=dd2, r0=r0, save_y=save_y)
+    out = _fwd(2, x, cond, skip, [pk1, pk2], (dd1, dd2), r0, save_y)
+    gated_pair_fused.launches += 1
+    return out
+
+
+# --------------------------------------------------------------- backward
+
+def _dw(kind, lo, g, n, m, x=None, cond=None, dd=0, a=None):
+    """(f32 [m, n] = A^T G, f32 [n] = column sums of G) over rows [lo, P)
+    of every batch row, where A is xin (kind 0, gathered from x and cond)
+    or ``a`` (kind 1): a weight gradient and its bias gradient."""
+    b, p = g.shape[:2]
+    total = b * (p - lo)
+    tiles = -(-m // 128) * -(-n // 128)
+    sms = torch.cuda.get_device_properties(g.device).multi_processor_count
+    splits = max(1, min(-(-4 * sms // tiles), total // 1024 or 1))
+    splits_b = max(1, min(64, total // 1024 or 1))
+    f32 = dict(device=g.device, dtype=torch.float32)
+    part, out = torch.empty(splits, m, n, **f32), torch.empty(m, n, **f32)
+    part_b, out_b = torch.empty(splits_b, n, **f32), torch.empty(n, **f32)
+    r = x.shape[2] if x is not None else 0
+    c = cond.shape[2] if cond is not None else 0
+    ka = a.shape[2] if a is not None else 0
+    _call("awt_gated_dw", None, _ptrs(x, cond, a, g, part, out, part_b, out_b),
+          _ints(b, p, lo, kind, dd, r, c, ka, n, m, splits, -(-total // splits),
+                splits_b, -(-total // splits_b)), g.device)
+    return out, out_b
+
+
+def _bwd(nl, xs, cond, gxcur, gxprev, gskip, gcond, pks, ys, dds, vls,
+         prev_dd, cur_valid_lo):
+    dims = _dims(xs[0], cond, pks[0][0], pks[0][2])
+    tensors = {"x1": xs[0], "cond": cond, "gxcur": gxcur, "gxprev": gxprev,
+               "gskip": gskip, "gcond": gcond, "y1": ys[0]}
+    if nl == 2:
+        tensors.update(x2=xs[1], y2=ys[1])
+    _check(dims, tensors, _smem("awt_gated_bwd_smem", dims))
+    for v, name in ((gxcur, "gxcur"), (gxprev, "gxprev")):
+        if tuple(v.shape) != tuple(xs[0].shape) or v.dtype != BF16:
+            raise ValueError(f"{name}: {tuple(v.shape)} {v.dtype}, the kernel "
+                             f"takes {tuple(xs[0].shape)} {BF16}")
+    b, p, r, c, d, s, _, _, dp, _ = dims
+    dev = xs[0].device
+    r0 = vls[0]
+    chunk, n_chunks = _chunk(dev, p - r0, b, dds[-1] if nl == 2 else 0)
+    gxc, gxp = torch.zeros_like(xs[0]), torch.zeros_like(xs[0])
+    f32 = dict(device=dev, dtype=torch.float32)
+    gcur2 = torch.empty(b, p, r, **f32) if nl == 2 else None
+    gp2 = torch.empty(b, p, r, **f32) if nl == 2 else None
+    yf = torch.empty(b, p, 2 * dp, **f32) if ys[0] is None else None
+    layers, saved = [], []
+    for l in range(2):
+        if l >= nl:
+            layers += [None] * 8
+            continue
+        win, binp, wout, _ = _pad_weights(dims, pks[l][0], pks[l][1],
+                                          pks[l][2], None)
+        gy = torch.empty(b, p, 2 * d, dtype=BF16, device=dev)
+        h = torch.empty(b, p, d, dtype=BF16, device=dev)
+        gout = torch.empty(b, p, r + s, dtype=BF16, device=dev)
+        layers += [xs[l], ys[l], win, binp, wout, gy, h, gout]
+        saved.append((gy, h, gout))
+    ints = [*dims, prev_dd, cur_valid_lo, r0, chunk, dds[0], vls[0],
+            dds[1] if nl == 2 else 0, vls[1] if nl == 2 else 0, n_chunks]
+    _call("awt_gated_bwd", nl,
+          _ptrs(cond, gxcur, gxprev, gskip, gcond, gxc, gxp, gcur2, gp2, yf,
+                *layers), _ints(*ints), dev)
+    grads = []
+    for l, (gy, h, gout) in enumerate(saved):
+        dwi, dbi = _dw(0, vls[l], gy, 2 * d, 2 * r + c, x=xs[l], cond=cond,
+                       dd=dds[l])
+        dwo, dbo = _dw(1, vls[l], gout, r + s, d, a=h)
+        grads += [dwi, dbi, dwo, dbo]
+    return (gxc, gxp, gcond, *grads)
+
+
+def gated_layer_bwd(x, cond, gxcur, gxprev, gskip, gcond, w_in, w_out, b_in, *,
+                    dd: int, prev_dd: int, valid_lo: int, cur_valid_lo: int,
+                    y_saved=None):
+    """K2b: one gated layer backward, saved-y or recompute mode; see
+    ``gated.gated_layer_bwd_reference``."""
+    if x.device.type == "cpu":
+        return gated.gated_layer_bwd_reference(
+            x, cond, gxcur, gxprev, gskip, gcond, w_in, w_out, b_in, dd=dd,
+            prev_dd=prev_dd, valid_lo=valid_lo, cur_valid_lo=cur_valid_lo,
+            y_saved=y_saved)
+    out = _bwd(1, (x,), cond, gxcur, gxprev, gskip, gcond,
+               [(w_in, b_in, w_out, None)], (y_saved,), (dd,), (valid_lo,),
+               prev_dd, cur_valid_lo)
+    gated_layer_bwd.launches += 1
+    return out
+
+
+def gated_pair_bwd(x1, x2, cond, gxcur, gxprev, gskip, gcond, pk1, pk2, y1, y2,
+                   *, dd1: int, dd2: int, prev_dd: int, valid_lo1: int,
+                   valid_lo2: int, cur_valid_lo: int):
+    """K2: two gated layers backward (saved-y); see
+    ``gated.gated_pair_bwd_reference``."""
+    if x1.device.type == "cpu":
+        return gated.gated_pair_bwd_reference(
+            x1, x2, cond, gxcur, gxprev, gskip, gcond, pk1, pk2, y1, y2,
+            dd1=dd1, dd2=dd2, prev_dd=prev_dd, valid_lo1=valid_lo1,
+            valid_lo2=valid_lo2, cur_valid_lo=cur_valid_lo)
+    if y1 is None or y2 is None:
+        raise ValueError("the pair backward takes saved y (no recompute mode)")
+    out = _bwd(2, (x1, x2), cond, gxcur, gxprev, gskip, gcond,
+               [(pk1[0], pk1[1], pk1[2], None), (pk2[0], pk2[1], pk2[2], None)],
+               (y1, y2), (dd1, dd2), (valid_lo1, valid_lo2), prev_dd,
+               cur_valid_lo)
+    gated_pair_bwd.launches += 1
+    return out
+
+
+for _f in (gated_layer_fused, gated_pair_fused, gated_layer_bwd, gated_pair_bwd):
+    _f.launches = 0

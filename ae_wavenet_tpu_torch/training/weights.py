@@ -6,11 +6,15 @@ The reference names every tensor by its pytree path
 port's ``state_dict`` keys are the same names with ``params.`` dropped and
 ``bn_state.`` replaced by ``bottleneck.``.  Checkpoints use the reference's
 ``export_torch`` payload ``{"step", "run_config_json", "state"}``, so a
-JAX checkpoint exported with ``export_torch`` serves here, and a file saved
-here imports into the JAX package.
+JAX checkpoint exported with ``export_torch`` serves (and, with its
+``opt_state.*`` tensors, resumes training) here, and a file saved here
+imports into the JAX package.  The optimizer state keeps optax's names
+(``training/chassis.Adam``).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -31,11 +35,9 @@ def _port_name(name: str) -> str | None:
     raise KeyError(f"unexpected tensor name {name!r}")
 
 
-def from_named(named: dict, cfg: config_mod.RunConfig) -> AutoEncoder:
-    """{reference dotted name: array} -> AutoEncoder holding those values
-    (every tensor must be present with its shape; ``opt_state.*`` is
-    ignored)."""
-    model = AutoEncoder(cfg)
+def load_into(model: AutoEncoder, named: dict) -> AutoEncoder:
+    """Copy {reference dotted name: array} into ``model`` (every tensor
+    must be present with its shape; ``opt_state.*`` is ignored)."""
     own = model.state_dict()
     state = {}
     for name, v in named.items():
@@ -43,8 +45,8 @@ def from_named(named: dict, cfg: config_mod.RunConfig) -> AutoEncoder:
         if key is None:
             continue
         if key not in own:
-            raise KeyError(f"{name}: no such tensor in the {cfg.model_kind} model")
-        t = torch.tensor(np.asarray(v, dtype=np.float32))
+            raise KeyError(f"{name}: no such tensor in the model")
+        t = torch.as_tensor(np.asarray(v, dtype=np.float32))
         if tuple(t.shape) != tuple(own[key].shape):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{tuple(own[key].shape)}")
@@ -56,20 +58,32 @@ def from_named(named: dict, cfg: config_mod.RunConfig) -> AutoEncoder:
     return model
 
 
+def from_named(named: dict, cfg: config_mod.RunConfig) -> AutoEncoder:
+    """{reference dotted name: array} -> AutoEncoder holding those values."""
+    return load_into(AutoEncoder(cfg), named)
+
+
+def load_named(path: str):
+    """-> (step, {dotted name: tensor}, RunConfig) from an export file."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    return (int(payload["step"]), dict(payload["state"]),
+            config_mod.from_json(payload["run_config_json"]))
+
+
 def load_export(path: str):
     """-> (step, AutoEncoder on the CPU, RunConfig) from an export file."""
-    payload = torch.load(path, map_location="cpu", weights_only=True)
-    cfg = config_mod.from_json(payload["run_config_json"])
+    step, named, cfg = load_named(path)
     if cfg.model_kind != "autoencoder":
         raise NotImplementedError(
             f"model_kind={cfg.model_kind!r}: the port serves the autoencoder "
             "only (the MFCC inverter is a later slice, ROADMAP.md)")
-    named = {k: v.numpy() for k, v in payload["state"].items()}
-    return int(payload["step"]), from_named(named, cfg), cfg
+    return step, from_named({k: v.numpy() for k, v in named.items()}, cfg), cfg
 
 
 def save_export(path: str, model: AutoEncoder, cfg: config_mod.RunConfig,
-                step: int) -> None:
+                step: int, extra: dict | None = None) -> None:
+    """Write the export payload; ``extra`` adds named tensors (the
+    optimizer state).  The file appears atomically."""
     buffers = {k for k, _ in model.named_buffers()}
     state = {}
     for k, v in model.state_dict().items():
@@ -78,5 +92,9 @@ def save_export(path: str, model: AutoEncoder, cfg: config_mod.RunConfig,
         else:
             name = "params." + k
         state[name] = v.detach().float().cpu().contiguous()
+    for name, v in (extra or {}).items():
+        state[name] = v.detach().cpu().contiguous()
+    tmp = path + ".tmp"
     torch.save({"step": int(step), "run_config_json": config_mod.to_json(cfg),
-                "state": state}, path)
+                "state": state}, tmp)
+    os.replace(tmp, path)

@@ -17,15 +17,33 @@ power limit:
    per step;
 4. serving: the generate CLI on one clip (B = 1) of a synthetic dataset from
    an export-format checkpoint, then ``reconstruct`` on a batch of 64 clips,
-   with the kernel's launch counter showing the path went through it.
+   with the kernel's launch counter showing the path went through it;
+5. train-kernels: the four gated-stack kernels (``csrc/gated.cu``) against
+   their plain versions at the full ``chorowski`` width (seeded random
+   weights, every bias perturbed), each output, at B = 2 with 4,100 loss
+   samples (a ragged last tile) and again at the training path's shape
+   (B = 4, n_win = 48,000), where both are also timed; the whole stack
+   through ``GatedStack`` in all four schedules (logits and every
+   gradient); two faults planted in the plain version, which the same check
+   must reject;
+6. train: the train CLI, ``new --preset chorowski --pallas-stack`` at B = 4,
+   n_win = 48,000 for 6 steps and ``resume`` for 2 more (the main path:
+   pairs, saved y), then 2 steps of the single-layer schedule
+   (``--no-gated-fuse-pairs --no-gated-save-y``); the launch counters are
+   set to 0 before each run and read after it, and each gated kernel must
+   have launched once per segment per step on its path and no plain
+   version at all; median step time, samples/s, peak memory, and the
+   step's time split from CUDA events around its parts in 3 steps of one
+   ``Chassis`` run.
 
-Then one JSON line describing the kernel, and as the last line
+Then one JSON line describing the five kernels, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -49,6 +67,15 @@ CLI_SAMPLES = 4000      # B = 1 request
 BATCH = 64              # batched request
 BATCH_SAMPLES = 2000
 BATCH_WAV_LEN = 10200   # chorowski: cond frames for 2000 samples after rf
+STACK_B, STACK_T = 2, 4100       # phase 5 checks: 4100 = 64 * 64 + 4 (ragged)
+TRAIN_B, TRAIN_WIN = 4, 48000    # the training path's shape
+TRAIN_STEPS, RESUME_STEPS = 6, 2
+GATED = {  # wrapper -> the Pallas kernel it replaces
+    "gated_pair_fused": "ae_wavenet_tpu/ops/gated_pallas.py:217",
+    "gated_layer_fused": "ae_wavenet_tpu/ops/gated_pallas.py:105",
+    "gated_pair_bwd": "ae_wavenet_tpu/ops/gated_pallas.py:859",
+    "gated_layer_bwd": "ae_wavenet_tpu/ops/gated_pallas.py:643",
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -138,8 +165,6 @@ def phase_env(card: str) -> None:
         has_triton = "no"
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} | "
           f"nvcc: {nvcc_line} | triton: {has_triton} | card: {card}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
 
 def phase_build(card: str) -> None:
@@ -154,7 +179,26 @@ def phase_build(card: str) -> None:
           f" {_build.build_info['path']} | {' | '.join(ptxas)} | {card}")
 
 
+@contextlib.contextmanager
+def f32_numerics():
+    """TF32 off for this phase's f32 plain versions, restored after."""
+    import torch
+
+    old = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+
+
 def phase_kernel(card: str, dev) -> dict:
+    with f32_numerics():
+        return _phase_kernel(card, dev)
+
+
+def _phase_kernel(card: str, dev) -> dict:
     import torch
 
     from ae_wavenet_tpu_torch.models import autoencoder as ae
@@ -344,6 +388,315 @@ def phase_serve(card: str, dev, tmp: str) -> dict:
     return {"launches": k1 + k64}
 
 
+def cuda_s(fn) -> float:
+    """Device seconds of one fn() call (CUDA events)."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / 1e3
+
+
+def phase_train_kernels(card: str, dev) -> dict:
+    with f32_numerics():
+        return _phase_train_kernels(card, dev)
+
+
+def _phase_train_kernels(card: str, dev) -> dict:
+    import torch
+
+    from ae_wavenet_tpu_torch.ops import gated, gated_cuda as gc
+    from ae_wavenet_tpu_torch.ops import gated_check as chk
+    from ae_wavenet_tpu_torch.utils.config import chorowski_config
+
+    wcfg = chorowski_config().wavenet
+    wn, ids, cond, spk = chk.random_stack(wcfg, STACK_B, STACK_T, 0, dev)
+    dils, _, cond_tm, packed, xs, ys, cot = chk.segment_inputs(wn, wcfg, ids, cond, spk)
+    errs = {}
+    for name, (wrapper, call) in chk.segment_calls(dils, cond_tm, packed, xs, ys,
+                                                   cot).items():
+        got = call(getattr(gc, wrapper))
+        want = call(getattr(gated, wrapper + "_reference"))
+        torch.cuda.synchronize()
+        ab, rel = chk.compare_outputs(got, want)
+        check(all(bool(torch.isfinite(g.float()).all()) for g in got),
+              f"{name}: non-finite kernel output")
+        check(rel < chk.SEGMENT_REL_TOL,
+              f"{name} vs plain: {rel:.4g} of max|plain| (tol {chk.SEGMENT_REL_TOL})")
+        errs[wrapper] = max(errs.get(wrapper, 0.0), ab)
+        print(f"[train-kernels] {name} B={STACK_B} t_in={xs[0].shape[1]}: every "
+              f"output within {rel:.3g} of max|plain| (max|d| {ab:.4g}, tol "
+              f"{chk.SEGMENT_REL_TOL}) | {card}")
+    del xs, ys, cot
+
+    probe = torch.randn(STACK_B, STACK_T, wcfg.n_quant,
+                        generator=torch.Generator().manual_seed(3)).to(dev)
+    ref = None
+    for save_y in (True, False):
+        for pairs in (True, False):
+            lg_k, g_k = chk.stack_run(wn, wcfg, ids, cond, spk, probe, None,
+                                      save_y, pairs)
+            lg_p, g_p = chk.stack_run(wn, wcfg, ids, cond, spk, probe, gated.PLAIN,
+                                      save_y, pairs)
+            lg, rel = chk.stack_errors(lg_k, g_k, lg_p, g_p)
+            check(chk.stack_passes(lg, rel),
+                  f"stack save_y={save_y} pairs={pairs}: logits {lg:.4g} (tol "
+                  f"{chk.LOGIT_ABS_TOL}), grads {rel:.4g} (tol {chk.GRAD_REL_TOL})")
+            print(f"[train-kernels] GatedStack save_y={save_y} pairs={pairs}: logits "
+                  f"max|d| {lg:.4g} (tol {chk.LOGIT_ABS_TOL}), {len(g_k)} gradients "
+                  f"max|d| {rel:.4g} of max|plain| (tol {chk.GRAD_REL_TOL}) | {card}")
+            if save_y and pairs:
+                ref = (lg_k, g_k)
+    for name, (wn_bad, ops) in chk.planted_faults(wn, wcfg).items():
+        lg_f, g_f = chk.stack_run(wn_bad, wcfg, ids, cond, spk, probe, ops, True, True)
+        lg, rel = chk.stack_errors(*ref, lg_f, g_f)
+        check(not chk.stack_passes(lg, rel), f"planted fault '{name}' passes")
+        print(f"[train-kernels] planted fault '{name}' in the plain version: logits "
+              f"{lg:.4g}, grads {rel:.4g}: rejected | {card}")
+    del wn, ids, cond, spk, probe, ref
+
+    # at the training path's shape: each kernel against its plain version
+    # again (the full chunk count, halos reaching into the previous chunk,
+    # the full split-K), then both timed
+    wn, ids, cond, spk = chk.random_stack(wcfg, TRAIN_B, TRAIN_WIN, 1, dev)
+    dils, x0, cond_tm, packed, xs, ys, cot = chk.segment_inputs(wn, wcfg, ids, cond, spk)
+    times = {}
+    for name, (wrapper, call) in chk.segment_calls(dils, cond_tm, packed, xs, ys,
+                                                   cot).items():
+        kern, plain = getattr(gc, wrapper), getattr(gated, wrapper + "_reference")
+        got, want = call(kern), call(plain)
+        torch.cuda.synchronize()
+        ab, rel = chk.compare_outputs(got, want)
+        check(all(bool(torch.isfinite(g.float()).all()) for g in got),
+              f"{name} at B={TRAIN_B}: non-finite kernel output")
+        check(rel < chk.SEGMENT_REL_TOL,
+              f"{name} vs plain at B={TRAIN_B}: {rel:.4g} of max|plain| (tol "
+              f"{chk.SEGMENT_REL_TOL})")
+        errs[wrapper] = max(errs[wrapper], ab)
+        del got, want
+        timing = ""
+        if not name.endswith("recompute"):
+            k_ms = cuda_ms(lambda: call(kern), 3)
+            p_ms = cuda_ms(lambda: call(plain), 1)
+            times[wrapper] = (k_ms, p_ms)
+            timing = f"; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms"
+        print(f"[train-kernels] {name} B={TRAIN_B} t_in={x0.shape[1]}: every output "
+              f"within {rel:.3g} of max|plain| (max|d| {ab:.4g}, tol "
+              f"{chk.SEGMENT_REL_TOL}){timing} | {card}")
+    del xs, ys, cot
+    for label, ops in (("kernel", gated.kernel_ops()), ("plain", gated.PLAIN)):
+        sched = gated.Schedule(dils, True, True, ops)
+        out = {}
+        fwd = cuda_s(lambda: out.update(r=gated.run_forward(sched, x0, cond_tm,
+                                                            packed, True)))
+        skip, xs_s, ys_s = out["r"]
+        g_skip = torch.randn_like(skip) * 1e-3
+        bwd = cuda_s(lambda: gated.run_backward(sched, g_skip, xs_s, ys_s, cond_tm,
+                                                packed))
+        del out, skip, xs_s, ys_s
+        print(f"[train-kernels] stack {label} (pairs, saved y) B={TRAIN_B} t_in="
+              f"{x0.shape[1]}: forward {fwd * 1e3:.1f} ms, backward "
+              f"{bwd * 1e3:.1f} ms | {card}")
+    return {"errs": errs, "times": times}
+
+
+def _run_cli(argv) -> list[dict]:
+    """cli.train.main(argv) -> its JSON metric records (stdout captured)."""
+    from ae_wavenet_tpu_torch.cli import train as cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    check(rc == 0, f"train CLI returned {rc}")
+    recs = []
+    for ln in buf.getvalue().splitlines():
+        if ln.startswith('{"step"'):
+            recs.append(json.loads(ln))
+    for r in recs:
+        check(all(math.isfinite(v) for v in r.values() if isinstance(v, float)),
+              f"non-finite metrics: {r}")
+    return recs
+
+
+def _path_run(argv, expect: dict, card: str, label: str):
+    """One CLI run with every launch counter set to 0 just before it and
+    read just after: each gated kernel must have launched exactly
+    ``expect[name]`` times and no plain version at all.  -> (metric
+    records, launches by kernel)."""
+    import torch
+
+    from ae_wavenet_tpu_torch.ops import gated, gated_cuda as gc
+
+    kernels = [getattr(gc, n) for n in GATED]
+    plain = [getattr(gated, n + "_reference") for n in GATED]
+    for f in kernels + plain:
+        f.launches = 0
+    recs = _run_cli(argv)
+    torch.cuda.synchronize()
+    got = {f.__name__: f.launches for f in kernels}
+    plain_runs = {f.__name__: f.launches for f in plain}
+    check(got == expect, f"{label}: gated kernel launches {got}, expected {expect}")
+    check(not any(plain_runs.values()), f"{label}: plain versions ran {plain_runs}")
+    print(f"[train] {label}: launches {got}; plain versions {plain_runs} | {card}")
+    return recs, got
+
+
+class _Spans:
+    """Device milliseconds between CUDA events recorded just before and
+    just after each call of a wrapped function, summed per label."""
+
+    def __init__(self):
+        self.events = []
+
+    def wrap(self, label, fn):
+        import torch
+
+        def timed(*args, **kwargs):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args, **kwargs)
+            b.record()
+            self.events.append((label, a, b))
+            return out
+        return timed
+
+    def ms(self) -> dict:
+        import torch
+
+        torch.cuda.synchronize()
+        out: dict = {}
+        for label, a, b in self.events:
+            out[label] = out.get(label, 0.0) + a.elapsed_time(b)
+        return out
+
+
+def step_split(cfg, data: str, dev, n_steps: int = 3) -> dict:
+    """Where one training step's time goes, every number from the same
+    ``n_steps`` steps of ``Chassis.train`` (after one warm-up step): host
+    wall and loader wait per step, and device spans (CUDA events around
+    the calls, ms per step) of the whole step, the forward and loss, the
+    encoder, the upsampler, the stack's forward, the backward, the stack's
+    backward and the optimizer."""
+    from unittest import mock
+
+    import torch
+
+    from ae_wavenet_tpu_torch.models import autoencoder as ae
+    from ae_wavenet_tpu_torch.models import wavenet as twn
+    from ae_wavenet_tpu_torch.ops import gated
+    from ae_wavenet_tpu_torch.training import chassis
+
+    ch = chassis.Chassis(cfg, data, device=dev, log_stream=io.StringIO())
+    ch.train(1)
+    ch.stats.clear()
+    sp = _Spans()
+    targets = [(chassis, "train_step", "step"), (ae, "loss_fn", "forward"),
+               (ch.model.encoder, "forward", "encoder"),
+               (twn, "upsample_apply", "upsampler"),
+               (gated, "run_forward", "stack forward"),
+               (torch.Tensor, "backward", "backward"),
+               (gated, "run_backward", "stack backward"),
+               (ch.opt, "step", "optimizer")]
+    with contextlib.ExitStack() as stack:
+        for obj, attr, label in targets:
+            stack.enter_context(mock.patch.object(obj, attr,
+                                                  sp.wrap(label, getattr(obj, attr))))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ch.train(n_steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out = {k: v / n_steps for k, v in sp.ms().items()}
+    out["host step"] = wall * 1e3 / n_steps
+    out["loader wait"] = ch.stats.get("loader_wait", 0.0) * 1e3 / n_steps
+    return out
+
+
+def phase_train(card: str, dev, tmp: str) -> dict:
+    import statistics
+
+    import torch
+
+    from ae_wavenet_tpu_torch.data.dataset import make_synthetic_dataset
+    from ae_wavenet_tpu_torch.models import autoencoder as ae
+    from ae_wavenet_tpu_torch.ops import gated
+    from ae_wavenet_tpu_torch.utils.config import chorowski_config
+
+    data, ckpt = os.path.join(tmp, "train"), os.path.join(tmp, "ckpt")
+    cfg = chorowski_config()
+    u_len = ae.make_window_spec(cfg, TRAIN_WIN).u_len
+    make_synthetic_dataset(data, n_clips=8, n_speakers=8,
+                           clip_len=(u_len + 4000, u_len + 30000), seed=1)
+    n_layers = len(gated.stack_dils(cfg.wavenet))
+    check(n_layers % 2 == 0, f"{n_layers} layers: the pair schedule leaves one alone")
+
+    def expect(pairs: int, layers: int, steps: int) -> dict:
+        return {"gated_pair_fused": pairs * steps, "gated_layer_fused": layers * steps,
+                "gated_pair_bwd": pairs * steps, "gated_layer_bwd": layers * steps}
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    # the main path (pairs, saved y) at the CLI's default --device (cuda, no
+    # index), as a user runs it: new, then resume
+    common = ["--data", data, "--ckpt-dir", ckpt, "--log-every", "1"]
+    t0 = time.perf_counter()
+    new, n_new = _path_run(
+        ["new", "--preset", "chorowski", "--pallas-stack", "--batch-sz", str(TRAIN_B),
+         "--n-win", str(TRAIN_WIN), "--n-steps", str(TRAIN_STEPS), *common],
+        expect(n_layers // 2, 0, TRAIN_STEPS), card, "main path, new")
+    res, n_res = _path_run(["resume", "--n-steps", str(RESUME_STEPS), *common],
+                           expect(n_layers // 2, 0, RESUME_STEPS), card,
+                           "main path, resume")
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    check([r["step"] for r in new] == list(range(1, TRAIN_STEPS + 1)),
+          f"new run logged steps {[r['step'] for r in new]}")
+    check([r["step"] for r in res] == list(range(TRAIN_STEPS + 1,
+                                                 TRAIN_STEPS + RESUME_STEPS + 1)),
+          f"resumed run logged steps {[r['step'] for r in res]}")
+    ce = [r["recon_ce"] for r in new + res]
+    check(ce[-1] < ce[0], f"recon_ce did not fall: {ce}")
+    sps = [r["samples_per_sec"] for r in new[1:] + res[1:]]
+    step_s = statistics.median(TRAIN_B * TRAIN_WIN / v for v in sps)
+    print(f"[train] CLI new {TRAIN_STEPS} + resume {RESUME_STEPS} steps in {wall:.1f} "
+          f"s; recon_ce {' '.join(f'{v:.4f}' for v in ce)}; perplexity "
+          f"{new[-1]['perplexity']:.2f}, grad_norm {res[-1]['grad_norm']:.4g} | {card}")
+    print(f"[train] median step {step_s * 1e3:.1f} ms -> "
+          f"{TRAIN_B * TRAIN_WIN / step_s:.0f} samples/s (B={TRAIN_B}, n_win="
+          f"{TRAIN_WIN}); peak memory {peak:.2f} GiB | {card}")
+
+    # the single-layer path (--no-gated-fuse-pairs --no-gated-save-y)
+    alt, n_alt = _path_run(
+        ["new", "--preset", "chorowski", "--pallas-stack", "--no-gated-fuse-pairs",
+         "--no-gated-save-y", "--batch-sz", str(TRAIN_B), "--n-win", str(TRAIN_WIN),
+         "--n-steps", "2", "--data", data, "--ckpt-dir", os.path.join(tmp, "ckpt_alt"),
+         "--log-every", "1"],
+        expect(0, n_layers, 2), card, "single-layer path, new")
+    check(len(alt) == 2, f"single-layer run logged {len(alt)} steps")
+
+    cfg = dataclasses.replace(
+        cfg, train=dataclasses.replace(cfg.train, batch_sz=TRAIN_B, n_win=TRAIN_WIN),
+        wavenet=dataclasses.replace(cfg.wavenet, use_pallas_stack=True))
+    s = step_split(cfg, data, dev)
+    fwd_rest = s["forward"] - s["encoder"] - s["upsampler"] - s["stack forward"]
+    bwd_rest = s["backward"] - s["stack backward"]
+    print(f"[train] step split (B={TRAIN_B}, n_win={TRAIN_WIN}, 3 steps, ms per step; "
+          f"device spans from CUDA events): host step {s['host step']:.1f}, loader "
+          f"wait {s['loader wait']:.2f}; device step {s['step']:.1f} = forward and "
+          f"loss {s['forward']:.1f} (encoder {s['encoder']:.1f}, upsampler "
+          f"{s['upsampler']:.1f}, stack forward {s['stack forward']:.1f}, the rest "
+          f"{fwd_rest:.1f}) + backward {s['backward']:.1f} (stack backward "
+          f"{s['stack backward']:.1f}, the rest {bwd_rest:.1f}) + optimizer "
+          f"{s['optimizer']:.1f} | {card}")
+    launches = {n: n_new[n] + n_res[n] + n_alt[n] for n in GATED}
+    return {"launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -359,12 +712,22 @@ def main() -> int:
     k = phase_kernel(card, dev)
     with tempfile.TemporaryDirectory() as tmp:
         s = phase_serve(card, dev, tmp)
-    print(json.dumps({"kernels": [{
+    g = phase_train_kernels(card, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        t = phase_train(card, dev, tmp)
+    kernels = [{
         "name": "fastgen_bf16", "route": "cuda",
         "source": "ae_wavenet_tpu_torch/csrc/fastgen.cu",
         "replaces": "ae_wavenet_tpu/ops/fastgen_pallas.py:612",
         "launches": s["launches"], "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"], "plain_ms": k["plain_ms"]}]}))
+        "ms": k["ms"], "plain_ms": k["plain_ms"]}]
+    for name, replaces in GATED.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "ae_wavenet_tpu_torch/csrc/gated.cu", "replaces": replaces,
+            "launches": t["launches"][name], "max_abs_err": g["errs"][name],
+            "ms": g["times"][name][0], "plain_ms": g["times"][name][1]})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

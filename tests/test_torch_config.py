@@ -45,6 +45,9 @@ def test_port_imports_no_jax():
     """Neither jax nor the JAX package: the port and chip_smoke.py stand on
     their own on a machine that has neither."""
     code = ("import sys, ae_wavenet_tpu_torch.cli.generate, "
+            "ae_wavenet_tpu_torch.cli.train, ae_wavenet_tpu_torch.training.chassis, "
+            "ae_wavenet_tpu_torch.ops.gated_cuda, ae_wavenet_tpu_torch.ops.gated_check, "
+            "ae_wavenet_tpu_torch.data.loader, ae_wavenet_tpu_torch.cli.profile_serve, "
             "ae_wavenet_tpu_torch.ops.fastgen_cuda, "
             "ae_wavenet_tpu_torch.models.autoencoder, "
             "ae_wavenet_tpu_torch.training.weights, "

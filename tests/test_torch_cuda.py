@@ -1,4 +1,5 @@
-"""The CUDA sampler kernel against its plain version, on the card.
+"""The CUDA kernels against their plain versions, on the card: the sampler
+and the gated training stack.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip.  The file
 imports no jax, so on a machine with the card and without JAX it runs
@@ -113,3 +114,118 @@ def test_kernel_rejects_what_it_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="cpu"):
         tfc.generate_fused(packed, CFG, flat, state.prev_id.cpu(), state.t,
                            cond, 0, 0.0)
+
+
+# ------------------------------------------------ the gated training stack
+
+from ae_wavenet_tpu_torch.ops import gated as tgt  # noqa: E402
+from ae_wavenet_tpu_torch.ops import gated_check as gchk  # noqa: E402
+from ae_wavenet_tpu_torch.ops import gated_cuda as tgc  # noqa: E402
+
+# the tiny preset's widths (n_res 32, cond 32 + 8: not multiples of 64),
+# dilations up to 128 (above the kernels' 64-row tile), a ragged T
+GCFG = WaveNetConfig(n_blocks=1, n_block_layers=8, n_res=32, n_dil=32,
+                     n_skp=32, n_post=32, n_lc_in=16, n_lc_out=32,
+                     n_global_embed=8, n_speakers=10)
+SEGMENTS = ["gated_pair_fused", "gated_layer_fused", "gated_pair_bwd",
+            "gated_layer_bwd", "gated_layer_bwd_recompute"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SEGMENTS)
+def test_gated_kernel_matches_plain(cuda_device, name):
+    """Every output of each kernel within gchk.SEGMENT_REL_TOL of its plain
+    version's largest value, on the same inputs."""
+    wn, ids, cond, spk = gchk.random_stack(GCFG, 3, 150, 0, cuda_device)
+    dils, _, cond_tm, packed, xs, ys, cot = gchk.segment_inputs(wn, GCFG, ids,
+                                                                cond, spk)
+    wrapper, call = gchk.segment_calls(dils, cond_tm, packed, xs, ys, cot)[name]
+    fn = getattr(tgc, wrapper)
+    before = fn.launches
+    got = call(fn)
+    want = call(getattr(tgt, wrapper + "_reference"))
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert bool(torch.isfinite(g.float()).all())
+    _, rel = gchk.compare_outputs(got, want)
+    assert rel < gchk.SEGMENT_REL_TOL, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("save_y", [True, False])
+@pytest.mark.parametrize("fuse_pairs", [True, False])
+def test_gated_stack_matches_plain(cuda_device, save_y, fuse_pairs):
+    """The whole stack through GatedStack with the kernels against the same
+    schedule with the plain versions: logits and every gradient."""
+    wn, ids, cond, spk = gchk.random_stack(GCFG, 2, 150, 1, cuda_device)
+    probe = torch.randn(2, 150, GCFG.n_quant, device=cuda_device)
+    lg_k, g_k = gchk.stack_run(wn, GCFG, ids, cond, spk, probe, None, save_y,
+                               fuse_pairs)
+    lg_p, g_p = gchk.stack_run(wn, GCFG, ids, cond, spk, probe, tgt.PLAIN,
+                               save_y, fuse_pairs)
+    lg, rel = gchk.stack_errors(lg_k, g_k, lg_p, g_p)
+    assert gchk.stack_passes(lg, rel), (lg, rel)
+    for name, (wn_bad, ops) in gchk.planted_faults(wn, GCFG).items():
+        if "prev tap" in name and not fuse_pairs:
+            continue  # that fault sits in the pair kernel's plain version
+        lg_f, g_f = gchk.stack_run(wn_bad, GCFG, ids, cond, spk, probe, ops,
+                                   save_y, fuse_pairs)
+        assert not gchk.stack_passes(*gchk.stack_errors(lg_k, g_k, lg_f, g_f)), name
+
+
+@pytest.mark.cuda
+def test_loader_on_card_takes_the_cli_default_device(cuda_device, tmp_path):
+    """``--device cuda`` (no index) reaches the loader's producer thread."""
+    from ae_wavenet_tpu_torch.data.dataset import (PackedDataset, WindowSampler,
+                                                   make_synthetic_dataset)
+    from ae_wavenet_tpu_torch.data.loader import device_batches
+
+    prefix = str(tmp_path / "synth")
+    make_synthetic_dataset(prefix, n_clips=4, n_speakers=2, clip_len=(5000, 6000),
+                           seed=0)
+    sampler = WindowSampler(PackedDataset(prefix), 4000, 2, seed=1)
+    got = list(device_batches(sampler, 0, 4, "cuda", block=2))
+    assert [s for s, _ in got] == [0, 2]
+    for s, (wav, spk) in got:
+        assert wav.is_cuda and tuple(wav.shape) == (2, 2, 4000)
+        assert torch.equal(wav[1].cpu(), torch.from_numpy(sampler.batch_at(s + 1)[0]))
+
+
+@pytest.mark.cuda
+def test_encode_on_card_matches_cpu_with_reference_precision(cuda_device):
+    """With the CLIs' precision setting (utils/precision.py) the f32 encode
+    on the card (MFCC, encoder, VQ, upsampler through cuDNN) stays within
+    1e-4 of max |cond| of the same encode on the CPU, at the full
+    ``chorowski`` width; cuDNN's TF32 default is what it guards against."""
+    from ae_wavenet_tpu_torch.models import autoencoder as ae
+    from ae_wavenet_tpu_torch.utils.config import chorowski_config
+    from ae_wavenet_tpu_torch.utils.precision import set_reference_precision
+
+    old = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    set_reference_precision()
+    try:
+        cfg = chorowski_config()
+        model = ae.init(cfg, torch.Generator().manual_seed(1)).eval()
+        wav = (torch.randn(2, 32000, generator=torch.Generator().manual_seed(2))
+               * 4000).clamp(-32768, 32767).to(torch.int16)
+        with torch.no_grad():
+            want = ae.encode(model, cfg, wav)[0]
+            got = ae.encode(model.to(cuda_device), cfg, wav.to(cuda_device))[0].cpu()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_gated_kernels_reject_what_they_cannot_take(cuda_device):
+    wn, ids, cond, spk = gchk.random_stack(GCFG, 1, 40, 2, cuda_device)
+    dils, x0, cond_tm, packed, *_ = gchk.segment_inputs(wn, GCFG, ids, cond, spk)
+    skip = torch.zeros(*x0.shape[:2], GCFG.n_skp, device=cuda_device)
+    with pytest.raises(ValueError, match="x"):
+        tgc.gated_layer_fused(x0.float(), cond_tm, skip, *packed[0], dd=1, r0=1)
+    with pytest.raises(ValueError, match="cpu"):
+        tgc.gated_layer_fused(x0, cond_tm.cpu(), skip, *packed[0], dd=1, r0=1)

@@ -1,0 +1,258 @@
+"""The port's fused gated stack (``ops/gated.py``, through the CPU dispatch
+of ``ops/gated_cuda.py``) against the JAX package, on the CPU.
+
+Weights come from the JAX init (biases perturbed, so a dropped bias shows)
+and cross by their dotted names; inputs are made with numpy from a seed.
+Tolerances, from ``tests/test_gated_pallas.py``: forward max |d| < 0.02
+against the Pallas stack in interpret mode (bf16 reduction order);
+gradients within 0.05 of the largest and an RMS distance to the f32
+gradients under 3x the XLA bf16 stack's own (``:100,131``).  Each plain
+backward against the Pallas kernel on one segment: within 1e-2 of the
+largest value (the same rounding points, f32 sums in another order).
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from ae_wavenet_tpu.models import wavenet as jwn
+from ae_wavenet_tpu.ops import gated_pallas as gp
+from ae_wavenet_tpu.training.torch_compat import flatten_named
+from ae_wavenet_tpu.utils.config import WaveNetConfig as JW
+from ae_wavenet_tpu_torch.models import wavenet as twn
+from ae_wavenet_tpu_torch.ops import gated
+from ae_wavenet_tpu_torch.ops import gated_check
+from ae_wavenet_tpu_torch.utils.config import WaveNetConfig as TW
+
+KW = dict(n_blocks=1, n_block_layers=5, n_res=128, n_dil=128, n_skp=128,
+          n_post=128, n_lc_in=16, n_lc_out=64, n_speakers=8, n_global_embed=16)
+JCFG, TCFG = JW(**KW), TW(**KW)
+RF = jwn.receptive_field(JCFG)
+T_OUT, TILE, BATCH = 100, 64, 2
+FWD_TOL, GRAD_REL_TOL, SEG_TOL = 0.02, 0.05, 1e-2
+SCHEDULES = [(True, True), (True, False), (False, True), (False, False)]
+
+
+@functools.lru_cache(maxsize=None)
+def _setup():
+    params = jwn.init(jax.random.PRNGKey(0), JCFG)
+    rng = np.random.default_rng(0)
+    for layer in params["layers"]:
+        for tap in layer.values():
+            tap["b"] = jnp.asarray(rng.normal(size=tap["b"].shape) * 0.3, jnp.float32)
+    port = twn.WaveNet(TCFG)
+    port.load_state_dict({k: torch.tensor(np.asarray(v))
+                          for k, v in flatten_named(params).items()})
+    t_in = T_OUT + RF
+    ids = rng.integers(0, 256, (BATCH, t_in)).astype(np.int32)
+    cond = (rng.normal(size=(BATCH, KW["n_lc_out"], t_in)) * 0.5).astype(np.float32)
+    spk = rng.integers(0, KW["n_speakers"], (BATCH,)).astype(np.int32)
+    probe = rng.normal(size=(BATCH, 256, T_OUT)).astype(np.float32)
+    return params, port, ids, cond, spk, probe
+
+
+def _t(x, long=False):
+    t = torch.from_numpy(np.asarray(x))
+    return t.long() if long else t
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_grads():
+    """jax.grad of mean(logits * probe) through the XLA stack, bf16 and f32."""
+    params, _, ids, cond, spk, probe = _setup()
+
+    def loss(p, c, dt):
+        out = jwn.apply(p, JCFG, ids, c, spk, dtype=dt)
+        return jnp.mean(out.astype(jnp.float32) * probe)
+
+    out = {}
+    for name, dt in (("bf16", jnp.bfloat16), ("f32", jnp.float32)):
+        g = jax.jit(jax.grad(loss, argnums=(0, 1)), static_argnums=2)(
+            params, jnp.asarray(cond), dt)
+        out[name] = flatten_named({"p": g[0], "c": g[1]})
+    return out
+
+
+@pytest.mark.parametrize("save_y,fuse_pairs", SCHEDULES)
+def test_stack_forward_matches_pallas(save_y, fuse_pairs):
+    """Pair and single schedules, save_y on and off, an odd layer count."""
+    params, port, ids, cond, spk, _ = _setup()
+    want = gp.stack_apply(params, JCFG, ids, cond, spk, tile=TILE, interpret=True,
+                          fuse_pairs=fuse_pairs, save_y=save_y)
+    with torch.no_grad():
+        got = gated.stack_apply(port, TCFG, _t(ids, True), _t(cond), _t(spk, True),
+                                save_y=save_y, fuse_pairs=fuse_pairs)
+    assert got.shape == want.shape
+    d = np.abs(got.float().numpy() - np.asarray(want, np.float32)).max()
+    assert d < FWD_TOL, d
+
+
+@pytest.mark.parametrize("save_y,fuse_pairs", SCHEDULES)
+def test_stack_grads_match_xla(save_y, fuse_pairs):
+    _, port, ids, cond, spk, probe = _setup()
+    ref = _jax_grads()
+    port.zero_grad(set_to_none=True)
+    c = _t(cond).clone().requires_grad_(True)
+    out = gated.stack_apply(port, TCFG, _t(ids, True), c, _t(spk, True),
+                            save_y=save_y, fuse_pairs=fuse_pairs)
+    (out.float() * _t(probe)).mean().backward()
+    mine = {"p." + k: p.grad.numpy() for k, p in port.named_parameters()
+            if p.grad is not None}
+    mine["c"] = c.grad.numpy()
+    keys = sorted(ref["bf16"])
+    assert set(mine) <= set(keys)  # unused parameters (the upsampler) get none
+    flat = lambda g: np.concatenate(  # noqa: E731
+        [np.ravel(g[k]) if k in g else np.zeros(ref["bf16"][k].size) for k in keys])
+    fp, fx, f32 = flat(mine), flat(ref["bf16"]), flat(ref["f32"])
+    assert np.isfinite(fp).all()
+    assert np.abs(fp - fx).max() / np.abs(fx).max() < GRAD_REL_TOL
+    rms = lambda a: float(np.sqrt(((a - f32) ** 2).mean()))  # noqa: E731
+    assert rms(fp) < 3.0 * rms(fx) + 1e-8, (rms(fp), rms(fx))
+
+
+# ---------------------------------------- plain backward vs the Pallas kernels
+
+def _frame(t_in):
+    p_len = -(-t_in // TILE) * TILE
+    lpad = -(-512 // TILE) * TILE
+    return p_len, lpad, p_len - t_in
+
+
+def _jx(a: torch.Tensor, top: int, bottom: int = 0, ch: int | None = None):
+    """Port [B, P, C] -> the Pallas frame: ``top`` rows above, ``bottom``
+    below, channels zero-padded to ``ch``."""
+    a = a.float().numpy() if a.dtype == torch.bfloat16 else a.numpy()
+    c = a.shape[-1] if ch is None else ch
+    a = np.pad(a, ((0, 0), (top, bottom), (0, c - a.shape[-1])))
+    return jnp.asarray(a)
+
+
+def _segment():
+    params, port, ids, cond, spk, _ = _setup()
+    dils, _, cond_tm, packed, xs, ys, cot = gated_check.segment_inputs(
+        port, TCFG, _t(ids, True), _t(cond), _t(spk, True))
+    t_in = xs[0].shape[1]
+    p_len, lpad, off = _frame(t_in)
+    ncp = -(-cond_tm.shape[-1] // 128) * 128
+    j = dict(cond=_jx(cond_tm, off, ch=ncp).astype(jnp.bfloat16),
+             gxcur=_jx(cot["gxcur"], lpad + off).astype(jnp.bfloat16),
+             gxprev=_jx(cot["gxprev"], lpad + off, 512).astype(jnp.bfloat16),
+             gskip=_jx(cot["gskip"], off).astype(jnp.bfloat16),
+             gcond=_jx(cot["gcond"], off, ch=ncp))
+    jpk = gp.pack_stack_weights(params, JCFG)
+    return dils, cond_tm, packed, xs, ys, cot, j, jpk, (p_len, lpad, off, ncp)
+
+
+def _cmp_rows(got: torch.Tensor, want, lo: int, top: int):
+    """Rows [lo, P) of a port buffer against the same rows of the Pallas one."""
+    w = np.asarray(want, np.float32)[:, top + lo : top + got.shape[1]]
+    g = got.float().numpy()[:, lo:]
+    return np.abs(g[..., : w.shape[-1]] - w[..., : g.shape[-1]]).max() / np.abs(w).max()
+
+
+def _cmp_dw(got, want, n_in, ncp):
+    """Weight gradients: the Pallas w_in rows carry zero-padded cond rows."""
+    dwi = np.asarray(want[0])
+    n_cond = got[0].shape[0] - n_in
+    dwi = np.concatenate([dwi[:n_in], dwi[n_in : n_in + n_cond]])
+    pairs = [(got[0], dwi)] + [(g, np.asarray(w).reshape(g.shape))
+                                for g, w in zip(got[1:], want[1:])]
+    return max(np.abs(g.numpy() - w).max() / np.abs(w).max() for g, w in pairs)
+
+
+@pytest.mark.parametrize("saved", [True, False])
+def test_plain_layer_bwd_matches_pallas(saved):
+    """One layer below the top (its upstream prev-tap cotangent is read),
+    saved-y and recompute modes."""
+    dils, cond_tm, packed, xs, ys, cot, j, jpk, (p_len, lpad, off, ncp) = _segment()
+    i = len(dils) - 2
+    vl, cur_vl = gated.valid_lo(dils, i), gated.valid_lo(dils, i + 1)
+    c = {k: v.clone() for k, v in cot.items()}
+    w_in, b_in, w_out, _ = packed[i]
+    got = gated.gated_layer_bwd_reference(
+        xs[i], cond_tm, c["gxcur"], c["gxprev"], c["gskip"], c["gcond"], w_in,
+        w_out, b_in, dd=dils[i], prev_dd=dils[i + 1], valid_lo=vl,
+        cur_valid_lo=cur_vl, y_saved=ys[i] if saved else None)
+    jw_in, jb_in, jw_out, _ = jpk[i]
+    want = gp.gated_layer_bwd(
+        _jx(xs[i], lpad + off).astype(jnp.bfloat16), j["cond"], j["gxcur"],
+        j["gxprev"], j["gskip"], j["gcond"], jw_in, jw_out, jb_in, dd=dils[i],
+        prev_dd=dils[i + 1], t_min=(off + vl) // TILE, valid_lo=off + vl,
+        cur_valid_lo=off + cur_vl, tile=TILE, interpret=True,
+        y_saved=_jx(ys[i], off).astype(jnp.bfloat16) if saved else None)
+    n_in = 2 * KW["n_res"]
+    errs = [_cmp_rows(got[0], want[0], vl, lpad + off),
+            _cmp_rows(got[1], want[1], vl, lpad + off),
+            _cmp_rows(got[2], want[2], 0, off),
+            _cmp_dw(got[3:], want[3:], n_in, ncp)]
+    assert max(errs) < SEG_TOL, errs
+
+
+def test_plain_pair_bwd_matches_pallas():
+    """The pair below the top layer: layer 2's f32 cotangent to layer 1,
+    its cross-tile head, and the upstream prev-tap cotangent."""
+    dils, cond_tm, packed, xs, ys, cot, j, jpk, (p_len, lpad, off, ncp) = _segment()
+    i = len(dils) - 3
+    vl1, vl2 = gated.valid_lo(dils, i), gated.valid_lo(dils, i + 1)
+    cur_vl = gated.valid_lo(dils, i + 2)
+    c = {k: v.clone() for k, v in cot.items()}
+    got = gated.gated_pair_bwd_reference(
+        xs[i], xs[i + 1], cond_tm, c["gxcur"], c["gxprev"], c["gskip"], c["gcond"],
+        packed[i], packed[i + 1], ys[i], ys[i + 1], dd1=dils[i], dd2=dils[i + 1],
+        prev_dd=dils[i + 2], valid_lo1=vl1, valid_lo2=vl2, cur_valid_lo=cur_vl)
+    xj = [_jx(xs[k], lpad + off).astype(jnp.bfloat16) for k in (i, i + 1)]
+    yj = [_jx(ys[k], off).astype(jnp.bfloat16) for k in (i, i + 1)]
+    want = gp.gated_pair_bwd(
+        xj[0], xj[1], j["cond"], j["gxcur"], j["gxprev"], j["gskip"], j["gcond"],
+        jpk[i], jpk[i + 1], yj[0], yj[1], dd1=dils[i], dd2=dils[i + 1],
+        prev_dd=dils[i + 2], t_min=(off + vl1) // TILE, valid_lo1=off + vl1,
+        valid_lo2=off + vl2, cur_valid_lo=off + cur_vl, tile=TILE, interpret=True)
+    n_in = 2 * KW["n_res"]
+    errs = [_cmp_rows(got[0], want[0], vl1, lpad + off),
+            _cmp_rows(got[1], want[1], vl1, lpad + off),
+            _cmp_rows(got[2], want[2], 0, off),
+            _cmp_dw(got[3:7], want[3:7], n_in, ncp),
+            _cmp_dw(got[7:11], want[7:11], n_in, ncp)]
+    assert max(errs) < SEG_TOL, errs
+
+
+def test_plain_forward_kernels_match_pallas():
+    """The pair and single-layer forward on the top segment: x' (and mid),
+    skip and the saved y on the valid rows."""
+    dils, cond_tm, packed, xs, ys, cot, j, jpk, (p_len, lpad, off, ncp) = _segment()
+    n = len(dils)
+    i = n - 3
+    gen = torch.Generator().manual_seed(5)
+    skip = torch.randn(*xs[0].shape[:2], KW["n_skp"], generator=gen)
+    got = gated.gated_pair_fused_reference(
+        xs[i], cond_tm, skip.clone(), packed[i], packed[i + 1], dd1=dils[i],
+        dd2=dils[i + 1], r0=gated.valid_lo(dils, i), save_y=True)
+    want = gp.gated_pair_fused(
+        _jx(xs[i], lpad + off).astype(jnp.bfloat16), j["cond"], _jx(skip, off),
+        jpk[i], jpk[i + 1], dd1=dils[i], dd2=dils[i + 1],
+        t_min=(off + gated.valid_lo(dils, i)) // TILE, tile=TILE, interpret=True,
+        save_y=True)
+    vl2 = gated.valid_lo(dils, i + 1)
+    errs = [_cmp_rows(got[0], want[0], gated.valid_lo(dils, i), lpad + off),
+            _cmp_rows(got[1], want[1], vl2, lpad + off),
+            _cmp_rows(got[2], want[2], gated.valid_lo(dils, n - 1), off),
+            _cmp_rows(got[3], want[3], gated.valid_lo(dils, i), off),
+            _cmp_rows(got[4], want[4], vl2, off)]
+    k = n - 1
+    got1 = gated.gated_layer_fused_reference(
+        xs[k], cond_tm, skip.clone(), *packed[k], dd=dils[k],
+        r0=gated.valid_lo(dils, k), save_y=True)
+    w_in, b_in, w_out, b_out = jpk[k]
+    want1 = gp.gated_layer_fused(
+        _jx(xs[k], lpad + off).astype(jnp.bfloat16), j["cond"], _jx(skip, off),
+        w_in, b_in, w_out, b_out, dd=dils[k],
+        t_min=(off + gated.valid_lo(dils, k)) // TILE, tile=TILE, interpret=True,
+        save_y=True)
+    errs += [_cmp_rows(g, w, gated.valid_lo(dils, k), top)
+             for g, w, top in zip(got1, want1, (lpad + off, off, off))]
+    assert max(errs) < SEG_TOL, errs
