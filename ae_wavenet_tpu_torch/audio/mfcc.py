@@ -88,15 +88,26 @@ def _constants(cfg: SpecConfig, device: str):
     return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
 
 
+def _log_mel(wav: torch.Tensor, cfg: SpecConfig, c: dict) -> torch.Tensor:
+    """wav [..., T] -> log-mel frames [..., F, n_mels] (valid frames)."""
+    frames = wav.unfold(-1, cfg.win_sz, cfg.hop_sz)  # [..., F, win]
+    fw = frames * c["window"]
+    power = torch.square(fw @ c["cos"]) + torch.square(fw @ c["sin"])
+    return torch.log(torch.clamp(power @ c["mel_t"], min=1e-10))
+
+
+def log_mel_frames(wav: torch.Tensor, cfg: SpecConfig) -> torch.Tensor:
+    """wav [..., T] float32 -> log-mel spectrogram [..., n_mels, F]: the
+    MFCC frontend stopped before the DCT (the quality metric's
+    representation, eval/quality.py)."""
+    return _log_mel(wav, cfg, _constants(cfg, str(wav.device))).transpose(-1, -2)
+
+
 def mfcc_frames(wav: torch.Tensor, cfg: SpecConfig) -> torch.Tensor:
     """wav [..., T] float32 -> MFCC [..., n_mfcc, F] with
     F = (T - win_sz)//hop + 1 (valid frames, no padding)."""
     c = _constants(cfg, str(wav.device))
-    frames = wav.unfold(-1, cfg.win_sz, cfg.hop_sz)  # [..., F, win]
-    fw = frames * c["window"]
-    power = torch.square(fw @ c["cos"]) + torch.square(fw @ c["sin"])
-    logmel = torch.log(torch.clamp(power @ c["mel_t"], min=1e-10))
-    return (logmel @ c["dct_t"]).transpose(-1, -2)
+    return (_log_mel(wav, cfg, c) @ c["dct_t"]).transpose(-1, -2)
 
 
 def _delta(x: torch.Tensor, wing: int) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """CLI: reconstruction from a checkpoint on the GPU (fast-queue path).
 
     python -m ae_wavenet_tpu_torch.cli.generate --ckpt MODEL.pt --data PREFIX \
-        [--clip I] [--n-samples N] [--temperature T] [--device cuda] --out out.wav
+        [--clip I] [--n-samples N] [--temperature T] [--int8 | --int4] \
+        [--device cuda] --out out.wav
 
 ``--ckpt`` is an export file: ``training/weights.save_export`` writes one,
 and ``ae_wavenet_tpu.training.torch_compat.export_torch`` converts a JAX
@@ -27,9 +28,10 @@ def main(argv=None) -> int:
     p.add_argument("--temperature", type=float, default=1.0,
                    help="sampling temperature (0 = greedy)")
     p.add_argument("--int8", action="store_true",
-                   help="int8 weight streaming (not ported yet: raises)")
+                   help="sample with int8 layer weights and int8 activations")
     p.add_argument("--int4", action="store_true",
-                   help="int4 weight streaming (not ported yet: raises)")
+                   help="sample with nibble-packed int4 layer weights (int8 "
+                        "activations); takes precedence over --int8")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' fails when there is no card")
@@ -45,10 +47,6 @@ def main(argv=None) -> int:
     from ae_wavenet_tpu_torch.training.weights import load_export
     from ae_wavenet_tpu_torch.utils.wavio import write_wav
 
-    if a.int8 or a.int4:
-        raise NotImplementedError(
-            "--int8/--int4: the quantized branches of the sampler are not "
-            "ported yet (ROADMAP.md, TPU kernels still to port)")
     device = torch.device(a.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
@@ -66,7 +64,8 @@ def main(argv=None) -> int:
     ids, start = autoencoder.reconstruct(
         model, cfg, wav.to(device), spk.to(device),
         torch.Generator().manual_seed(a.seed), temperature=a.temperature,
-        n_samples=a.n_samples, timings=timings)
+        n_samples=a.n_samples, timings=timings,
+        quantized="int4" if a.int4 else a.int8)
     out = mu_decode(ids, cfg.wavenet.n_quant)[0].cpu().numpy()
     write_wav(a.out, out, cfg.spec.sample_rate)
     gen_s = timings["generate"]

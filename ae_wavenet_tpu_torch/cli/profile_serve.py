@@ -1,12 +1,13 @@
 """Device idle share of each serving phase on the GPU.
 
     python -m ae_wavenet_tpu_torch.cli.profile_serve [--batch 1 64] \
-        [--steps 256] [--json PATH]
+        [--steps 256] [--int8 | --int4] [--json PATH]
 
 Seeded random weights at the full width of the ``chorowski`` preset.  For
 each batch size, each phase runs once to warm up and once under
 ``torch.profiler``: encode of one second of audio, prime over ``--steps``
-context ids, and the fused sampler over ``--steps`` samples.  Per phase it
+context ids, and the fused sampler over ``--steps`` samples (bf16 weights,
+or int8 / int4 with ``--int8`` / ``--int4``).  Per phase it
 prints the host wall seconds, the device busy seconds (the union of the
 device-side intervals the profiler records), their count, and the idle
 share 1 - busy / wall.  The profiler's own host cost inflates wall time,
@@ -58,6 +59,9 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--batch", type=int, nargs="+", default=[1, 64])
     p.add_argument("--steps", type=int, default=256)
+    p.add_argument("--int8", action="store_true", help="the int8 sampler")
+    p.add_argument("--int4", action="store_true",
+                   help="the int4 sampler (takes precedence over --int8)")
     p.add_argument("--json", help="also write the results to this file")
     a = p.parse_args(argv)
 
@@ -75,7 +79,8 @@ def main(argv=None) -> int:
     wcfg = cfg.wavenet
     gen = torch.Generator().manual_seed(0)
     model = ae.init(cfg, gen, dev).eval()
-    packed = fc.pack_for_kernel(model.wavenet, wcfg)
+    mode = "int4" if a.int4 else "int8" if a.int8 else None
+    packed = fc.PACKERS[mode](model.wavenet, wcfg)
     n_cond = wcfg.n_lc_out + wcfg.n_global_embed
     rows = []
     for b in a.batch:
@@ -91,8 +96,8 @@ def main(argv=None) -> int:
             "encode 1 s": lambda: ae.encode(model, cfg, wav),
             f"prime {a.steps} steps": lambda: fg.prime(
                 model.wavenet, wcfg, fg.init_state(wcfg, b, device=dev), ids, cond),
-            f"sampler {a.steps} steps": lambda: fc.generate_fused(
-                packed, wcfg, ring, prev, 0, gcond, 5, 1.0),
+            f"sampler ({mode or 'bf16'}) {a.steps} steps": lambda: fc.generate_fused(
+                packed, wcfg, ring, prev, 0, gcond, 5, 1.0, quantized=mode),
         }
         for name, fn in phases.items():
             r = {"batch": b, "phase": name, **profile(fn)}
@@ -102,7 +107,8 @@ def main(argv=None) -> int:
                   f"idle {100 * r['idle_share']:.2f}%")
     if a.json:
         with open(a.json, "w") as f:
-            json.dump({"card": torch.cuda.get_device_name(0), "rows": rows}, f, indent=1)
+            json.dump({"card": torch.cuda.get_device_name(0),
+                       "weights": mode or "bf16", "rows": rows}, f, indent=1)
     return 0
 
 

@@ -12,10 +12,9 @@ Checkpoints are export files ``DIR/step_XXXXXXXX.pt``.  Flags of the
 reference left out until their modules are ported (ROADMAP.md): ``--mesh``,
 ``--distributed`` (and its ``--coordinator``/``--num-processes``/
 ``--process-id``), ``--profile-steps``/``--profile-dir`` and
-``--tb-logdir``.  ``--gated-full-fusion``, ``--gated-bwd-group >= 3`` and
-``--vq-use-pallas`` select TPU kernels not ported yet, and ``--ckpt-keep N``
-(N > 0) selects checkpoint retention, not ported yet: each raises
-``NotImplementedError``.
+``--tb-logdir``.  ``--gated-full-fusion`` and ``--gated-bwd-group >= 3``
+select TPU kernels not ported yet, and ``--ckpt-keep N`` (N > 0) selects
+checkpoint retention, not ported yet: each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -78,7 +77,8 @@ def build_parser() -> argparse.ArgumentParser:
                  "aux-frame-weight", "grad-clip"):
         new.add_argument(f"--{flag}", type=float, default=None)
     new.add_argument("--vq-use-pallas", action="store_true", default=None,
-                     help="fused VQ kernel (not ported yet: raises)")
+                     help="the fused VQ lookup (a CUDA kernel on the card; "
+                          "vq_groups = 1)")
     new.add_argument("--lc-upsample-strides", type=_int_tuple, default=None)
     new.add_argument("--lc-upsample-filters", type=_int_tuple, default=None)
     new.add_argument("--lr-boundaries", type=_int_tuple, default=None)
@@ -165,10 +165,6 @@ def check_ported(cfg: config_mod.RunConfig) -> None:
             f"ckpt_keep={cfg.train.ckpt_keep}: keep-last-N checkpoint retention is "
             "not ported yet (ROADMAP.md, item 5: checkpoints); --ckpt-keep 0 keeps "
             "every checkpoint")
-    if cfg.bottleneck.vq_use_pallas:
-        raise NotImplementedError(
-            "--vq-use-pallas: the fused VQ kernel (K9, ops/vq_pallas.py:66 "
-            "vq_lookup_fused) is not ported yet (ROADMAP.md, TPU kernels)")
     from ae_wavenet_tpu_torch.ops.gated import check_schedule
 
     if cfg.wavenet.use_pallas_stack:

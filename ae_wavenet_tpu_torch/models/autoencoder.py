@@ -94,11 +94,11 @@ def encode(model: AutoEncoder, cfg: RunConfig, wav_i16: torch.Tensor):
 def reconstruct(model: AutoEncoder, cfg: RunConfig, wav_i16: torch.Tensor,
                 spk: torch.Tensor, generator: torch.Generator | None = None,
                 temperature: float = 1.0, n_samples: int | None = None,
-                timings: dict | None = None):
+                timings: dict | None = None, quantized=False):
     """Autoencode a whole utterance: encode -> prime on real left context ->
     sample.  Returns (ids [B, n], start); see models/common.reconstruct."""
     return common.reconstruct(encode, model, cfg, wav_i16, spk, generator,
-                              temperature, n_samples, timings)
+                              temperature, n_samples, timings, quantized)
 
 
 def compute_dtype(cfg: RunConfig) -> torch.dtype:

@@ -12,6 +12,10 @@ updates them in place.  The random draws are optional inputs (``draws``:
 ``jitter_u`` [B, 1, Tz] uniforms, ``restart_idx`` [G, K] batch-vector
 indices, ``eps`` [B, D, Tz] normals), so a test can feed both packages
 the same numbers; absent ones come from ``generator``.
+
+With ``cfg.vq_use_pallas`` (G = 1) the nearest codes, the looked-up rows and
+the EMA counts and sums come from the fused kernel ``ops/vq_cuda.py`` on the
+detached latents; everything after them is the same code.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ae_wavenet_tpu_torch.ops.vq_cuda import vq_lookup_fused
 from ae_wavenet_tpu_torch.utils.config import BottleneckConfig
 
 
@@ -136,17 +141,27 @@ class VQBottleneck(nn.Module):
               + eg.square().sum(2)[:, None, :])
         return d2.argmin(2)
 
+    def _fused(self, zf: torch.Tensor):
+        """(codes [N] int32, q [N, D], counts [K], sums [K, D]) from the
+        fused kernel on the detached f32 latents."""
+        return vq_lookup_fused(zf.detach().float().contiguous(), self.codebook)
+
     def codes(self, z: torch.Tensor) -> torch.Tensor:
         """Nearest code per group: [G, B*T] (rows ordered (b, t))."""
-        _, zg, eg = self._grouped(z)
+        zf, zg, eg = self._grouped(z)
+        if self.cfg.vq_use_pallas:
+            return self._fused(zf)[0].long()[None]
         return self._nearest(zg, eg)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         b, d, t = z.shape
         zf, zg, eg = self._grouped(z)
-        idx = self._nearest(zg, eg)
-        qg = torch.gather(eg, 1, idx[..., None].expand(-1, -1, eg.shape[-1]))
-        q = qg.permute(1, 0, 2).reshape(b * t, d)
+        if self.cfg.vq_use_pallas:
+            q = self._fused(zf)[1]
+        else:
+            idx = self._nearest(zg, eg)
+            qg = torch.gather(eg, 1, idx[..., None].expand(-1, -1, eg.shape[-1]))
+            q = qg.permute(1, 0, 2).reshape(b * t, d)
         # the reference's straight-through value zf + (q - zf), kept as is
         # so the conditioning matches it to the last bit
         zq = zf + (q - zf)
@@ -163,12 +178,16 @@ class VQBottleneck(nn.Module):
         n_vec = b * t
         with torch.no_grad():
             zg_sg = zg.detach()
-            idx = self._nearest(zg_sg, eg)
-            onehot = F.one_hot(idx, cfg.vq_k).float()            # [G, N, K]
-            qg = torch.einsum("gnk,gkd->gnd", onehot, eg)
-            q = qg.permute(1, 0, 2).reshape(n_vec, d)
-            counts = onehot.sum(1)                                # [G, K]
-            sums = torch.einsum("gnk,gnd->gkd", onehot, zg_sg)
+            if cfg.vq_use_pallas:
+                _, q, counts, sums = self._fused(zf)
+                counts, sums = counts[None], sums[None]
+            else:
+                idx = self._nearest(zg_sg, eg)
+                onehot = F.one_hot(idx, cfg.vq_k).float()        # [G, N, K]
+                qg = torch.einsum("gnk,gkd->gnd", onehot, eg)
+                q = qg.permute(1, 0, 2).reshape(n_vec, d)
+                counts = onehot.sum(1)                            # [G, K]
+                sums = torch.einsum("gnk,gnd->gkd", onehot, zg_sg)
             grp = self.codebook.dim() == 3
             cnt = self.ema_counts if grp else self.ema_counts[None]
             sm = self.ema_sums if grp else self.ema_sums[None]
@@ -223,9 +242,5 @@ def make(cfg: BottleneckConfig, generator: torch.Generator | None = None) -> nn.
     if cfg.kind == "vae":
         return VAEBottleneck(cfg, generator)
     if cfg.kind == "vq":
-        if cfg.vq_use_pallas:
-            raise NotImplementedError(
-                "vq_use_pallas: the fused VQ kernel (K9, ops/vq_pallas.py:66 "
-                "vq_lookup_fused) is not ported yet (ROADMAP.md, TPU kernels)")
         return VQBottleneck(cfg, generator)
     raise ValueError(f"unknown bottleneck kind {cfg.kind!r}")

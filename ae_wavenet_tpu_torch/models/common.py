@@ -187,16 +187,17 @@ def reconstruct(encode_fn: EncodeFn, model: torch.nn.Module, cfg: RunConfig,
                 wav_i16: torch.Tensor, spk: torch.Tensor,
                 generator: torch.Generator | None = None,
                 temperature: float = 1.0, n_samples: int | None = None,
-                timings: dict | None = None):
+                timings: dict | None = None, quantized=False):
     """:func:`prime_for_generation`, then sample autoregressively with the
-    fused sampler.  Returns (mu-law ids [B, n], start): the output
-    corresponds to input positions [start, start + n).  ``timings`` also
-    receives the seconds of "generate"."""
+    fused sampler (``quantized``: False, True/'int8' or 'int4' weights).
+    Returns (mu-law ids [B, n], start): the output corresponds to input
+    positions [start, start + n).  ``timings`` also receives the seconds of
+    "generate"."""
     prep = prime_for_generation(encode_fn, model, cfg, wav_i16, spk,
                                 n_samples, timings)
     t = time.perf_counter()
     out, _ = generate_auto(model.wavenet, cfg.wavenet, prep.state,
                            prep.gen_cond, generator, gc_ids=spk,
-                           temperature=temperature)
+                           temperature=temperature, quantized=quantized)
     _lap(timings, "generate", t, wav_i16.device)
     return out, prep.start

@@ -3,9 +3,11 @@
 Counterpart of ``ae_wavenet_tpu.ops.fastgen`` (Fast WaveNet,
 arXiv:1611.09482): each dilated layer keeps a queue of its last
 ``dilation`` input activations, so one new sample costs one matmul pass
-through the stack.  This module holds the state, the plain f32 cell and
-:func:`prime`, which warms the queues on real context.  Sampling runs in
-``ops/fastgen_cuda.py``.
+through the stack.  This module holds the state, the plain f32 cell,
+:func:`prime`, which warms the queues on real context, and the eager f32
+samplers :func:`generate` (the quality eval's rollout and the fused
+sampler's oracle) and :func:`generate_naive` (the O(receptive field) per
+sample oracle).  The fused sampler runs in ``ops/fastgen_cuda.py``.
 
 State layout per layer l: buf [B, n_res, d_l] f32 holding the layer's input
 activation at positions t-1 .. t-d_l (circular, index t mod d_l), as in the
@@ -114,3 +116,74 @@ def prime(wavenet: WaveNet, cfg: WaveNetConfig, state: GenState,
         _cell(packed, cfg, st, ids[:, j], cond_tm[j])
         st = GenState(st.bufs, ids[:, j], st.t + 1)
     return GenState(st.bufs, ids[:, -1], st.t)
+
+
+def _draw(logits: torch.Tensor, temperature: float,
+          generator: torch.Generator | None) -> torch.Tensor:
+    """Next ids [B] from logits [B, Q]: argmax at temperature 0, else a
+    categorical draw from softmax(logits / temperature) by Gumbel-max, the
+    uniforms taken from ``generator`` on its own device."""
+    if temperature == 0.0:
+        return torch.argmax(logits, -1)
+    u_dev = logits.device if generator is None else generator.device
+    u = torch.rand(logits.shape, generator=generator, device=u_dev).to(logits.device)
+    g = -torch.log(-torch.log(u.clamp_min(1e-20)))
+    return torch.argmax(logits / temperature + g, -1)
+
+
+@torch.no_grad()
+def generate(wavenet: WaveNet, cfg: WaveNetConfig, state: GenState,
+             cond: torch.Tensor, generator: torch.Generator | None = None,
+             gc_ids: torch.Tensor | None = None, n_steps: int | None = None,
+             temperature: float = 1.0, return_logits: bool = False):
+    """Sample ``n_steps`` (default: the cond length) mu-law ids with the f32
+    cell, one eager step per sample.
+
+    cond: [B, n_lc_out, T]; column p conditions the step that consumes the
+    sample at position p (the training lattice).  The queues of ``state``
+    are updated in place.  Returns (ids [B, T] int32, final state) and, with
+    ``return_logits``, the per-step logits [B, n_quant, T]: the free-running
+    predictive distributions that eval/quality scores ground truth under."""
+    t_len = cond.shape[-1] if n_steps is None else n_steps
+    if t_len > cond.shape[-1]:
+        raise ValueError(f"n_steps={t_len} exceeds the {cond.shape[-1]} "
+                         "conditioning columns provided")
+    cond_tm = with_gc(wavenet, cfg, cond[..., :t_len], gc_ids).permute(2, 0, 1)
+    packed = pack_params(wavenet, cfg)
+    st, ids, all_logits = state, [], []
+    for j in range(t_len):
+        logits = _cell(packed, cfg, st, st.prev_id, cond_tm[j])
+        nxt = _draw(logits, temperature, generator)
+        st = GenState(st.bufs, nxt, st.t + 1)
+        ids.append(nxt.to(torch.int32))
+        if return_logits:
+            all_logits.append(logits)
+    out = (torch.stack(ids, 1), st)
+    return out + (torch.stack(all_logits, 2),) if return_logits else out
+
+
+@torch.no_grad()
+def generate_naive(wavenet: WaveNet, cfg: WaveNetConfig, ctx_ids: torch.Tensor,
+                   cond: torch.Tensor, generator: torch.Generator | None = None,
+                   gc_ids: torch.Tensor | None = None, n_steps: int = 16,
+                   temperature: float = 1.0) -> torch.Tensor:
+    """O(receptive field) per sample: re-runs the teacher-forcing stack for
+    every emitted sample.  A test oracle only.
+
+    ctx_ids: [B, rf + 1], the window of AR inputs for which ``apply`` emits
+    exactly one logit column; cond: [B, n_lc_out, rf + 1 + n_steps] aligned
+    with the consumed inputs.  Returns ids [B, n_steps] int32."""
+    from ae_wavenet_tpu_torch.models import wavenet as wn
+
+    rf = wn.receptive_field(cfg)
+    if ctx_ids.shape[-1] != rf + 1:
+        raise ValueError(f"ctx_ids has {ctx_ids.shape[-1]} samples, need rf + 1 = "
+                         f"{rf + 1}")
+    ids, out = ctx_ids, []
+    for j in range(n_steps):
+        logits = wn.apply(wavenet, cfg, ids[..., -(rf + 1):],
+                          cond[..., j : j + rf + 1], gc_ids)
+        nxt = _draw(logits[..., -1], temperature, generator)
+        out.append(nxt.to(torch.int32))
+        ids = torch.cat([ids, nxt[:, None].to(ids.dtype)], -1)
+    return torch.stack(out, 1)

@@ -9,16 +9,27 @@ power limit:
 
 1. environment: torch, CUDA, nvcc, triton, the card;
 2. build: compiles ae_wavenet_tpu_torch/csrc/*.cu from this checkout;
-3. the fused sampler kernel against its plain PyTorch version at the full
-   width of the ``chorowski`` preset (seeded random weights, ring primed on
-   2047 context ids, B = 8): greedy ids and logits (and two faults planted
+3. the fused sampler kernels against their plain PyTorch versions at the
+   full width of the ``chorowski`` preset (seeded random weights, rings primed
+   on 2047 context ids, B = 8): greedy ids and logits (and two faults planted
    in the plain version, which the same check must reject), rings and last
-   ids, chunk carry, the sampling distribution, and both versions' time
-   per step;
-4. serving: the generate CLI on one clip (B = 1) of a synthetic dataset from
+   ids, chunk carry, the sampling distribution; the same for the int8 and
+   int4 kernels at B = 1 (the CLI's request: one real row in a cluster),
+   B = 8 (one cluster) and B = 64 (eight clusters, the grid-wide activation
+   scale; 64 more primed rows), their first-step logits against the bf16
+   kernel's at every batch, and two more planted faults (the int4
+   zero-point correction dropped, at B = 1 and 8; the scale taken per 8
+   rows, at B = 64); every version's time per step at B = 1, 8, 64;
+4. the fused VQ lookup kernel against its plain version at the N of the
+   serving request and of the training step: codes (differing rows must be
+   near-ties), the looked-up rows bit for bit, exact counts, sums, the same
+   bits on a second launch, and a planted fault (|e|^2 dropped);
+5. serving: the generate CLI on one clip (B = 1) of a synthetic dataset from
    an export-format checkpoint, then ``reconstruct`` on a batch of 64 clips,
-   with the kernel's launch counter showing the path went through it;
-5. train-kernels: the four gated-stack kernels (``csrc/gated.cu``) against
+   then the CLI with ``--int8`` and with ``--int4`` on a checkpoint whose
+   config has ``vq_use_pallas=True``; the launch counters are set to 0
+   before each run and show which kernels it went through;
+6. train-kernels: the four gated-stack kernels (``csrc/gated.cu``) against
    their plain versions at the full ``chorowski`` width (seeded random
    weights, every bias perturbed), each output, at B = 2 with 4,100 loss
    samples (a ragged last tile) and again at the training path's shape
@@ -26,7 +37,7 @@ power limit:
    through ``GatedStack`` in all four schedules (logits and every
    gradient); two faults planted in the plain version, which the same check
    must reject;
-6. train: the train CLI, ``new --preset chorowski --pallas-stack`` at B = 4,
+7. train: the train CLI, ``new --preset chorowski --pallas-stack`` at B = 4,
    n_win = 48,000 for 6 steps and ``resume`` for 2 more (the main path:
    pairs, saved y), then 2 steps of the single-layer schedule
    (``--no-gated-fuse-pairs --no-gated-save-y``); the launch counters are
@@ -34,9 +45,13 @@ power limit:
    have launched once per segment per step on its path and no plain
    version at all; median step time, samples/s, peak memory, and the
    step's time split from CUDA events around its parts in 3 steps of one
-   ``Chassis`` run.
+   ``Chassis`` run; 3 more steps with ``--vq-use-pallas`` (the fused VQ
+   lookup once per step, the first step's loss equal to the run without it);
+8. eval: ``cli/eval.py --quality`` on the checkpoint that run wrote.
 
-Then one JSON line describing the five kernels, and as the last line
+Then one JSON line describing the eight kernels (each with its launches on
+its path, its error against the plain version, its time beside the plain
+version's and the card's bound for the same work), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
 """
 
@@ -62,7 +77,8 @@ STATE_T = 16            # steps after which rings and last ids are compared
 RING_REL_TOL = 1e-2     # rings hold bf16 of f32 sums taken in another order
 POST2_SCALE = 8.0       # makes the seeded logits informative (max ~5, not ~0.65)
 KS_ALPHA = 1e-6         # false-failure rate of the sampling test
-SAMPLE_T = 2048         # steps of the sampling test (x 8 rows >= 16k draws)
+SAMPLE_T = 2048         # steps of the sampling test at B = 8
+MIN_DRAWS = 8 * SAMPLE_T  # draws of a sampling test, at any batch
 CLI_SAMPLES = 4000      # B = 1 request
 BATCH = 64              # batched request
 BATCH_SAMPLES = 2000
@@ -70,6 +86,16 @@ BATCH_WAV_LEN = 10200   # chorowski: cond frames for 2000 samples after rf
 STACK_B, STACK_T = 2, 4100       # phase 5 checks: 4100 = 64 * 64 + 4 (ragged)
 TRAIN_B, TRAIN_WIN = 4, 48000    # the training path's shape
 TRAIN_STEPS, RESUME_STEPS = 6, 2
+Q_LOGIT_REL_TOL = 0.01  # int8/int4 kernel vs plain: exact integer sums on both sides
+Q_VS_BF16_TOL = {"int8": 0.10, "int4": 0.40}  # tests_tpu/test_pallas_tpu.py:241-269
+PLAIN_T = 32            # steps of the plain versions' timing
+VQ_SUM_REL_TOL = 1e-4   # f32 sums of up to N rows taken in another order
+VQ_TIE_REL_GAP = 1e-5   # a differing code must be this near a tie
+VQ_TRAIN_STEPS = 3
+EVAL_SAMPLES, EVAL_BATCHES = 1000, 2
+# NVIDIA H100 SXM data sheet: dense peaks and the memory rate
+PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
 GATED = {  # wrapper -> the Pallas kernel it replaces
     "gated_pair_fused": "ae_wavenet_tpu/ops/gated_pallas.py:217",
     "gated_layer_fused": "ae_wavenet_tpu/ops/gated_pallas.py:105",
@@ -127,6 +153,50 @@ def compare(ids_a, lg_a, ids_b, lg_b) -> tuple[list[int], float]:
 
 def passes(agree: list[int], rel: float) -> bool:
     return min(agree) >= MIN_PREFIX and rel < LOGIT_REL_TOL
+
+
+def bound(n_bytes: float, ops: dict) -> tuple[float, str]:
+    """The least milliseconds the card could take: the bytes moved once over
+    the memory rate, or the operations ({type: count}) over the card's peak
+    for their type, whichever is larger; and which of the two."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = sum(n / PEAK[kind] for kind, n in ops.items())
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def sampler_bound(packed, wcfg, batch: int, mode) -> tuple[float, str]:
+    """Bound of one generated step: every weight but the embedding read once
+    (the AR dependency allows no reuse across steps), one embedding row,
+    one ring slot per layer read and written and one cond column per batch
+    row, the id written; the layer GEMMs at the peak of their type."""
+    n_cond = wcfg.n_lc_out + wcfg.n_global_embed
+    n_layers = len(wcfg.dilations)
+    weights = sum(v.numel() * v.element_size()
+                  for name, v in packed._asdict().items() if name != "embed")
+    per_row = 2 * wcfg.n_res + 2 * n_layers * 2 * wcfg.n_res + 2 * n_cond + 4
+    layer_ops = 2 * batch * n_layers * ((2 * wcfg.n_res + n_cond) * 2 * wcfg.n_dil
+                                        + wcfg.n_dil * (wcfg.n_res + wcfg.n_skp))
+    post_ops = 2 * batch * (wcfg.n_skp * wcfg.n_post + wcfg.n_post * wcfg.n_quant)
+    ops = {"bf16": post_ops, "int8": layer_ops} if mode else {"bf16": layer_ops + post_ops}
+    return bound(weights + batch * per_row, ops)
+
+
+def tensor_bytes(*trees) -> int:
+    """Bytes of every distinct tensor in the (nested) arguments."""
+    import torch
+
+    seen = {}
+
+    def walk(v):
+        if isinstance(v, torch.Tensor):
+            seen[(v.data_ptr(), v.numel())] = v.numel() * v.element_size()
+        elif isinstance(v, (tuple, list)):
+            for x in v:
+                walk(x)
+        elif isinstance(v, dict):
+            walk(list(v.values()))
+    walk(trees)
+    return sum(seen.values())
 
 
 def pit_ks(ids, logits, seed: int = 0):
@@ -216,20 +286,24 @@ def _phase_kernel(card: str, dev) -> dict:
     rf, b = sum(wcfg.dilations), 8
     n_cond = wcfg.n_lc_out + wcfg.n_global_embed
 
-    ctx = torch.randint(0, wcfg.n_quant, (b, rf + 1), generator=gen).to(dev)
-    cond = (torch.randn(b, wcfg.n_lc_out, rf, generator=gen) * 0.3).to(dev)
-    spk = torch.randint(0, wcfg.n_speakers, (b,), generator=gen).to(dev)
-    t0 = time.perf_counter()
-    state = fg.prime(model.wavenet, wcfg, fg.init_state(wcfg, b, device=dev),
-                     ctx, cond, spk)
-    torch.cuda.synchronize()
-    prime_s = time.perf_counter() - t0
-    print(f"[kernel] primed B={b} on {rf + 1} context ids in {prime_s:.2f} s | {card}")
-    flat = fc.state_to_flat(state, wcfg)
+    def primed(n_rows):
+        ctx = torch.randint(0, wcfg.n_quant, (n_rows, rf + 1), generator=gen).to(dev)
+        cond = (torch.randn(n_rows, wcfg.n_lc_out, rf, generator=gen) * 0.3).to(dev)
+        spk = torch.randint(0, wcfg.n_speakers, (n_rows,), generator=gen).to(dev)
+        t0 = time.perf_counter()
+        st = fg.prime(model.wavenet, wcfg, fg.init_state(wcfg, n_rows, device=dev),
+                      ctx, cond, spk)
+        torch.cuda.synchronize()
+        print(f"[kernel] primed B={n_rows} on {rf + 1} context ids in "
+              f"{time.perf_counter() - t0:.2f} s | {card}")
+        return st
+
+    state = primed(b)
+    flat, prev = fc.state_to_flat(state, wcfg), state.prev_id
     gcond = (torch.randn(b, n_cond, SAMPLE_T, generator=gen) * 0.3).to(dev)
 
     def run(fn, t_len, seed, temperature, debug=True, ring=flat, t0=state.t,
-            prev=state.prev_id):
+            prev=prev):
         return fn(packed, wcfg, ring.clone(), prev, t0, gcond[..., :t_len],
                   seed, temperature, debug)
 
@@ -257,7 +331,7 @@ def _phase_kernel(card: str, dev) -> dict:
               "ring slot off by one": (packed, state.t + 1)}
     for name, (pk, t_f) in faults.items():
         ids_f, _, _, lg_f = fc.generate_fused_reference(
-            pk, wcfg, flat.clone(), state.prev_id, t_f, gcond[..., :GREEDY_T], 0,
+            pk, wcfg, flat.clone(), prev, t_f, gcond[..., :GREEDY_T], 0,
             0.0, True)
         agree_f, abs_f = compare(ids_k, lg_k, ids_f, lg_f)
         check(not passes(agree_f, abs_f / scale),
@@ -283,7 +357,7 @@ def _phase_kernel(card: str, dev) -> dict:
 
     # chunk carry: 64 + 64 steps == 128 steps
     half = GREEDY_T // 2
-    a, ring_a, last_a = fc.generate_fused(packed, wcfg, flat.clone(), state.prev_id,
+    a, ring_a, last_a = fc.generate_fused(packed, wcfg, flat.clone(), prev,
                                           state.t, gcond[..., :half], 0, 0.0)
     c, _, _ = fc.generate_fused(packed, wcfg, ring_a, last_a, state.t + half,
                                 gcond[..., half:GREEDY_T], 0, 0.0)
@@ -295,71 +369,325 @@ def _phase_kernel(card: str, dev) -> dict:
     d, n = pit_ks(ids_s, lg_s)
     eps = math.sqrt(math.log(2.0 / KS_ALPHA) / (2.0 * n))  # DKW bound
     other = run(fc.generate_fused, SAMPLE_T, 4321, 1.0, debug=False)[0]
-    check(n >= 16384 and d < eps, f"sampled ids fail KS: D={d:.4g} >= {eps:.4g}")
+    check(n >= MIN_DRAWS and d < eps, f"sampled ids fail KS: D={d:.4g} >= {eps:.4g}")
     check(not torch.equal(other, ids_s), "two seeds gave the same ids")
     check(int(ids_s.min()) >= 0 and int(ids_s.max()) < wcfg.n_quant, "ids out of range")
     print(f"[kernel] sampling T=1: {n} draws, max|logits| "
           f"{float(lg_s.abs().max()):.4g}, KS D={d:.4g} < {eps:.4g} "
           f"(alpha {KS_ALPHA}); seeds 1234/4321 differ | {card}")
 
-    # time per generated step, kernel vs plain, on a random ring
-    times = {}
+    out = {"bf16": {"max_abs_err": max_abs}}
+    packs = {"bf16": packed, **{m: fc.PACKERS[m](model.wavenet, wcfg)
+                                for m in ("int8", "int4")}}
+    # the quantized kernels on primed states at the batch of the CLI's
+    # request (row 0: one real row among a cluster's eight), of one cluster
+    # and of eight clusters; each with cond for MIN_DRAWS sampled draws
+    state_all = primed(BATCH)
+    q_inputs = {1: (flat[:, :1].contiguous(), prev[:1].contiguous(), state.t,
+                    (torch.randn(1, n_cond, MIN_DRAWS, generator=gen) * 0.3).to(dev)),
+                b: (flat, prev, state.t, gcond),
+                BATCH: (fc.state_to_flat(state_all, wcfg), state_all.prev_id,
+                        state_all.t,
+                        (torch.randn(BATCH, n_cond, MIN_DRAWS // BATCH, generator=gen)
+                         * 0.3).to(dev))}
+    for mode in ("int8", "int4"):
+        out[mode] = {"max_abs_err": _check_quantized(card, dev, fc, wcfg, mode,
+                                                     packs, q_inputs)}
+
+    # time per generated step, every kernel and every plain version, on a
+    # random ring; all from this one call
     for bb in (1, 8, BATCH):
         ring = torch.randn(rf, bb, wcfg.n_res, generator=gen).to(dev, torch.bfloat16)
         prev = torch.randint(0, wcfg.n_quant, (bb,), generator=gen).to(dev)
         cnd = (torch.randn(bb, n_cond, GREEDY_T, generator=gen) * 0.3).to(dev)
+        for name, pk in packs.items():
+            mode = None if name == "bf16" else name
+            k_ms = cuda_ms(lambda: fc.generate_fused(
+                pk, wcfg, ring, prev, 0, cnd, 5, 1.0, quantized=mode), 3) / GREEDY_T
+            p_ms = cuda_ms(lambda: fc.generate_fused_reference(
+                pk, wcfg, ring, prev, 0, cnd[..., :PLAIN_T], 5, 1.0, quantized=mode),
+                1) / PLAIN_T
+            b_ms, by = sampler_bound(pk, wcfg, bb, mode)
+            print(f"[kernel] {name} B={bb}: kernel {k_ms:.4f} ms/step, plain {p_ms:.4f} "
+                  f"ms/step ({bb / k_ms * 1e3:.0f} vs {bb / p_ms * 1e3:.0f} samples/s); "
+                  f"bound {b_ms:.5f} ms/step by {by} | {card}")
+            out[name].setdefault("by_batch", {})[bb] = {
+                "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by}
+    return out
 
-        def call(fn):
-            return lambda: fn(packed, wcfg, ring, prev, 0, cnd, 5, 1.0)
 
-        k_ms = cuda_ms(call(fc.generate_fused), 3) / GREEDY_T
-        p_ms = cuda_ms(call(fc.generate_fused_reference), 1) / GREEDY_T
-        times[bb] = (k_ms, p_ms)
-        print(f"[kernel] B={bb}: kernel {k_ms:.4f} ms/step, plain {p_ms:.4f} ms/step "
-              f"({bb / k_ms * 1e3:.0f} vs {bb / p_ms * 1e3:.0f} samples/s) | {card}")
-    return {"max_abs_err": max_abs, "ms": times[BATCH][0],
-            "plain_ms": times[BATCH][1]}
+def _check_quantized(card: str, dev, fc, wcfg, mode: str, packs: dict,
+                     inputs: dict) -> float:
+    """The int8 or int4 kernel against its plain version at each batch of
+    ``inputs`` ({B: (ring, prev, t0, cond)}): greedy ids and logits, state,
+    chunk carry, sampling, its first-step logits against the bf16 kernel's,
+    and planted faults.  -> the largest |logit difference| seen."""
+    from unittest import mock
+
+    import torch
+
+    pk = packs[mode]
+
+    def q_passes(agree, rel):
+        return min(agree) >= MIN_PREFIX and rel < Q_LOGIT_REL_TOL
+
+    def greedy(fn, ring, prev, t0, cnd, t_len=GREEDY_T, debug=True):
+        return fn(pk, wcfg, ring.clone(), prev, t0, cnd[..., :t_len], 0, 0.0, debug,
+                  mode)
+
+    worst, kernel_runs = 0.0, {}
+    for b, (ring, prev, t0, cnd) in inputs.items():
+        ids_k, _, _, lg_k = greedy(fc.generate_fused, ring, prev, t0, cnd)
+        ids_r, _, _, lg_r = greedy(fc.generate_fused_reference, ring, prev, t0, cnd)
+        torch.cuda.synchronize()
+        kernel_runs[b] = (ids_k, lg_k)
+        scale = float(lg_r.abs().max())
+        agree, max_abs = compare(ids_k, lg_k, ids_r, lg_r)
+        worst = max(worst, max_abs)
+        t_len = ids_k.shape[1]
+        check(bool(torch.isfinite(lg_k).all()), f"{mode} B={b}: non-finite logits")
+        check(q_passes(agree, max_abs / scale),
+              f"{mode} B={b} greedy kernel vs plain: shortest prefix {min(agree)}, "
+              f"logits {max_abs / scale:.4g} of max|logits| (need >= {MIN_PREFIX}, "
+              f"< {Q_LOGIT_REL_TOL})")
+        print(f"[kernel] {mode} greedy T={t_len} B={b}: ids agree for "
+              f"{min(agree)}..{max(agree)} steps ({sum(a == t_len for a in agree)} of "
+              f"{b} rows to the end), logits max|d| {max_abs:.4g} = "
+              f"{max_abs / scale:.4g} of max|logits| {scale:.4g} (tol "
+              f"{Q_LOGIT_REL_TOL}) | {card}")
+
+        s_k, ring_k, last_k = greedy(fc.generate_fused, ring, prev, t0, cnd, STATE_T,
+                                     False)
+        s_r, ring_r, last_r = greedy(fc.generate_fused_reference, ring, prev, t0, cnd,
+                                     STATE_T, False)
+        rows = [r for r in range(b) if torch.equal(s_k[r], s_r[r])]
+        check(len(rows) >= max(1, b // 2), f"{mode} B={b}: only {len(rows)} rows "
+              f"agree over {STATE_T} greedy steps")
+        ring_err = float((ring_k[:, rows].float() - ring_r[:, rows].float()).abs().max())
+        ring_max = float(ring_r[:, rows].float().abs().max())
+        check(torch.equal(last_k[rows], last_r[rows]), f"{mode} B={b}: last ids differ")
+        check(ring_err <= RING_REL_TOL * ring_max,
+              f"{mode} B={b}: rings differ: {ring_err:.4g} of max {ring_max:.4g}")
+
+        half = t_len // 2
+        a, ring_a, last_a = fc.generate_fused(pk, wcfg, ring.clone(), prev, t0,
+                                              cnd[..., :half], 0, 0.0, quantized=mode)
+        c, _, _ = fc.generate_fused(pk, wcfg, ring_a, last_a, t0 + half,
+                                    cnd[..., half:t_len], 0, 0.0, quantized=mode)
+        check(torch.equal(torch.cat([a, c], 1), ids_k),
+              f"{mode} B={b}: chunked ids differ from one call")
+
+        n_draw = cnd.shape[-1]
+        ids_s, _, _, lg_s = fc.generate_fused(pk, wcfg, ring.clone(), prev, t0, cnd,
+                                              1234, 1.0, True, mode)
+        d, n = pit_ks(ids_s, lg_s)
+        eps = math.sqrt(math.log(2.0 / KS_ALPHA) / (2.0 * n))
+        check(n >= MIN_DRAWS and d < eps,
+              f"{mode} B={b}: sampled ids fail KS: D={d:.4g} >= {eps:.4g} (n={n})")
+
+        lg_b = fc.generate_fused(packs["bf16"], wcfg, ring.clone(), prev, t0,
+                                 cnd[..., :1], 0, 0.0, True)[3]
+        vs_bf16 = float((lg_k[0] - lg_b[0]).abs().max()) / float(lg_b.abs().max())
+        check(vs_bf16 < Q_VS_BF16_TOL[mode],
+              f"{mode} B={b}: first-step logits {vs_bf16:.4g} of max|logits| from the "
+              f"bf16 kernel's (tol {Q_VS_BF16_TOL[mode]})")
+        print(f"[kernel] {mode} B={b}: state after {STATE_T} steps ({len(rows)} rows): "
+              f"last ids equal, rings max|d| {ring_err:.4g} of {ring_max:.4g}; chunk "
+              f"carry {half}+{t_len - half} ok; sampling T=1 over {n_draw} steps: "
+              f"{n} draws, KS D={d:.4g} < {eps:.4g}; first-step logits "
+              f"{vs_bf16:.4g} of max|logits| from the bf16 kernel's (tol "
+              f"{Q_VS_BF16_TOL[mode]}) | {card}")
+
+    # the same check on planted faults of the plain version must fail
+    def per_8_rows(v):
+        m = v.abs().reshape(-1, 8, v.shape[1]).amax((1, 2))
+        return (torch.clamp(m, min=1e-9) * (1.0 / 127.0)).repeat_interleave(8)[:, None]
+
+    faults = [("scale taken per 8 rows, not over the batch", max(inputs),
+               lambda: mock.patch.object(fc, "_tile_scale", per_8_rows))]
+    if mode == "int4":
+        faults += [("int4 zero-point correction dropped", b,
+                    lambda: mock.patch.object(fc, "_ZERO_POINT", 0))
+                   for b in inputs if b < max(inputs)]
+    for name, b, patch in faults:
+        ring, prev, t0, cnd = inputs[b]
+        with patch():
+            ids_f, _, _, lg_f = greedy(fc.generate_fused_reference, ring, prev, t0, cnd)
+        ids_k, lg_k = kernel_runs[b]
+        agree_f, abs_f = compare(ids_k, lg_k, ids_f, lg_f)
+        rel_f = abs_f / float(lg_f.abs().max())
+        check(not q_passes(agree_f, rel_f),
+              f"planted fault '{name}' passes the {mode} kernel check")
+        print(f"[kernel] {mode} B={b} planted fault '{name}' in the plain version: "
+              f"shortest prefix {min(agree_f)}, logits {rel_f:.4g} of max|logits|: "
+              f"rejected | {card}")
+    return worst
 
 
-def phase_serve(card: str, dev, tmp: str) -> dict:
+def phase_vq(card: str, dev, data: str) -> dict:
+    with f32_numerics():
+        return _phase_vq(card, dev, data)
+
+
+def _phase_vq(card: str, dev, data: str) -> dict:
+    """The fused VQ lookup against its plain version on the encoder's own
+    latents, at the N of the serving request (clip 0 of ``data``) and of
+    the training step (TRAIN_B windows)."""
+    import torch
+
+    from ae_wavenet_tpu_torch.audio import mfcc
+    from ae_wavenet_tpu_torch.audio.mulaw import int16_to_float
+    from ae_wavenet_tpu_torch.data.dataset import PackedDataset
+    from ae_wavenet_tpu_torch.models import autoencoder as ae
+    from ae_wavenet_tpu_torch.models.common import normalize_frames
+    from ae_wavenet_tpu_torch.ops import vq_cuda as vq
+    from ae_wavenet_tpu_torch.utils.config import chorowski_config
+
+    cfg = chorowski_config()
+    gen = torch.Generator().manual_seed(1)
+    model = ae.init(cfg, gen, dev).eval()
+    e = model.bottleneck.codebook
+    spec = ae.make_window_spec(cfg, TRAIN_WIN)
+    clip = torch.from_numpy(PackedDataset(data).clip(0, 64000))[None].to(dev)
+    windows = (torch.randn(TRAIN_B, spec.u_len, generator=gen) * 3000).to(
+        dev, torch.int16)[..., spec.fb : spec.fe]
+
+    def latents(wav_i16, n_ref):
+        frames = mfcc.mfcc_delta_stack(int16_to_float(wav_i16), cfg.spec)
+        with torch.no_grad():
+            z = model.encoder(normalize_frames(frames, n_ref=n_ref, spec=cfg.spec))
+        return z.permute(0, 2, 1).reshape(-1, z.shape[1]).contiguous()
+
+    def verdict(z, codes, plain_codes) -> list[str]:
+        """Why ``codes`` do not agree with ``plain_codes`` (empty: they do):
+        under 1% of rows may differ, each of them a near-tie."""
+        differ = torch.nonzero(codes != plain_codes)[:, 0]
+        why = []
+        if len(differ) >= max(1, len(codes) // 100):
+            why.append(f"{len(differ)} of {len(codes)} codes differ")
+        zd, ed = z[differ[:64]].double(), e.double()
+        d2 = ed.square().sum(1)[None] - 2.0 * zd @ ed.t()
+        for i, r in enumerate(differ[:64].tolist()):
+            gap = abs(float(d2[i, codes[r]] - d2[i, plain_codes[r]]))
+            if gap > VQ_TIE_REL_GAP * float(d2[i].abs().max()):
+                why.append(f"row {r}: codes {int(codes[r])} and {int(plain_codes[r])} "
+                           f"are no tie (distance gap {gap:.3g})")
+        return why
+
+    out = {}
+    cases = {"serving request": latents(clip, ae.make_window_spec(cfg).n_frames),
+             "training step": latents(windows, None)}
+    for label, z in cases.items():
+        n, (k, d) = z.shape[0], e.shape
+        got = vq.vq_lookup_fused(z, e)
+        again = vq.vq_lookup_fused(z, e)
+        want = vq.vq_lookup_reference(z, e)
+        torch.cuda.synchronize()
+        codes = got[0].long()
+        why = verdict(z, codes, want[0].long())
+        check(not why, f"vq {label}: " + "; ".join(why))
+        n_diff = int((codes != want[0].long()).sum())
+        check(torch.equal(got[1], e[codes]), f"vq {label}: quant is not codebook[codes]")
+        check(torch.equal(got[2], torch.bincount(codes, minlength=k).float())
+              and float(got[2].sum()) == n, f"vq {label}: counts are not exact")
+        sums = torch.zeros(k, d, dtype=torch.float64, device=dev).index_add_(
+            0, codes, z.double())
+        err = float((got[3].double() - sums).abs().max())
+        scale = float(sums.abs().max())
+        check(err <= VQ_SUM_REL_TOL * scale,
+              f"vq {label}: sums {err:.4g} of max {scale:.4g}")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"vq {label}: two launches gave different bits")
+        # planted fault in the plain version: |e|^2 left out of the distances
+        bad = verdict(z, codes, (-2.0 * (z @ e.t())).argmin(1))
+        check(bool(bad), f"vq {label}: planted fault '|e|^2 dropped' passes")
+        k_ms = cuda_ms(lambda: vq.vq_lookup_fused(z, e), 20)
+        p_ms = cuda_ms(lambda: vq.vq_lookup_reference(z, e), 20)
+        b_ms, by = bound(tensor_bytes(z, e, got), {"f32": 2 * n * k * d})
+        print(f"[vq] {label}: N={n} K={k} D={d}: {n_diff} codes differ from the plain "
+              f"version (near-ties only), {len(torch.unique(codes))} codes in use, quant "
+              f"== codebook[codes], counts exact (sum {n}), sums max|d| {err:.4g} of "
+              f"{scale:.4g} (tol {VQ_SUM_REL_TOL}), same bits twice; planted fault "
+              f"'|e|^2 dropped': {bad[0]}: rejected; kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms, bound {b_ms:.6f} ms by {by} | {card}")
+        out[label] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                      "bound_ms": b_ms, "bound_by": by, "n": n}
+    return out
+
+
+def phase_serve(card: str, dev, data: str, tmp: str) -> dict:
     import numpy as np
     import torch
 
     from ae_wavenet_tpu_torch.cli import generate as cli
-    from ae_wavenet_tpu_torch.data.dataset import PackedDataset, make_synthetic_dataset
+    from ae_wavenet_tpu_torch.data.dataset import PackedDataset
     from ae_wavenet_tpu_torch.models import autoencoder as ae
     from ae_wavenet_tpu_torch.ops import fastgen_cuda as fc
+    from ae_wavenet_tpu_torch.ops import vq_cuda as vq
     from ae_wavenet_tpu_torch.training.weights import save_export
     from ae_wavenet_tpu_torch.utils.config import chorowski_config
     from ae_wavenet_tpu_torch.utils.wavio import read_wav
 
     cfg = chorowski_config()
-    data, ckpt, out = (os.path.join(tmp, n) for n in ("synth", "model.pt", "out.wav"))
+    ckpt, ckpt_vq, out = (os.path.join(tmp, n)
+                          for n in ("model.pt", "model_vq.pt", "out.wav"))
     t0 = time.perf_counter()
-    make_synthetic_dataset(data, n_clips=BATCH, n_speakers=8,
-                           clip_len=(12400, 14000), seed=0)
-    save_export(ckpt, ae.init(cfg, torch.Generator().manual_seed(1)), cfg, 0)
-    print(f"[serve] fixture: {BATCH} synthetic clips + chorowski checkpoint in "
+    model0 = ae.init(cfg, torch.Generator().manual_seed(1))
+    save_export(ckpt, model0, cfg, 0)
+    # the same weights under a config that asks for the fused VQ lookup
+    cfg_vq = dataclasses.replace(cfg, bottleneck=dataclasses.replace(
+        cfg.bottleneck, vq_use_pallas=True))
+    save_export(ckpt_vq, model0, cfg_vq, 0)
+    print(f"[serve] fixture: two chorowski checkpoints in "
           f"{time.perf_counter() - t0:.1f} s | {card}")
 
-    fc.generate_fused.launches = 0
-    fc.generate_fused_reference.launches = 0
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = cli.main(["--ckpt", ckpt, "--data", data, "--clip", "0",
-                       "--n-samples", str(CLI_SAMPLES), "--temperature", "1.0",
-                       "--device", str(dev), "--out", out])
-    k1, p1 = fc.generate_fused.launches, fc.generate_fused_reference.launches
-    text = buf.getvalue()
-    check(rc == 0, f"generate CLI returned {rc}")
-    wav, sr = read_wav(out)
-    check(len(wav) == CLI_SAMPLES and sr == cfg.spec.sample_rate, "wrong wav written")
-    m = re.search(r"encode ([\d.]+) s, prime ([\d.]+) s, generate ([\d.]+) s", text)
-    check(m is not None, f"CLI printed no timings:\n{text}")
-    enc1, pr1, gen1 = map(float, m.groups())
-    print(f"[serve] CLI B=1: {CLI_SAMPLES} samples, encode {enc1:.3f} s, prime "
-          f"{pr1:.3f} s, generate {gen1:.3f} s -> {CLI_SAMPLES / gen1:.0f} samples/s "
-          f"(RTF {CLI_SAMPLES / gen1 / 16000:.3f} at 16 kHz) | {card}")
+    def zero_counts():
+        for f in (fc.generate_fused_reference, vq.vq_lookup_fused,
+                  vq.vq_lookup_reference):
+            f.launches = 0
+        for name in ("launches", "launches_int8", "launches_int4"):
+            setattr(fc.generate_fused, name, 0)
+
+    def counts() -> dict:
+        return {"bf16": fc.generate_fused.launches,
+                "int8": fc.generate_fused.launches_int8,
+                "int4": fc.generate_fused.launches_int4,
+                "vq": vq.vq_lookup_fused.launches,
+                "plain": fc.generate_fused_reference.launches
+                + vq.vq_lookup_reference.launches}
+
+    def run_cli(ckpt_path: str, *flags) -> tuple[dict, str]:
+        """One request through the generate CLI with the counters set to 0
+        just before and read just after: -> (launches, the timing line)."""
+        zero_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["--ckpt", ckpt_path, "--data", data, "--clip", "0",
+                           "--n-samples", str(CLI_SAMPLES), "--temperature", "1.0",
+                           "--device", str(dev), *flags, "--out", out])
+        torch.cuda.synchronize()
+        got = counts()
+        text = buf.getvalue()
+        check(rc == 0, f"generate CLI returned {rc}")
+        wav, sr = read_wav(out)
+        check(len(wav) == CLI_SAMPLES and sr == cfg.spec.sample_rate,
+              "wrong wav written")
+        check(len(set(wav.tolist())) > 16, "the written wav is (nearly) constant")
+        m = re.search(r"encode ([\d.]+) s, prime ([\d.]+) s, generate ([\d.]+) s", text)
+        check(m is not None, f"CLI printed no timings:\n{text}")
+        enc, pr, gen_s = map(float, m.groups())
+        label = " ".join(flags) or "bf16"
+        line = (f"[serve] CLI B=1 {label}: {CLI_SAMPLES} samples, encode {enc:.3f} s, "
+                f"prime {pr:.3f} s, generate {gen_s:.3f} s -> "
+                f"{CLI_SAMPLES / gen_s:.0f} samples/s (RTF "
+                f"{CLI_SAMPLES / gen_s / 16000:.3f} at 16 kHz); launches {got}")
+        return got, line
+
+    got1, line = run_cli(ckpt)
+    print(f"{line} | {card}")
+    k1, p1 = got1["bf16"], got1["plain"]
+    check(got1 == {"bf16": 1, "int8": 0, "int4": 0, "vq": 0, "plain": 0},
+          f"bf16 CLI launches {got1}")
 
     ds = PackedDataset(data)
     wav64 = np.stack([ds.clip(i, BATCH_WAV_LEN) for i in range(BATCH)])
@@ -385,7 +713,19 @@ def phase_serve(card: str, dev, tmp: str) -> dict:
     check(p1 == 0 and p64 == 0, f"plain version ran: CLI {p1}, batch {p64}")
     print(f"[serve] kernel launches: CLI {k1}, batch {k64}; plain version "
           f"launches: {p1 + p64} | {card}")
-    return {"launches": k1 + k64}
+    del model
+
+    # quantized serving from the checkpoint that asks for the fused VQ lookup:
+    # exactly one launch of the quantized sampler and one of the VQ kernel
+    launches = {"bf16": k1 + k64, "vq": 0}
+    for mode in ("int8", "int4"):
+        got, line = run_cli(ckpt_vq, "--" + mode)
+        want = {"bf16": 0, "int8": 0, "int4": 0, "vq": 1, "plain": 0, mode: 1}
+        check(got == want, f"--{mode} CLI launches {got}, expected {want}")
+        print(f"{line} | {card}")
+        launches[mode] = got[mode]
+        launches["vq"] += got["vq"]
+    return {"launches": launches}
 
 
 def cuda_s(fn) -> float:
@@ -465,6 +805,8 @@ def _phase_train_kernels(card: str, dev) -> dict:
     # the full split-K), then both timed
     wn, ids, cond, spk = chk.random_stack(wcfg, TRAIN_B, TRAIN_WIN, 1, dev)
     dils, x0, cond_tm, packed, xs, ys, cot = chk.segment_inputs(wn, wcfg, ids, cond, spk)
+    macs = (x0.shape[2] * 2 + cond_tm.shape[2]) * 2 * wcfg.n_dil + wcfg.n_dil * (
+        wcfg.n_res + wcfg.n_skp)  # per row and layer
     times = {}
     for name, (wrapper, call) in chk.segment_calls(dils, cond_tm, packed, xs, ys,
                                                    cot).items():
@@ -483,8 +825,23 @@ def _phase_train_kernels(card: str, dev) -> dict:
         if not name.endswith("recompute"):
             k_ms = cuda_ms(lambda: call(kern), 3)
             p_ms = cuda_ms(lambda: call(plain), 1)
-            times[wrapper] = (k_ms, p_ms)
-            timing = f"; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms"
+            moved = []
+
+            def probe(*a, **kw):
+                res = kern(*a, **kw)
+                moved.append((a, kw, res))
+                return res
+
+            call(probe)
+            # the least work: the n_win loss rows of every batch row through
+            # each layer's two GEMMs, once forward, twice backward (inputs
+            # and weights); every operand read once, every output written once
+            ops = (2 * TRAIN_B * TRAIN_WIN * macs * (2 if "pair" in wrapper else 1)
+                   * (2 if "bwd" in wrapper else 1))
+            b_ms, by = bound(tensor_bytes(moved), {"bf16": ops})
+            times[wrapper] = (k_ms, p_ms, b_ms, by)
+            timing = (f"; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+                      f"{b_ms:.3f} ms by {by}")
         print(f"[train-kernels] {name} B={TRAIN_B} t_in={x0.shape[1]}: every output "
               f"within {rel:.3g} of max|plain| (max|d| {ab:.4g}, tol "
               f"{chk.SEGMENT_REL_TOL}){timing} | {card}")
@@ -525,22 +882,24 @@ def _run_cli(argv) -> list[dict]:
 
 def _path_run(argv, expect: dict, card: str, label: str):
     """One CLI run with every launch counter set to 0 just before it and
-    read just after: each gated kernel must have launched exactly
-    ``expect[name]`` times and no plain version at all.  -> (metric
-    records, launches by kernel)."""
+    read just after: each gated kernel and the VQ kernel must have launched
+    exactly ``expect[name]`` times (``vq_lookup_fused``: 0 unless given) and
+    no plain version at all.  -> (metric records, launches by kernel)."""
     import torch
 
     from ae_wavenet_tpu_torch.ops import gated, gated_cuda as gc
+    from ae_wavenet_tpu_torch.ops import vq_cuda as vq
 
-    kernels = [getattr(gc, n) for n in GATED]
-    plain = [getattr(gated, n + "_reference") for n in GATED]
+    expect = {"vq_lookup_fused": 0, **expect}
+    kernels = [getattr(gc, n) for n in GATED] + [vq.vq_lookup_fused]
+    plain = [getattr(gated, n + "_reference") for n in GATED] + [vq.vq_lookup_reference]
     for f in kernels + plain:
         f.launches = 0
     recs = _run_cli(argv)
     torch.cuda.synchronize()
     got = {f.__name__: f.launches for f in kernels}
     plain_runs = {f.__name__: f.launches for f in plain}
-    check(got == expect, f"{label}: gated kernel launches {got}, expected {expect}")
+    check(got == expect, f"{label}: kernel launches {got}, expected {expect}")
     check(not any(plain_runs.values()), f"{label}: plain versions ran {plain_runs}")
     print(f"[train] {label}: launches {got}; plain versions {plain_runs} | {card}")
     return recs, got
@@ -679,6 +1038,28 @@ def phase_train(card: str, dev, tmp: str) -> dict:
         expect(0, n_layers, 2), card, "single-layer path, new")
     check(len(alt) == 2, f"single-layer run logged {len(alt)} steps")
 
+    # the main path again with the fused VQ lookup: once per step, and the
+    # first step (same seed, same data) loses nothing to it
+    ckpt_vq = os.path.join(tmp, "ckpt_vq")
+    fused, n_vq = _path_run(
+        ["new", "--preset", "chorowski", "--pallas-stack", "--vq-use-pallas",
+         "--batch-sz", str(TRAIN_B), "--n-win", str(TRAIN_WIN), "--n-steps",
+         str(VQ_TRAIN_STEPS), "--data", data, "--ckpt-dir", ckpt_vq,
+         "--log-every", "1"],
+        {**expect(n_layers // 2, 0, VQ_TRAIN_STEPS), "vq_lookup_fused": VQ_TRAIN_STEPS},
+        card, "main path with --vq-use-pallas, new")
+    check(len(fused) == VQ_TRAIN_STEPS, f"--vq-use-pallas run logged {len(fused)} steps")
+    d_loss = abs(fused[0]["loss"] - new[0]["loss"])
+    check(d_loss < 1e-4, f"first-step loss with --vq-use-pallas {fused[0]['loss']} vs "
+          f"{new[0]['loss']} without")
+    step_vq = statistics.median(TRAIN_B * TRAIN_WIN / r["samples_per_sec"]
+                                for r in fused[1:])
+    ce_vq = " ".join(f"{r['recon_ce']:.4f}" for r in fused)
+    print(f"[train] --vq-use-pallas: first-step loss {fused[0]['loss']:.6f} vs "
+          f"{new[0]['loss']:.6f} without (|d| {d_loss:.2g} < 1e-4); recon_ce {ce_vq}; "
+          f"perplexity {fused[-1]['perplexity']:.2f}; median step "
+          f"{step_vq * 1e3:.1f} ms | {card}")
+
     cfg = dataclasses.replace(
         cfg, train=dataclasses.replace(cfg.train, batch_sz=TRAIN_B, n_win=TRAIN_WIN),
         wavenet=dataclasses.replace(cfg.wavenet, use_pallas_stack=True))
@@ -693,8 +1074,49 @@ def phase_train(card: str, dev, tmp: str) -> dict:
           f"{fwd_rest:.1f}) + backward {s['backward']:.1f} (stack backward "
           f"{s['stack backward']:.1f}, the rest {bwd_rest:.1f}) + optimizer "
           f"{s['optimizer']:.1f} | {card}")
-    launches = {n: n_new[n] + n_res[n] + n_alt[n] for n in GATED}
-    return {"launches": launches}
+    launches = {n: n_new[n] + n_res[n] + n_alt[n] + n_vq[n] for n in GATED}
+    launches["vq_lookup_fused"] = n_vq["vq_lookup_fused"]
+    return {"launches": launches, "data": data, "ckpt_vq": ckpt_vq}
+
+
+def phase_eval(card: str, data: str, ckpt_dir: str) -> dict:
+    """The eval CLI on the checkpoint the training phase wrote (its config
+    asks for the fused stack and the fused VQ lookup): the eval record and
+    one free-running quality record, every metric finite."""
+    import torch
+
+    from ae_wavenet_tpu_torch.cli import eval as cli
+    from ae_wavenet_tpu_torch.eval.quality import QUALITY_KEYS
+    from ae_wavenet_tpu_torch.ops import vq_cuda as vq
+
+    vq.vq_lookup_fused.launches = vq.vq_lookup_reference.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--ckpt-dir", ckpt_dir, "--data", data, "--n-batches",
+                       str(EVAL_BATCHES), "--quality", "--quality-samples",
+                       str(EVAL_SAMPLES)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(rc == 0, f"eval CLI returned {rc}")
+    recs = [json.loads(ln) for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+    check(len(recs) == 2, f"eval CLI printed {len(recs)} records")
+    ev, q = recs
+    check(ev["step"] == VQ_TRAIN_STEPS and "eval_recon_ce" in ev
+          and "eval_perplexity" in ev, f"eval record {ev}")
+    check(all(k in q for k in QUALITY_KEYS) and q["n_scored"] == EVAL_SAMPLES,
+          f"quality record {q}")
+    check(all(math.isfinite(v) for r in recs for v in r.values()
+              if isinstance(v, float)), f"non-finite eval metrics: {recs}")
+    n_vq, n_plain = vq.vq_lookup_fused.launches, vq.vq_lookup_reference.launches
+    check(n_vq == EVAL_BATCHES + 1 and n_plain == 0,
+          f"eval: VQ kernel launches {n_vq} (expected {EVAL_BATCHES + 1}), plain {n_plain}")
+    print(f"[eval] {json.dumps(ev)} | {card}")
+    print(f"[eval] {json.dumps(q)} | {card}")
+    print(f"[eval] cli/eval.py --quality: {EVAL_BATCHES} eval batches and "
+          f"{EVAL_SAMPLES} free-running samples in {secs:.1f} s; VQ kernel launches "
+          f"{n_vq}, plain {n_plain} | {card}")
+    return {"launches": n_vq}
 
 
 def main() -> int:
@@ -711,22 +1133,47 @@ def main() -> int:
     phase_build(card)
     k = phase_kernel(card, dev)
     with tempfile.TemporaryDirectory() as tmp:
-        s = phase_serve(card, dev, tmp)
+        from ae_wavenet_tpu_torch.data.dataset import make_synthetic_dataset
+
+        data = os.path.join(tmp, "synth")
+        make_synthetic_dataset(data, n_clips=BATCH, n_speakers=8,
+                               clip_len=(12400, 14000), seed=0)
+        v = phase_vq(card, dev, data)
+        s = phase_serve(card, dev, data, tmp)
     g = phase_train_kernels(card, dev)
     with tempfile.TemporaryDirectory() as tmp:
         t = phase_train(card, dev, tmp)
+        e = phase_eval(card, t["data"], t["ckpt_vq"])
+    fastgen = "ae_wavenet_tpu_torch/csrc/fastgen.cu"
+    replaces = {"bf16": "ae_wavenet_tpu/ops/fastgen_pallas.py:612",
+                "int8": "ae_wavenet_tpu/ops/fastgen_pallas.py:501",
+                "int4": "ae_wavenet_tpu/ops/fastgen_pallas.py:481"}
+    # the samplers' times are per generated step at B = 1, the batch of the
+    # CLI request that their launches are counted on; by_batch has the rest
     kernels = [{
-        "name": "fastgen_bf16", "route": "cuda",
-        "source": "ae_wavenet_tpu_torch/csrc/fastgen.cu",
-        "replaces": "ae_wavenet_tpu/ops/fastgen_pallas.py:612",
-        "launches": s["launches"], "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"], "plain_ms": k["plain_ms"]}]
-    for name, replaces in GATED.items():
+        "name": "fastgen_" + mode, "route": "cuda", "source": fastgen,
+        "replaces": replaces[mode], "launches": s["launches"][mode],
+        "max_abs_err": k[mode]["max_abs_err"], **k[mode]["by_batch"][1],
+        "library_ms": None, "batch": 1, "per": "generated step",
+        "by_batch": k[mode]["by_batch"]} for mode in ("bf16", "int8", "int4")]
+    for name, replaced in GATED.items():
+        k_ms, p_ms, b_ms, by = g["times"][name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "ae_wavenet_tpu_torch/csrc/gated.cu", "replaces": replaces,
+            "source": "ae_wavenet_tpu_torch/csrc/gated.cu", "replaces": replaced,
             "launches": t["launches"][name], "max_abs_err": g["errs"][name],
-            "ms": g["times"][name][0], "plain_ms": g["times"][name][1]})
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": None})
+    vq_train = {n: x for n, x in v["training step"].items() if n != "n"}
+    vq_by_n = {x["n"]: {n: y for n, y in x.items() if n not in ("n", "max_abs_err")}
+               for x in v.values()}
+    kernels.append({
+        "name": "vq_lookup", "route": "cuda",
+        "source": "ae_wavenet_tpu_torch/csrc/vq.cu",
+        "replaces": "ae_wavenet_tpu/ops/vq_pallas.py:66",
+        "launches": s["launches"]["vq"] + t["launches"]["vq_lookup_fused"]
+        + e["launches"], **vq_train, "library_ms": None,
+        "n": v["training step"]["n"], "by_n": vq_by_n})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -48,7 +48,8 @@ def test_port_imports_no_jax():
             "ae_wavenet_tpu_torch.cli.train, ae_wavenet_tpu_torch.training.chassis, "
             "ae_wavenet_tpu_torch.ops.gated_cuda, ae_wavenet_tpu_torch.ops.gated_check, "
             "ae_wavenet_tpu_torch.data.loader, ae_wavenet_tpu_torch.cli.profile_serve, "
-            "ae_wavenet_tpu_torch.ops.fastgen_cuda, "
+            "ae_wavenet_tpu_torch.ops.fastgen_cuda, ae_wavenet_tpu_torch.ops.vq_cuda, "
+            "ae_wavenet_tpu_torch.eval.quality, ae_wavenet_tpu_torch.cli.eval, "
             "ae_wavenet_tpu_torch.models.autoencoder, "
             "ae_wavenet_tpu_torch.training.weights, "
             "ae_wavenet_tpu_torch.data.dataset, ae_wavenet_tpu_torch.utils.wavio, "

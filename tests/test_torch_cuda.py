@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain versions, on the card: the sampler
-and the gated training stack.
+(bf16, int8 and int4 weights), the fused VQ lookup and the gated training
+stack.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip.  The file
 imports no jax, so on a machine with the card and without JAX it runs
@@ -40,7 +41,7 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _setup(dev, batch, n, seed=0, cfg=CFG):
+def _setup(dev, batch, n, seed=0, cfg=CFG, pack=tfc.pack_for_kernel):
     gen = torch.Generator().manual_seed(seed)
     wn = twn.WaveNet(cfg, gen)
     with torch.no_grad():
@@ -52,7 +53,7 @@ def _setup(dev, batch, n, seed=0, cfg=CFG):
     state = tfg.prime(wn, cfg, tfg.init_state(cfg, batch, device=dev), ctx, cond)
     n_cond = cfg.n_lc_out + cfg.n_global_embed
     gcond = (torch.randn(batch, n_cond, n, generator=gen) * 0.3).to(dev)
-    return tfc.pack_for_kernel(wn, cfg), tfc.state_to_flat(state, cfg), state, gcond
+    return pack(wn, cfg), tfc.state_to_flat(state, cfg), state, gcond
 
 
 @pytest.mark.cuda
@@ -114,6 +115,159 @@ def test_kernel_rejects_what_it_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="cpu"):
         tfc.generate_fused(packed, CFG, flat, state.prev_id.cpu(), state.t,
                            cond, 0, 0.0)
+
+
+# ------------------------------------------------ the quantized sampler
+
+# integer sums are exact on both sides; only tanhf/expf and the post-net's
+# sums differ, and an f32 ulp may flip one activation code by one unit
+Q_LOGIT_TOL = 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CFGS))
+@pytest.mark.parametrize("batch", [1, 11, 16])
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_quantized_kernel_matches_plain_version(cuda_device, name, batch, mode):
+    """int8 and int4 kernels against the plain version: one cluster (B = 1),
+    two clusters with a ragged one (B = 11: the scale spans both, dummy rows
+    stay out of it) and B = 16; ids over each row's inclusive agreeing
+    prefix, logits there within Q_LOGIT_TOL of max |logits|."""
+    n, cfg = 24, CFGS[name]
+    packed, flat, state, cond = _setup(cuda_device, batch, n, cfg=cfg,
+                                       pack=tfc.PACKERS[mode])
+    counter = "launches_" + mode
+    before = getattr(tfc.generate_fused, counter)
+    got = tfc.generate_fused(packed, cfg, flat.clone(), state.prev_id, state.t,
+                             cond, 9, 1.0, debug_logits=True, quantized=mode)
+    want = tfc.generate_fused_reference(packed, cfg, flat.clone(), state.prev_id,
+                                        state.t, cond, 9, 1.0, debug_logits=True,
+                                        quantized=mode)
+    torch.cuda.synchronize()
+    assert getattr(tfc.generate_fused, counter) == before + 1
+    assert bool(torch.isfinite(got[3]).all())
+    scale = float(want[3].abs().max())
+    agree = 0
+    for r in range(batch):
+        diff = torch.nonzero(got[0][r] != want[0][r])
+        t_div = n if len(diff) == 0 else int(diff[0])
+        agree += t_div
+        hi = min(t_div + 1, n)
+        rel = float((got[3][:hi, r] - want[3][:hi, r]).abs().max()) / scale
+        assert rel < Q_LOGIT_TOL, (r, t_div, rel)
+    assert agree >= n * batch // 2
+    if agree == n * batch:
+        assert torch.equal(got[2], want[2])
+        ring_err = (got[1].float() - want[1].float()).abs().max()
+        assert float(ring_err) <= 1e-2 * float(want[1].float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_quantized_kernel_chunk_carry_and_batch_bound(cuda_device, mode):
+    packed, flat, state, cond = _setup(cuda_device, 11, 24, seed=1,
+                                       pack=tfc.PACKERS[mode])
+
+    def run(ring, prev, t0, c):
+        return tfc.generate_fused(packed, CFG, ring, prev, t0, c, 3, 1.0,
+                                  quantized=mode)
+
+    whole = run(flat.clone(), state.prev_id, state.t, cond)[0]
+    a, ring, last = run(flat.clone(), state.prev_id, state.t, cond[..., :10])
+    b = run(ring, last, state.t + 10, cond[..., 10:])[0]
+    assert torch.equal(whole, torch.cat([a, b], 1))
+    # above the co-residency bound the wrapper raises, naming the bound
+    bound = tfc.quantized_max_batch(CFG, mode, cuda_device)
+    assert bound >= 8 and bound % 8 == 0
+    big = bound + 1
+    with pytest.raises(ValueError, match=f"at most {bound} rows"):
+        tfc.generate_fused(
+            packed, CFG, torch.zeros(sum(CFG.dilations), big, CFG.n_res,
+                                     dtype=torch.bfloat16, device=cuda_device),
+            torch.zeros(big, dtype=torch.long, device=cuda_device), 0,
+            torch.zeros(big, cond.shape[1], 2, device=cuda_device), 0, 0.0,
+            quantized=mode)
+
+
+# ------------------------------------------------ the fused VQ lookup
+
+from ae_wavenet_tpu_torch.ops import vq_cuda  # noqa: E402
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,d", [(512, 128, 64), (301, 128, 64), (37, 100, 30),
+                                   (5, 700, 8)])
+def test_vq_kernel_matches_plain_version(cuda_device, n, k, d):
+    """Codes equal except on near-ties (under 1% of rows, each with a
+    relative distance gap under 1e-5), quant the codebook rows bit for bit,
+    counts exact, sums within 1e-4, and the same bits on a second launch;
+    ragged N, K above one pass of the block and a D off the 16-byte path."""
+    gen = torch.Generator().manual_seed(n)
+    z = (torch.randn(n, d, generator=gen) * 0.5).to(cuda_device)
+    e = (torch.randn(k, d, generator=gen) / d ** 0.5).to(cuda_device)
+    before = vq_cuda.vq_lookup_fused.launches
+    got = vq_cuda.vq_lookup_fused(z, e)
+    again = vq_cuda.vq_lookup_fused(z, e)
+    want = vq_cuda.vq_lookup_reference(z, e)
+    torch.cuda.synchronize()
+    assert vq_cuda.vq_lookup_fused.launches == before + 2
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    codes = got[0].long()
+    assert int(codes.min()) >= 0 and int(codes.max()) < k
+    differ = torch.nonzero(codes != want[0].long())[:, 0]
+    assert len(differ) <= n // 100
+    d2 = e.square().sum(1)[None] - 2.0 * z.double() @ e.double().t()
+    for r in differ.tolist():
+        gap = abs(float(d2[r, codes[r]] - d2[r, want[0][r].long()]))
+        assert gap <= 1e-5 * float(d2[r].abs().max()), (r, gap)
+    assert torch.equal(got[1], e[codes])
+    assert torch.equal(got[2], torch.bincount(codes, minlength=k).float())
+    same = codes == want[0].long()
+    if bool(same.all()):
+        assert float((got[3] - want[3]).abs().max()) <= 1e-4 * float(
+            want[3].abs().max())
+
+
+@pytest.mark.cuda
+def test_vq_kernel_takes_the_first_index_on_ties(cuda_device):
+    e = torch.tensor([[1.0, 0.0], [0.0, 1.0]], device=cuda_device).repeat(300, 1)
+    z = torch.tensor([[2.0, 0.0], [0.0, 2.0], [0.5, 0.5]], device=cuda_device)
+    codes, quant, counts, sums = vq_cuda.vq_lookup_fused(z, e)
+    assert codes.tolist() == [0, 1, 0]
+    assert torch.equal(quant, e[codes.long()])
+    assert counts[:2].tolist() == [2.0, 1.0] and float(counts.sum()) == 3.0
+    assert sums[0].tolist() == [2.5, 0.5]
+
+
+@pytest.mark.cuda
+def test_vq_kernel_rejects_what_it_cannot_take(cuda_device):
+    z = torch.zeros(4, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        vq_cuda.vq_lookup_fused(z, torch.zeros(5, 8, device=cuda_device).double())
+    with pytest.raises(ValueError, match="cpu"):
+        vq_cuda.vq_lookup_fused(z, torch.zeros(5, 8))
+    with pytest.raises(ValueError, match="256"):
+        vq_cuda.vq_lookup_fused(torch.zeros(4, 300, device=cuda_device),
+                                torch.zeros(5, 300, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_bottleneck_on_card_goes_through_the_vq_kernel(cuda_device):
+    from ae_wavenet_tpu_torch.models import bottlenecks as tbn
+    from ae_wavenet_tpu_torch.utils.config import BottleneckConfig
+
+    cfg = BottleneckConfig(kind="vq", n_dim=16, vq_k=32, vq_use_pallas=True)
+    bn = tbn.make(cfg, torch.Generator().manual_seed(0)).to(cuda_device)
+    z = torch.randn(2, 16, 30, generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    before = (vq_cuda.vq_lookup_fused.launches, vq_cuda.vq_lookup_reference.launches)
+    zq = bn(z)
+    zq_t, aux = bn.train_apply(z, 5, True, torch.Generator(cuda_device).manual_seed(2))
+    torch.cuda.synchronize()
+    assert vq_cuda.vq_lookup_fused.launches == before[0] + 2
+    assert vq_cuda.vq_lookup_reference.launches == before[1]
+    assert zq.shape == z.shape and bool(torch.isfinite(zq_t).all())
+    assert bool(torch.isfinite(aux["perplexity"]))
 
 
 # ------------------------------------------------ the gated training stack

@@ -115,9 +115,47 @@ def test_cli_serves_a_jax_export(tmp_path):
     assert rc == 0
     x, sr = read_wav(out)
     assert sr == 16000 and len(x) == 60
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main(["--ckpt", ckpt, "--data", data, "--device", "cpu",
-                   "--int8", "--out", out])
+    # --int8 and --int4 run: on the CPU through the plain version, once each
+    for flag in ("--int8", "--int4"):
+        before = tfc.generate_fused_reference.launches
+        assert tcli.main(["--ckpt", ckpt, "--data", data, "--n-samples", "40",
+                          "--device", "cpu", flag, "--out", out]) == 0
+        assert tfc.generate_fused_reference.launches == before + 1
+        assert len(read_wav(out)[0]) == 40
+
+
+@pytest.mark.parametrize("flags,mode", [([], None), (["--int8"], "int8"),
+                                        (["--int4"], "int4"),
+                                        (["--int8", "--int4"], "int4")])
+def test_cli_quantized_flags_select_the_sampler(tmp_path, monkeypatch, flags, mode):
+    """The generate CLI on a port export whose config has
+    ``vq_use_pallas=True``: encode goes through the fused VQ lookup and the
+    sampler gets the weights the flag names (on the CPU, the plain versions
+    of both, once each and no kernel)."""
+    from ae_wavenet_tpu_torch.ops import vq_cuda
+
+    cfg = _cfg()
+    port_cfg = tcfg.from_json(jcfg.to_json(dataclasses.replace(
+        cfg, bottleneck=dataclasses.replace(cfg.bottleneck, vq_use_pallas=True))))
+    ckpt, data, out = (str(tmp_path / n) for n in ("port.pt", "synth", "out.wav"))
+    weights.save_export(ckpt, tae.init(port_cfg, torch.Generator().manual_seed(3)),
+                        port_cfg, 0)
+    make_synthetic_dataset(data, n_clips=1, n_speakers=1, clip_len=(7000, 7500))
+    seen, check = set(), tfc._check_mode
+    monkeypatch.setattr(tfc, "_check_mode", lambda packed, m: (
+        seen.add((type(packed).__name__, m)), check(packed, m))[1])
+    counts = (tfc.generate_fused, vq_cuda.vq_lookup_fused, vq_cuda.vq_lookup_reference)
+    before = [tfc.generate_fused.launches, tfc.generate_fused.launches_int8,
+              tfc.generate_fused.launches_int4, *(f.launches for f in counts[1:])]
+    assert tcli.main(["--ckpt", ckpt, "--data", data, "--n-samples", "30",
+                      "--device", "cpu", *flags, "--out", out]) == 0
+    name = {None: "KernelParams", "int8": "Int8KernelParams",
+            "int4": "Int4KernelParams"}[mode]
+    assert seen == {(name, mode)}
+    after = [tfc.generate_fused.launches, tfc.generate_fused.launches_int8,
+             tfc.generate_fused.launches_int4, *(f.launches for f in counts[1:])]
+    assert [a - b for a, b in zip(after, before)] == [0, 0, 0, 0, 1]
+    assert len(read_wav(out)[0]) == 30
 
 
 def test_port_export_imports_into_jax(tmp_path):

@@ -98,9 +98,41 @@ def test_train_cli_new_then_resume_through_fused_stack(data_prefix, tmp_path, ca
 @pytest.mark.parametrize("flag", [["--gated-full-fusion"], ["--gated-bwd-group", "3"],
                                   ["--vq-use-pallas"], ["--ckpt-keep", "3"]])
 def test_cli_refuses_unported_kernels(data_prefix, flag):
+    argv = ["new", "--preset", "chorowski", "--pallas-stack", "--data", data_prefix,
+            "--device", "cpu", *flag]
+    if flag == ["--vq-use-pallas"]:  # ported since: the flag reaches the config
+        assert ttrain.setup(argv)[1].bottleneck.vq_use_pallas is True
+        return
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        ttrain.setup(["new", "--preset", "chorowski", "--pallas-stack",
-                      "--data", data_prefix, "--device", "cpu", *flag])
+        ttrain.setup(argv)
+
+
+def test_train_cli_with_the_fused_vq_lookup(data_prefix, tmp_path, capsys):
+    """``--vq-use-pallas`` on the CPU: the fused lookup's plain version runs
+    once per step (and its kernel never), and the first step's loss equals
+    the same-seed run without the flag within 1e-4."""
+    from ae_wavenet_tpu_torch.ops import vq_cuda
+
+    def run(name, *flags):
+        argv = ["new", "--preset", "tiny", "--bottleneck", "vq", "--vq-k", "32",
+                "--n-steps", "3", "--log-every", "1", "--data", data_prefix,
+                "--ckpt-dir", str(tmp_path / name), "--device", "cpu", *flags]
+        assert ttrain.main(argv) == 0
+        return [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+                if ln.startswith('{"step"')]
+
+    before = (vq_cuda.vq_lookup_reference.launches, vq_cuda.vq_lookup_fused.launches)
+    fused = run("fused", "--vq-use-pallas")
+    assert vq_cuda.vq_lookup_reference.launches == before[0] + 3
+    assert vq_cuda.vq_lookup_fused.launches == before[1]
+    plain = run("plain")
+    assert vq_cuda.vq_lookup_reference.launches == before[0] + 3
+    assert [r["step"] for r in fused] == [1, 2, 3]
+    assert abs(fused[0]["loss"] - plain[0]["loss"]) < 1e-4
+    assert all(np.isfinite(r["recon_ce"]) and np.isfinite(r["perplexity"])
+               for r in fused)
+    cfg = weights.load_named(tch.checkpoint_path(str(tmp_path / "fused"), 3))[2]
+    assert cfg.bottleneck.vq_use_pallas is True
 
 
 # ------------------------------------------------- bottleneck training
