@@ -44,15 +44,15 @@ def main(argv=None) -> int:
     import torch
 
     from ae_wavenet_tpu_torch.training import chassis as ch_mod
-    from ae_wavenet_tpu_torch.training import weights
+    from ae_wavenet_tpu_torch.training import checkpoint as ckpt_mod
 
     device = torch.device(a.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
-    step = ch_mod.latest_step(a.ckpt_dir) if a.step is None else a.step
-    if step is None:
-        raise SystemExit(f"no checkpoints under {a.ckpt_dir}")
-    cfg = weights.load_named(ch_mod.checkpoint_path(a.ckpt_dir, step))[2]
+    try:
+        step, cfg = ckpt_mod.load_config(a.ckpt_dir, a.step)
+    except FileNotFoundError as e:
+        raise SystemExit(str(e))
     # through the chassis, so the eval step, the holdout split and the
     # restore checks are the training ones (it refuses the MFCC inverter)
     ch = ch_mod.Chassis(cfg, a.data, ckpt_dir=a.ckpt_dir, device=device,

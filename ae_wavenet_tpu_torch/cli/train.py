@@ -8,19 +8,20 @@ only takes runtime overrides, so the architecture cannot drift.
         --pallas-stack --data PREFIX --ckpt-dir DIR [--device cuda] ...
     python -m ae_wavenet_tpu_torch.cli.train resume --ckpt-dir DIR --data PREFIX
 
-Checkpoints are export files ``DIR/step_XXXXXXXX.pt``.  Flags of the
-reference left out until their modules are ported (ROADMAP.md): ``--mesh``,
+Checkpoints are export files ``DIR/step_XXXXXXXX.pt`` with ``LATEST`` and
+``BEST`` pointers beside them; ``--ckpt-keep N`` keeps the newest N, the
+best-holdout one and the one ``LATEST`` names.  ``--profile-steps N
+--profile-dir DIR`` traces the first N steps.  Flags of the reference left
+out until their modules are ported (ROADMAP.md): ``--mesh``,
 ``--distributed`` (and its ``--coordinator``/``--num-processes``/
-``--process-id``), ``--profile-steps``/``--profile-dir`` and
-``--tb-logdir``.  ``--gated-full-fusion`` and ``--gated-bwd-group >= 3``
-select TPU kernels not ported yet, and ``--ckpt-keep N`` (N > 0) selects
-checkpoint retention, not ported yet: each raises ``NotImplementedError``.
+``--process-id``) and ``--tb-logdir``.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 
 from ae_wavenet_tpu_torch.utils import config as config_mod
 
@@ -40,8 +41,9 @@ def _add_runtime_flags(p):
     p.add_argument("--log-every", type=int, default=None)
     p.add_argument("--ckpt-every", type=int, default=None)
     p.add_argument("--ckpt-keep", type=int, default=None,
-                   help="keep-last-N retention (not ported yet: N > 0 raises; "
-                        "0 keeps every checkpoint)")
+                   help="keep-last-N retention: prune all but the newest N "
+                        "checkpoints after each save (the best-holdout one "
+                        "and LATEST's are always kept; 0 keeps every one)")
     p.add_argument("--eval-every", type=int, default=0,
                    help="run Chassis.evaluate() every N steps (0 = off)")
     p.add_argument("--steps-per-call", type=int, default=None,
@@ -50,6 +52,11 @@ def _add_runtime_flags(p):
     p.add_argument("--nan-checks", action="store_true",
                    help="verify metrics and params are finite at every log "
                         "point and raise at the first non-finite step")
+    p.add_argument("--profile-steps", type=int, default=0,
+                   help="trace the first N steps with torch.profiler "
+                        "(requires --profile-dir)")
+    p.add_argument("--profile-dir", default=None,
+                   help="where the Chrome trace goes (trace.json)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' fails when there is no card")
 
@@ -95,7 +102,7 @@ def build_parser() -> argparse.ArgumentParser:
                      action="store_false", default=None,
                      help="one layer per kernel instead of pairs")
     new.add_argument("--gated-full-fusion", action="store_true", default=None,
-                     help="whole-stack forward kernel (not ported yet: raises)")
+                     help="every gated layer's forward in one kernel launch")
     res = sub.add_parser("resume", help="resume from the latest checkpoint")
     _add_runtime_flags(res)
     res.add_argument("--step", type=int, default=None, help="checkpoint step")
@@ -158,17 +165,13 @@ def config_from_args(a) -> config_mod.RunConfig:
                                encoder=enc, model_kind=a.model)
 
 
-def check_ported(cfg: config_mod.RunConfig) -> None:
-    """Refuse the options whose TPU kernels or modules are not ported yet."""
-    if cfg.train.ckpt_keep > 0:
-        raise NotImplementedError(
-            f"ckpt_keep={cfg.train.ckpt_keep}: keep-last-N checkpoint retention is "
-            "not ported yet (ROADMAP.md, item 5: checkpoints); --ckpt-keep 0 keeps "
-            "every checkpoint")
-    from ae_wavenet_tpu_torch.ops.gated import check_schedule
+def check_schedule(cfg: config_mod.RunConfig) -> None:
+    """Refuse, before anything is built, a fused-stack schedule that does
+    not apply (``ops/gated.check_schedule``)."""
+    from ae_wavenet_tpu_torch.ops import gated
 
     if cfg.wavenet.use_pallas_stack:
-        check_schedule(cfg.wavenet)
+        gated.check_schedule(cfg.wavenet)
 
 
 def setup(argv=None):
@@ -177,24 +180,25 @@ def setup(argv=None):
 
     set_reference_precision()
     a = build_parser().parse_args(argv)
-    from ae_wavenet_tpu_torch.training import chassis as ch_mod
-    from ae_wavenet_tpu_torch.training import weights
+    from ae_wavenet_tpu_torch.training import checkpoint as ckpt_mod
 
+    if a.profile_steps > 0 and not a.profile_dir:
+        raise SystemExit("--profile-steps requires --profile-dir")
     if a.mode == "new":
         cfg = config_from_args(a)
     else:
         if not a.ckpt_dir:
             raise SystemExit("resume requires --ckpt-dir")
-        step = ch_mod.latest_step(a.ckpt_dir) if a.step is None else a.step
-        if step is None:
-            raise SystemExit(f"no checkpoints under {a.ckpt_dir}")
-        cfg = weights.load_named(ch_mod.checkpoint_path(a.ckpt_dir, step))[2]
+        try:
+            cfg = ckpt_mod.load_config(a.ckpt_dir, a.step)[1]
+        except FileNotFoundError as e:
+            raise SystemExit(str(e))
     cfg = dataclasses.replace(cfg, train=_over(
         cfg.train, n_steps=a.n_steps, log_every=a.log_every,
         ckpt_every=a.ckpt_every, ckpt_keep=a.ckpt_keep,
         steps_per_call=a.steps_per_call,
         compute_dtype=getattr(a, "compute_dtype", None)))
-    check_ported(cfg)
+    check_schedule(cfg)
     return a, cfg
 
 
@@ -208,14 +212,18 @@ def main(argv=None) -> int:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
     ch = Chassis(cfg, a.data, ckpt_dir=a.ckpt_dir, device=device,
-                 nan_checks=a.nan_checks)
+                 nan_checks=a.nan_checks, profile_dir=a.profile_dir,
+                 profile_steps=a.profile_steps)
     if a.mode == "resume":
         ch.resume(a.step)
         print(f"resumed at step {ch.step}")
     print(config_mod.to_json(cfg))
     ch.train(cfg.train.n_steps, eval_every=a.eval_every)
+    if ch.profile_summary:
+        print(json.dumps({"profile": ch.profile_summary}))
     if a.ckpt_dir:
         print(f"saved {ch.save()}")
+    ch.close()
     return 0
 
 

@@ -1,11 +1,15 @@
-// Fused gated stack for training: forward and backward of one or two
-// gated layers, and the weight-gradient products.  Hand-written for Hopper
-// (sm_90a), bound with ctypes (see ops/gated_cuda.py).
+// Fused gated stack for training: forward and backward of one layer, two
+// layers, the whole stack (forward) or a group of layers (backward), and
+// the weight-gradient products.  Hand-written for Hopper (sm_90a), bound
+// with ctypes (see ops/gated_cuda.py).
 //
 // Replaces the TPU kernels of ae_wavenet_tpu/ops/gated_pallas.py:
 //   gated_layer_fused (K1b) and gated_pair_fused (K1)  -> gated_fwd_kernel<1|2>
 //   gated_layer_bwd (K2b, saved-y and recompute modes) and
 //   gated_pair_bwd (K2)                                -> gated_bwd_kernel<1|2>
+//                                                         + gated_dw_kernel
+//   gated_stack_fused (K7, every layer in one launch)  -> gated_stack_kernel
+//   gated_group_bwd (K8, G >= 3 layers in one launch)  -> gated_group_kernel
 //                                                         + gated_dw_kernel
 // The contract (rounding points and masks) is written out at the top of
 // ops/gated.py, which also holds the plain PyTorch version of each.
@@ -45,7 +49,22 @@
 //     gated_dw_kernel computes xin^T g_y and h^T g_out with split-K
 //     partials in f32, reduced in a fixed order by gated_reduce_kernel
 //     (deterministic); gated_colsum_kernel sums g_y and g_out over the
-//     rows for the bias gradients the same way.
+//     rows for the bias gradients the same way;
+//   * the whole-stack forward and the grouped backward carry rows across
+//     chunks for many layers (the sum of the dilations, up to 2,045 rows),
+//     which a recomputed halo would pay for with more work than the layers
+//     themselves.  They recompute nothing: one persistent, cooperative
+//     launch of as many blocks as the card holds at once walks the layers
+//     in order (layer-major), every block taking the same tiles of every
+//     layer, with a barrier across the grid between two layers.  What a
+//     tile needs from its neighbour (the previous layer's output dd rows
+//     below it; the layer above's f32 cotangents) was written to global
+//     memory before the barrier by whichever block owned those rows: the
+//     inter-layer streams the backward needs anyway (or two buffers used
+//     in turn when nothing is saved), and for the backward one f32 buffer
+//     of same-row cotangents updated in place plus two f32 buffers of
+//     prev-tap cotangents, written at row g - dd, used in turn.  A barrier
+//     that is not met within seconds traps.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -150,7 +169,8 @@ struct FwdP {
 };
 
 // One layer on the tile whose xin is in shared memory.  The new residual
-// row g goes to out + (g - out_row0) * R; halo tiles write neither skip nor y.
+// row g goes to out + (g - out_row0) * R (nowhere when out is null); halo
+// tiles write neither skip nor y.
 __device__ void fwd_layer_tile(const FwdP& p, const FwdLayer& L, int b, int t0,
                                int nr, bf16* out, int out_row0, bool halo,
                                bf16* xs, bf16* hs, float* stage) {
@@ -229,7 +249,7 @@ __device__ void fwd_layer_tile(const FwdP& p, const FwdLayer& L, int b, int t0,
 #pragma unroll
         for (int e = 0; e < 8; ++e) o[e] = st[rr * 16 + cc + e] + L.bout[n0 + e];
         if (n0 < d.Rp) {
-          if (n0 < d.R) {
+          if (n0 < d.R && out) {
             float xc[8];
             ld8(xc, xs + row * ldx + d.Rp + n0);
 #pragma unroll
@@ -316,13 +336,17 @@ struct BwdP {
   Dims d;
   const bf16* cond; const bf16* gxcur; const bf16* gxprev; const bf16* gskip;
   float* gcond; bf16* gxc; bf16* gxp;
-  float* gcur2; float* gp2;  // pair: layer 2 -> layer 1 cotangent (f32)
+  float* gcur2; float* gp2;  // the layer above -> this layer cotangent (f32)
+  float* gp2w;               // where this layer writes its own prev-tap part
   float* yf;                 // recompute: f32 y [B, P, 2Dp]
   BwdLayer L[2];
   int prev_dd, cur_vl, r0, chunk;
 };
 
-enum Mode { SINGLE = 0, UPPER = 1, LOWER = 2, HALO = 3 };
+// Where a layer's upstream comes from and where its cotangents go: bf16
+// streams both ways (SINGLE), bf16 in and f32 out (UPPER; HALO writes only
+// the prev-tap part), f32 in and bf16 out (LOWER), f32 both ways (INNER).
+enum Mode { SINGLE = 0, UPPER = 1, LOWER = 2, HALO = 3, INNER = 4 };
 
 // Upstream cotangent of the layer's output rows g, channels r..r+7 (before
 // the layer's own valid mask).
@@ -330,7 +354,7 @@ __device__ __forceinline__ void gxn8(const BwdP& p, int mode, int b, int g,
                                      int r, float* o) {
   const Dims& d = p.d;
   const size_t off = ((size_t)b * d.P + g) * d.R + r;
-  if (mode == LOWER) {
+  if (mode == LOWER || mode == INNER) {
     ldf8(o, p.gcur2 + off);
     if (g + p.L[1].dd < d.P) {
       float q[8];
@@ -531,7 +555,7 @@ __device__ void bwd_layer_tile(const BwdP& p, int mode, int b, int t0, int nr,
               st8(p.gxp + (rowb + g) * d.R + n0, v);
             } else {
               const int q = g - L.dd;
-              if (q >= c0) stf8(p.gp2 + (rowb + q) * d.R + n0, v);
+              if (q >= c0) stf8(p.gp2w + (rowb + q) * d.R + n0, v);
             }
           }
         } else if (n0 < 2 * d.Rp) {
@@ -546,7 +570,8 @@ __device__ void bwd_layer_tile(const BwdP& p, int mode, int b, int t0, int nr,
             }
 #pragma unroll
             for (int e = 0; e < 8; ++e) gx[e] += v[e];
-            if (mode == UPPER) stf8(p.gcur2 + (rowb + g) * d.R + r, gx);
+            if (mode == UPPER || mode == INNER)
+              stf8(p.gcur2 + (rowb + g) * d.R + r, gx);
             else st8(p.gxc + (rowb + g) * d.R + r, gx);
           }
         } else if (n0 - 2 * d.Rp < d.C) {
@@ -592,6 +617,172 @@ __global__ void __launch_bounds__(NTHR) gated_bwd_kernel(BwdP p) {
       bwd_layer_tile(p, SINGLE, b, t0, nr, c0, smem, stage);
     }
   }
+}
+
+// ------------------------------------- whole stack / group, one launch
+
+constexpr long long SPIN_LIMIT = 1LL << 34;  // clock cycles (several seconds)
+
+// Barrier n (counted from 0) across a cooperative grid: every block's
+// writes before it are visible to every block after it.  `count` starts
+// at zero and only grows.
+__device__ __forceinline__ void grid_barrier(unsigned long long* count, int n) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(count, 1ULL);
+    const unsigned long long want = (unsigned long long)(n + 1) * gridDim.x;
+    const long long t_start = clock64();
+    while (*(volatile unsigned long long*)count < want)
+      if (clock64() - t_start > SPIN_LIMIT) __trap();
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// The most layers one launch takes: the per-layer tables travel by value in
+// the kernel's parameters (4 KB in all), so no launch waits on a copy.
+constexpr int MAX_FUSED = 40;
+
+struct StackLayer {
+  const bf16* win; const float* bin; const bf16* wout; const float* bout;
+  bf16* y;          // [B, P, 2D] or null
+  const bf16* xin;  // the layer's input stream [B, P, R]
+  bf16* xout;       // its output stream, or null (the last layer's is unused)
+  int dd;
+};
+
+struct StackP {
+  Dims d;
+  const bf16* cond; float* skip;
+  unsigned long long* bar;
+  int n_layers, r0, n_tiles;  // tiles of TM rows from r0, per batch row
+  StackLayer layers[MAX_FUSED];
+};
+
+// Every layer on rows [r0, P), layer-major: tile k of every layer goes to
+// block k mod gridDim.x, so a block adds its skip terms to rows that only
+// it touches, and reads from other blocks only the previous layer's rows
+// below its tile, complete since the barrier.
+__global__ void __launch_bounds__(NTHR)
+gated_stack_kernel(const __grid_constant__ StackP p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Dims& d = p.d;
+  bf16* xs = reinterpret_cast<bf16*>(smem);
+  bf16* hs = xs + TM * (d.kp() + SKEW);
+  float* stage = reinterpret_cast<float*>(hs + TM * (d.Dp + SKEW));
+  FwdP fp;
+  fp.d = d;
+  fp.skip = p.skip;
+  const int total = d.B * p.n_tiles;
+  for (int l = 0; l < p.n_layers; ++l) {
+    const StackLayer sl = p.layers[l];
+    const FwdLayer fl{sl.win, sl.bin, sl.wout, sl.bout, sl.y, sl.dd};
+    const int lo = l == 0 ? 0 : p.r0;  // x0 is valid from row 0
+    for (int tile = blockIdx.x; tile < total; tile += gridDim.x) {
+      const int b = tile / p.n_tiles;
+      const int t0 = p.r0 + (tile % p.n_tiles) * TM;
+      const int nr = min(TM, d.P - t0);
+      const bf16* xb = sl.xin + (size_t)b * d.P * d.R;
+      load_xin(xs, d, b, t0, nr, p.cond, true,
+               [&](int g) -> const bf16* {
+                 const int s = g - fl.dd;
+                 return s >= lo ? xb + (size_t)s * d.R : nullptr;
+               },
+               [&](int g) -> const bf16* { return xb + (size_t)g * d.R; }, 0);
+      __syncthreads();
+      fwd_layer_tile(fp, fl, b, t0, nr,
+                     sl.xout ? sl.xout + (size_t)b * d.P * d.R : nullptr, 0,
+                     false, xs, hs, stage);
+    }
+    if (l + 1 < p.n_layers) grid_barrier(p.bar, l);
+  }
+}
+
+// The group's layers, lower layer first, are BwdLayer rows.
+
+struct GroupP {
+  Dims d;
+  const bf16* cond; const bf16* gxcur; const bf16* gxprev; const bf16* gskip;
+  float* gcond; bf16* gxc; bf16* gxp;
+  float* gcur;    // f32 same-row cotangent between layers, updated in place
+  float* gp[2];   // f32 prev-tap cotangents at row g - dd, used in turn
+  unsigned long long* bar;
+  int n_layers, prev_dd, cur_vl, r0, n_tiles;
+  BwdLayer layers[MAX_FUSED];
+};
+
+// The group's layers from the top down, each on rows [r0, P) masked to its
+// own lattice, layer-major with the forward's tile-to-block map: gcond rows
+// belong to one block, and the cotangents a tile reads from other blocks
+// (the layer above's prev-tap part for rows up to dd above it) are complete
+// since the barrier.
+__global__ void __launch_bounds__(NTHR)
+gated_group_kernel(const __grid_constant__ GroupP p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Dims& d = p.d;
+  const int ldx = d.kp() + SKEW, ldo = d.rsp() + SKEW, ldy = 2 * d.Dp + SKEW;
+  const int ubytes = 2 * TM * max(ldx, ldo + ldy);
+  float* stage = reinterpret_cast<float*>(smem + ubytes);
+  BwdP q;
+  q.d = d;
+  q.cond = p.cond; q.gxcur = p.gxcur; q.gxprev = p.gxprev; q.gskip = p.gskip;
+  q.gcond = p.gcond; q.gxc = p.gxc; q.gxp = p.gxp;
+  q.gcur2 = p.gcur; q.yf = nullptr;
+  q.prev_dd = p.prev_dd; q.cur_vl = p.cur_vl; q.r0 = p.r0; q.chunk = 0;
+  const int total = d.B * p.n_tiles, top = p.n_layers - 1;
+  for (int j = top; j >= 0; --j) {
+    const BwdLayer bl = p.layers[j];
+    const int mode = j == top ? UPPER : (j == 0 ? LOWER : INNER);
+    // UPPER takes its layer from slot 1; LOWER and INNER take theirs from
+    // slot 0 and the dilation of the layer above from slot 1
+    if (j == top) {
+      q.L[1] = bl;
+    } else {
+      q.L[0] = bl;
+      q.L[1].dd = p.layers[j + 1].dd;
+    }
+    q.gp2 = p.gp[(top - j + 1) & 1];
+    q.gp2w = p.gp[(top - j) & 1];
+    for (int tile = blockIdx.x; tile < total; tile += gridDim.x) {
+      const int b = tile / p.n_tiles;
+      const int t0 = p.r0 + (tile % p.n_tiles) * TM;
+      bwd_layer_tile(q, mode, b, t0, min(TM, d.P - t0), p.r0, smem, stage);
+    }
+    if (j > 0) grid_barrier(p.bar, top - j);
+  }
+}
+
+// Launch `kernel` with as many blocks as fit on the card at once (at most
+// n_tiles), cooperatively: the grid barrier needs them all resident.
+template <typename P>
+int launch_resident(void (*kernel)(P), P& p, int n_tiles, int smem,
+                    cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+      cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NTHR,
+                                                           smem)) != cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
+  const int blocks = n_tiles < per_sm * sms ? n_tiles : per_sm * sms;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeCooperative;
+  attr.val.cooperative = 1;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(NTHR);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, p);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // ------------------------------------------------------ weight gradients
@@ -811,7 +1002,8 @@ int awt_gated_bwd(int nl, void* const* ptr, const int* iv, cudaStream_t stream) 
   p.cond = (const bf16*)ptr[0]; p.gxcur = (const bf16*)ptr[1];
   p.gxprev = (const bf16*)ptr[2]; p.gskip = (const bf16*)ptr[3];
   p.gcond = (float*)ptr[4]; p.gxc = (bf16*)ptr[5]; p.gxp = (bf16*)ptr[6];
-  p.gcur2 = (float*)ptr[7]; p.gp2 = (float*)ptr[8]; p.yf = (float*)ptr[9];
+  p.gcur2 = (float*)ptr[7]; p.gp2 = p.gp2w = (float*)ptr[8];
+  p.yf = (float*)ptr[9];
   for (int l = 0; l < 2; ++l) {
     void* const* q = ptr + 10 + 8 * l;
     p.L[l] = BwdLayer{(const bf16*)q[0], (const bf16*)q[1], (const bf16*)q[2],
@@ -831,6 +1023,56 @@ int awt_gated_bwd(int nl, void* const* ptr, const int* iv, cudaStream_t stream) 
     gated_bwd_kernel<1><<<grid, NTHR, smem, stream>>>(p);
   }
   return (int)cudaGetLastError();
+}
+
+int awt_gated_max_fused_layers() { return MAX_FUSED; }
+
+// The whole-stack forward.  ptr: cond, skip, bar (one zeroed 64-bit count),
+// then per layer win, bin, wout, bout, y, xin, xout
+// iv: 10 dims, n_layers, r0, then dd per layer
+int awt_gated_stack(void* const* ptr, const int* iv, cudaStream_t stream) {
+  StackP p;
+  p.d = dims_from(iv);
+  p.cond = (const bf16*)ptr[0]; p.skip = (float*)ptr[1];
+  p.bar = (unsigned long long*)ptr[2];
+  p.n_layers = iv[10]; p.r0 = iv[11];
+  p.n_tiles = (p.d.P - p.r0 + TM - 1) / TM;
+  if (p.n_layers < 1 || p.n_layers > MAX_FUSED || p.n_tiles < 1)
+    return (int)cudaErrorInvalidValue;
+  for (int l = 0; l < p.n_layers; ++l) {
+    void* const* q = ptr + 3 + 7 * l;
+    p.layers[l] = StackLayer{(const bf16*)q[0], (const float*)q[1],
+                             (const bf16*)q[2], (const float*)q[3], (bf16*)q[4],
+                             (const bf16*)q[5], (bf16*)q[6], iv[12 + l]};
+  }
+  return launch_resident(gated_stack_kernel, p, p.d.B * p.n_tiles,
+                         awt_gated_fwd_smem(iv), stream);
+}
+
+// The grouped backward (saved y).  ptr: cond, gxcur, gxprev, gskip, gcond,
+// gxc, gxp, gcur, gp0, gp1, bar (one zeroed 64-bit count), then per layer
+// (lower layer first) x, y, win, bin, wout, gy, h, gout
+// iv: 10 dims, n_layers, prev_dd, cur_vl, r0, then dd, vl per layer
+int awt_gated_group(void* const* ptr, const int* iv, cudaStream_t stream) {
+  GroupP p;
+  p.d = dims_from(iv);
+  p.cond = (const bf16*)ptr[0]; p.gxcur = (const bf16*)ptr[1];
+  p.gxprev = (const bf16*)ptr[2]; p.gskip = (const bf16*)ptr[3];
+  p.gcond = (float*)ptr[4]; p.gxc = (bf16*)ptr[5]; p.gxp = (bf16*)ptr[6];
+  p.gcur = (float*)ptr[7]; p.gp[0] = (float*)ptr[8]; p.gp[1] = (float*)ptr[9];
+  p.bar = (unsigned long long*)ptr[10];
+  p.n_layers = iv[10]; p.prev_dd = iv[11]; p.cur_vl = iv[12]; p.r0 = iv[13];
+  p.n_tiles = (p.d.P - p.r0 + TM - 1) / TM;
+  if (p.n_layers < 2 || p.n_layers > MAX_FUSED || p.n_tiles < 1)
+    return (int)cudaErrorInvalidValue;
+  for (int l = 0; l < p.n_layers; ++l) {
+    void* const* q = ptr + 11 + 8 * l;
+    p.layers[l] = BwdLayer{(const bf16*)q[0], (const bf16*)q[1], (const bf16*)q[2],
+                           (const float*)q[3], (const bf16*)q[4], (bf16*)q[5],
+                           (bf16*)q[6], (bf16*)q[7], iv[14 + 2 * l], iv[15 + 2 * l]};
+  }
+  return launch_resident(gated_group_kernel, p, p.d.B * p.n_tiles,
+                         awt_gated_bwd_smem(iv), stream);
 }
 
 // ptr: x, cond, a, g, part, out, part_b, out_b

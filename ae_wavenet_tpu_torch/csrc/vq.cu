@@ -161,7 +161,8 @@ vq_stats_kernel(const float* __restrict__ z, const int* __restrict__ codes,
 extern "C" {
 
 // codes [N] int32, quant [N, D], counts [K], sums [K, D] from z [N, D] and
-// the codebook e [K, D] (all f32, contiguous), on `stream`.  Returns
+// the codebook e [K, D] (all f32, contiguous), on `stream`; with counts
+// null the second kernel (counts and sums) is not launched.  Returns
 // cudaGetLastError() (0 = ok).
 int awt_vq_lookup(const void* z, const void* e, int N, int K, int D,
                   void* codes, void* quant, void* counts, void* sums,
@@ -179,6 +180,7 @@ int awt_vq_lookup(const void* z, const void* e, int N, int K, int D,
       (const float*)z, (const float*)e, N, K, D, (int*)codes, (float*)quant);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  if (!counts) return 0;  // the caller reads neither counts nor sums
   vq_stats_kernel<<<(K + WARPS - 1) / WARPS, THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)z, (const int*)codes, N, K, D, (float*)counts, (float*)sums);
   return (int)cudaGetLastError();

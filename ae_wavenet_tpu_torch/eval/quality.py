@@ -154,7 +154,10 @@ def clip_quality_record(model, cfg: RunConfig, ds, clip: int,
                         encode_fn=None, step: int | None = None,
                         device=None) -> dict:
     """One dataset clip -> the JSON-ready free-running quality record (the
-    single source of the record's schema)."""
+    single source of the record's schema).  ``device`` defaults to the
+    model's."""
+    if device is None:
+        device = next(model.parameters()).device
     wav = torch.from_numpy(ds.clip(clip, max_input))[None].to(device)
     spk = torch.from_numpy(ds.speakers[clip : clip + 1].astype(np.int64)).to(device)
     rep = free_running_report(model, cfg, wav, spk, generator,

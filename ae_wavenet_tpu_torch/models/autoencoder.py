@@ -22,6 +22,7 @@ from ae_wavenet_tpu_torch.audio.mulaw import int16_to_float, mu_encode
 from ae_wavenet_tpu_torch.models import bottlenecks, common, encoder, wavenet
 from ae_wavenet_tpu_torch.models.common import (WindowSpec, btq_layout, mu_ce,
                                                  normalize_frames)
+from ae_wavenet_tpu_torch.utils import device as device_mod
 from ae_wavenet_tpu_torch.utils.config import RunConfig
 
 
@@ -67,10 +68,11 @@ class AutoEncoder(nn.Module):
 
 
 def init(cfg: RunConfig, generator: torch.Generator | None = None,
-         device=None) -> AutoEncoder:
+         device="cuda") -> AutoEncoder:
     """Random weights drawn from ``generator`` (a CPU generator), with the
-    reference's shapes and scales, then moved to ``device``."""
-    return AutoEncoder(cfg, generator).to(device)
+    reference's shapes and scales, then moved to ``device``: the card,
+    unless the caller passes ``"cpu"`` (no card raises)."""
+    return AutoEncoder(cfg, generator).to(device_mod.resolve(device))
 
 
 @torch.no_grad()

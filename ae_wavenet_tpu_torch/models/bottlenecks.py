@@ -141,23 +141,25 @@ class VQBottleneck(nn.Module):
               + eg.square().sum(2)[:, None, :])
         return d2.argmin(2)
 
-    def _fused(self, zf: torch.Tensor):
+    def _fused(self, zf: torch.Tensor, stats: bool):
         """(codes [N] int32, q [N, D], counts [K], sums [K, D]) from the
-        fused kernel on the detached f32 latents."""
-        return vq_lookup_fused(zf.detach().float().contiguous(), self.codebook)
+        fused kernel on the detached f32 latents; without ``stats`` the
+        EMA counts and sums are neither computed nor returned."""
+        return vq_lookup_fused(zf.detach().float().contiguous(), self.codebook,
+                               stats)
 
     def codes(self, z: torch.Tensor) -> torch.Tensor:
         """Nearest code per group: [G, B*T] (rows ordered (b, t))."""
         zf, zg, eg = self._grouped(z)
         if self.cfg.vq_use_pallas:
-            return self._fused(zf)[0].long()[None]
+            return self._fused(zf, False)[0].long()[None]
         return self._nearest(zg, eg)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         b, d, t = z.shape
         zf, zg, eg = self._grouped(z)
         if self.cfg.vq_use_pallas:
-            q = self._fused(zf)[1]
+            q = self._fused(zf, False)[1]
         else:
             idx = self._nearest(zg, eg)
             qg = torch.gather(eg, 1, idx[..., None].expand(-1, -1, eg.shape[-1]))
@@ -179,7 +181,7 @@ class VQBottleneck(nn.Module):
         with torch.no_grad():
             zg_sg = zg.detach()
             if cfg.vq_use_pallas:
-                _, q, counts, sums = self._fused(zf)
+                _, q, counts, sums = self._fused(zf, True)
                 counts, sums = counts[None], sums[None]
             else:
                 idx = self._nearest(zg_sg, eg)

@@ -2,9 +2,10 @@
 
 Counterpart of ``ae_wavenet_tpu/ops/gated_pallas.py``: ``pack_stack_weights``
 (``:78``), ``stack_apply`` (``:558``) and the custom VJP ``_stack_core``
-(``:1335``), plus plain PyTorch versions of the four kernels the stack runs
+(``:1335``), plus plain PyTorch versions of the six kernels the stack runs
 (``gated_layer_fused`` ``:105``, ``gated_pair_fused`` ``:217``,
-``gated_layer_bwd`` ``:643``, ``gated_pair_bwd`` ``:859``).  The kernels
+``gated_stack_fused`` ``:355``, ``gated_layer_bwd`` ``:643``,
+``gated_pair_bwd`` ``:859``, ``gated_group_bwd`` ``:1095``).  The kernels
 themselves are ``csrc/gated.cu``, wrapped by ``ops/gated_cuda.py``.
 
 Layout.  Time-major [B, P, C] buffers with P = t_in rows; layer i's valid
@@ -38,6 +39,18 @@ r0), and adds both layers' skip terms in order.  Backward, per layer:
 where gxn = gxcur[g] (rows >= the producer's cur_valid_lo) + gxprev[g +
 prev_dd] (rows with g + prev_dd < P), and gcond accumulates g_xin_cond in
 f32.  Inside a pair, layer 2's cotangent to layer 1 stays f32.
+
+The whole-stack forward (``gated_full_fusion``) runs every layer on rows
+[vl_0, P), the pair's rule extended to all layers, so rows [vl_0, vl_i) of
+mid_i and y_i hold values where the pair path leaves zeros; every backward
+masks them by the layer's own vl_i.  The grouped backward
+(``gated_bwd_group`` >= 3, saved y only) is the pair backward from 2 to G
+layers: each layer masked to its own lattice, every cotangent between two
+layers of the group in f32.  The TPU kernels carry rows between time tiles
+in on-chip scratch, walking a batch row's tiles in order; the CUDA kernels
+walk the layers in order instead, all tiles of a layer before the next
+layer, and hand rows to neighbouring tiles through global memory behind a
+barrier across the grid (``csrc/gated.cu``).
 """
 
 from __future__ import annotations
@@ -153,6 +166,32 @@ def gated_pair_fused_reference(x, cond, skip, pk1, pk2, *, dd1: int, dd2: int,
     return (mid, x_new, skip, *ys)
 
 
+def gated_stack_fused_reference(x, cond, skip, packed, *, dils, r0: int,
+                                save_y: bool = False, save_mids: bool = True):
+    """Plain version of the whole-stack forward (``gated_stack_fused``):
+    every layer on rows [r0, P), r0 = valid_lo(dils, 0); each layer's prev
+    tap reads the layer below's output at g - dd, zero below r0; the skip
+    terms add into the incoming ``skip`` (in place) in layer order.  Returns
+    (skip, mids, ys): the L - 1 streams between layers (none with
+    ``save_mids=False``) and, with ``save_y`` and ``save_mids``, the L
+    saved y; rows below r0 of each hold zeros."""
+    gated_stack_fused_reference.launches += 1
+    p_len = x.shape[1]
+    cur, mids, ys = x, [], []
+    for l, (pk, dd) in enumerate(zip(packed, dils)):
+        nxt = torch.zeros_like(x)
+        nxt[:, r0:], y = _fwd_rows(_shift_down(cur, dd, r0, p_len), cur[:, r0:],
+                                   cond[:, r0:], skip[:, r0:], *pk)
+        if save_y and save_mids:
+            y_out = x.new_zeros(*x.shape[:2], y.shape[-1])
+            y_out[:, r0:] = y.to(BF16)
+            ys.append(y_out)
+        if save_mids and l + 1 < len(dils):
+            mids.append(nxt)
+        cur = nxt
+    return skip, tuple(mids), tuple(ys)
+
+
 def _bwd_rows(xin, y, gxn, gsk, w_in, w_out):
     """Backward of one layer on a block of rows given its masked operands:
     xin bf16, y f32, gxn f32, gsk f32.  Returns (g_xin f32, dW_in, db_in,
@@ -237,23 +276,74 @@ def gated_pair_bwd_reference(x1, x2, cond, gxcur, gxprev, gskip, gcond, pk1,
     return (gxc, gxp, gcond, *dw1, *dw2)
 
 
+def _inner_upstream(gxn, g_xin, n_res: int, dd_up: int):
+    """A layer's upstream inside a group, f32: the layer above's identity
+    and cur-tap terms at row q plus its prev-tap term produced at q + dd_up
+    (zero past the last row)."""
+    return (gxn + g_xin[..., n_res : 2 * n_res]) + F.pad(
+        g_xin[:, :, :n_res], (0, 0, 0, dd_up))[:, dd_up:]
+
+
+def gated_group_bwd_reference(xs_g, cond, gxcur, gxprev, gskip, gcond, pks,
+                              ys_g, *, dds, prev_dd: int, valid_los,
+                              cur_valid_lo: int):
+    """Plain version of the grouped backward (``gated_group_bwd``, saved-y):
+    G consecutive layers (tuples, lower layer first) from the top of the
+    group down on rows [valid_los[0], P), each layer's operands masked to
+    its own valid_los[j], the cotangent between two layers in f32.  gcond
+    accumulates the top layer's term first.  Returns (gxcur', gxprev',
+    gcond, G x (dW_in, db_in, dW_out, db_out)), lower layer first."""
+    gated_group_bwd_reference.launches += 1
+    p_len, n_res = xs_g[0].shape[1], xs_g[0].shape[2]
+    lo = valid_los[0]
+    rows = torch.arange(lo, p_len, device=cond.device)[None, :, None]
+    zero = torch.zeros((), dtype=BF16, device=cond.device)
+    gsk_all = gskip[:, lo:].float()
+    top = len(dds) - 1
+    grads = [None] * len(dds)
+    gxn = g_xin = None
+    for j in range(top, -1, -1):
+        xin = torch.cat([_shift_down(xs_g[j], dds[j], lo, p_len), xs_g[j][:, lo:],
+                         cond[:, lo:]], -1)
+        y = ys_g[j][:, lo:].float()
+        if j == top:
+            gxn = _upstream(gxcur, gxprev, rows, lo, prev_dd, cur_valid_lo)
+        else:
+            gxn = _inner_upstream(gxn, g_xin, n_res, dds[j + 1])
+        gsk = gsk_all
+        if valid_los[j] > lo:
+            valid = rows >= valid_los[j]
+            xin = torch.where(valid, xin, zero)
+            y, gxn, gsk = (torch.where(valid, v, 0.0) for v in (y, gxn, gsk))
+        g_xin, *grads[j] = _bwd_rows(xin, y, gxn, gsk, pks[j][0], pks[j][2])
+        gcond[:, lo:] += g_xin[..., 2 * n_res :]
+    gxc, gxp = torch.zeros_like(xs_g[0]), torch.zeros_like(xs_g[0])
+    gxc[:, lo:] = (gxn + g_xin[..., n_res : 2 * n_res]).to(BF16)
+    gxp[:, lo:] = g_xin[..., :n_res].to(BF16)
+    return (gxc, gxp, gcond, *(g for layer in grads for g in layer))
+
+
 for _f in (gated_layer_fused_reference, gated_pair_fused_reference,
-           gated_layer_bwd_reference, gated_pair_bwd_reference):
+           gated_stack_fused_reference, gated_layer_bwd_reference,
+           gated_pair_bwd_reference, gated_group_bwd_reference):
     _f.launches = 0
 
 
 class StackOps(NamedTuple):
-    """The four kernels a stack schedule calls (same signatures as the
+    """The six kernels a stack schedule calls (same signatures as the
     plain versions)."""
 
     layer_fwd: Callable
     pair_fwd: Callable
     layer_bwd: Callable
     pair_bwd: Callable
+    stack_fwd: Callable
+    group_bwd: Callable
 
 
 PLAIN = StackOps(gated_layer_fused_reference, gated_pair_fused_reference,
-                 gated_layer_bwd_reference, gated_pair_bwd_reference)
+                 gated_layer_bwd_reference, gated_pair_bwd_reference,
+                 gated_stack_fused_reference, gated_group_bwd_reference)
 
 
 def kernel_ops() -> StackOps:
@@ -262,7 +352,8 @@ def kernel_ops() -> StackOps:
     from ae_wavenet_tpu_torch.ops import gated_cuda as gc
 
     return StackOps(gc.gated_layer_fused, gc.gated_pair_fused,
-                    gc.gated_layer_bwd, gc.gated_pair_bwd)
+                    gc.gated_layer_bwd, gc.gated_pair_bwd,
+                    gc.gated_stack_fused, gc.gated_group_bwd)
 
 
 # ----------------------------------------------------------- the schedule
@@ -272,21 +363,31 @@ class Schedule(NamedTuple):
     save_y: bool
     fuse_pairs: bool
     ops: StackOps
+    full_fusion: bool = False
+    bwd_group: int = 0
+
+    def _runs(self, size: int) -> list:
+        """Consecutive layers in runs of ``size``, the remainder last."""
+        n = len(self.dils)
+        return [tuple(range(i, min(i + size, n))) for i in range(0, n, size)]
 
     def fwd_segments(self) -> list:
-        segs, i = [], 0
-        while i < len(self.dils):
-            n = 2 if self.fuse_pairs and i + 1 < len(self.dils) else 1
-            segs.append(tuple(range(i, i + n)))
-            i += n
-        return segs
+        """One segment of every layer with ``full_fusion`` (two layers or
+        more), else pairs or single layers."""
+        if self.full_fusion and len(self.dils) >= 2:
+            return [tuple(range(len(self.dils)))]
+        return self._runs(2 if self.fuse_pairs else 1)
 
     def bwd_segments(self) -> list:
-        """Pairs only when y was saved (the pair backward has no recompute
-        mode), otherwise one layer per segment (``_stack_core`` ``:1462``)."""
-        if self.save_y:
-            return self.fwd_segments()
-        return [(i,) for i in range(len(self.dils))]
+        """``_stack_core`` ``:1450-1469``, whatever the forward ran (the
+        saved streams and y cover every layer).  Fused segments need saved
+        y (no recompute mode): runs of up to ``bwd_group`` layers when it is
+        3 or more (a run of 3 or more goes to the grouped kernel, a
+        remainder of 2 to the pair kernel, of 1 to the single-layer kernel),
+        else pairs with ``fuse_pairs``; otherwise one layer per segment."""
+        if self.save_y and self.bwd_group >= 3:
+            return self._runs(self.bwd_group)
+        return self._runs(2 if self.save_y and self.fuse_pairs else 1)
 
 
 def run_forward(sched: Schedule, x, cond, packed, save: bool):
@@ -301,7 +402,13 @@ def run_forward(sched: Schedule, x, cond, packed, save: bool):
         i = seg[0]
         if save:
             xs.append(x)
-        if len(seg) == 2:
+        if sched.full_fusion and len(seg) >= 2:
+            skip, mids, ys_all = ops.stack_fwd(
+                x, cond, skip, packed, dils=dils, r0=valid_lo(dils, 0),
+                save_y=save_y, save_mids=save)
+            xs.extend(mids)
+            ys.extend(ys_all)
+        elif len(seg) == 2:
             outs = ops.pair_fwd(x, cond, skip, packed[i], packed[i + 1],
                                 dd1=dils[i], dd2=dils[i + 1],
                                 r0=valid_lo(dils, i), save_y=save_y)
@@ -333,7 +440,17 @@ def run_backward(sched: Schedule, g_skip, xs, ys, cond, packed):
         i, j = seg[0], seg[-1]
         prev_dd = dils[j + 1] if j + 1 < n else 0
         cur_lo = valid_lo(dils, j + 1) if j + 1 < n else p_len
-        if len(seg) == 2:
+        if len(seg) >= 3:
+            outs = ops.group_bwd(
+                tuple(xs[i : j + 1]), cond, gxcur, gxprev, gskip, gcond,
+                tuple(packed[i : j + 1]), tuple(ys[i : j + 1]),
+                dds=tuple(dils[i : j + 1]), prev_dd=prev_dd,
+                valid_los=tuple(valid_lo(dils, k) for k in range(i, j + 1)),
+                cur_valid_lo=cur_lo)
+            gxcur, gxprev, gcond = outs[:3]
+            for k in range(len(seg)):
+                grads[i + k] = outs[3 + 4 * k : 7 + 4 * k]
+        elif len(seg) == 2:
             outs = ops.pair_bwd(
                 xs[i], xs[i + 1], cond, gxcur, gxprev, gskip, gcond,
                 packed[i], packed[i + 1], ys[i], ys[i + 1], dd1=dils[i],
@@ -388,37 +505,48 @@ class GatedStack(torch.autograd.Function):
         return (None, g_x0, g_cond, *(g for layer in grads for g in layer))
 
 
-def check_schedule(cfg: WaveNetConfig) -> None:
-    """Refuse the schedule knobs whose kernels are not ported yet."""
-    if cfg.gated_full_fusion:
-        raise NotImplementedError(
-            "gated_full_fusion: the whole-stack forward kernel (K7, "
-            "gated_pallas.py:355 gated_stack_fused) is not ported yet "
-            "(ROADMAP.md, TPU kernels)")
-    if cfg.gated_bwd_group >= 3:
-        raise NotImplementedError(
-            "gated_bwd_group >= 3: the grouped backward kernel (K8, "
-            "gated_pallas.py:1095 gated_group_bwd) is not ported yet "
-            "(ROADMAP.md, TPU kernels)")
+def check_schedule(cfg: WaveNetConfig, *, save_y: bool | None = None,
+                   full_fusion: bool | None = None,
+                   bwd_group: int | None = None) -> None:
+    """Refuse what the fused stack cannot run as asked (the keywords
+    override the config's ``gated_*`` fields, as in :func:`stack_apply`).
+    The reference warns and runs the pair or per-layer schedule instead;
+    here a schedule that does not apply raises."""
+    save_y = cfg.gated_save_y if save_y is None else save_y
+    full_fusion = cfg.gated_full_fusion if full_fusion is None else full_fusion
+    bwd_group = cfg.gated_bwd_group if bwd_group is None else bwd_group
     if cfg.filter_sz != 2:
         raise ValueError("the fused stack takes filter_sz == 2")
+    if full_fusion and len(cfg.dilations) < 2:
+        raise ValueError(
+            f"gated_full_fusion takes two or more layers, the stack has "
+            f"{len(cfg.dilations)}: drop gated_full_fusion (the single-layer "
+            "kernel runs one layer)")
+    if bwd_group >= 3 and not save_y:
+        raise ValueError(
+            f"gated_bwd_group={bwd_group} needs gated_save_y=True (the grouped "
+            "backward has no recompute mode): set gated_save_y, or "
+            "gated_bwd_group=0 for the per-layer backward")
 
 
 def stack_apply(wavenet, cfg: WaveNetConfig, x_ids: torch.Tensor,
                 cond: torch.Tensor, gc_ids: torch.Tensor | None = None, *,
                 btq: bool = False, ops: StackOps | None = None,
                 save_y: bool | None = None,
-                fuse_pairs: bool | None = None) -> torch.Tensor:
+                fuse_pairs: bool | None = None,
+                full_fusion: bool | None = None,
+                bwd_group: int | None = None) -> torch.Tensor:
     """The fused counterpart of ``models/wavenet.apply`` (bf16):
     x_ids [B, T_in], cond [B, n_lc_out, T_in] -> logits [B, n_quant, T_out]
     ([B, T_out, n_quant] with ``btq``).
 
-    ``ops`` defaults to :func:`kernel_ops`; ``save_y`` and ``fuse_pairs``
-    default to ``cfg.gated_save_y`` / ``cfg.gated_fuse_pairs``, which
-    choose the kernels.  ``cfg.gated_tile`` and ``cfg.gated_bwd_tile`` are
+    ``ops`` defaults to :func:`kernel_ops`; ``save_y``, ``fuse_pairs``,
+    ``full_fusion`` and ``bwd_group`` default to the config's ``gated_*``
+    fields, which choose the kernels (:class:`Schedule`).  ``cfg.gated_tile`` and ``cfg.gated_bwd_tile`` are
     TPU schedule knobs and are not read: the CUDA kernels pick their own
     tiles."""
-    check_schedule(cfg)
+    check_schedule(cfg, save_y=save_y, full_fusion=full_fusion,
+                   bwd_group=bwd_group)
     dils = stack_dils(cfg)
     t_in = x_ids.shape[-1]
     t_out = t_in - sum(dils)
@@ -426,7 +554,9 @@ def stack_apply(wavenet, cfg: WaveNetConfig, x_ids: torch.Tensor,
     cond_tm = with_gc(wavenet, cfg, cond, gc_ids).permute(0, 2, 1).to(BF16)
     sched = Schedule(dils, cfg.gated_save_y if save_y is None else save_y,
                      cfg.gated_fuse_pairs if fuse_pairs is None else fuse_pairs,
-                     kernel_ops() if ops is None else ops)
+                     kernel_ops() if ops is None else ops,
+                     cfg.gated_full_fusion if full_fusion is None else full_fusion,
+                     cfg.gated_bwd_group if bwd_group is None else bwd_group)
     flat = [t for pk in pack_stack_weights(wavenet, cfg) for t in pk]
     skip = GatedStack.apply(sched, x0.contiguous(), cond_tm.contiguous(), *flat)
     h = F.relu(skip[:, t_in - t_out :])

@@ -12,11 +12,21 @@ relative) apart and carry that into later sums.  Per-kernel outputs:
 max |d| <= SEGMENT_REL_TOL * max |plain|.  Whole stack: logits within
 LOGIT_ABS_TOL and every gradient within GRAD_REL_TOL of the largest, as
 ``tests/test_gated_pallas.py:48,131`` hold the Pallas stack.
+
+The whole-stack forward is many layers deep in one kernel: a one-ulp flip
+of x' stays on the residual stream and the flips of later layers add to it,
+so against the plain version run from x0 its deepest outputs drift by a few
+ulps of their largest value (0.018 of it at 20 layers of the flagship
+width on an H100, against 0.004-0.006 for one layer).  It is therefore held
+twice: every layer of it against the plain layer on the kernel's own input
+stream at SEGMENT_REL_TOL (:func:`stack_layerwise`), and every output
+against the plain version run from x0 at DRIFT_REL_TOL.
 """
 
 from __future__ import annotations
 
 import copy
+from unittest import mock
 
 import torch
 
@@ -26,6 +36,7 @@ from ae_wavenet_tpu_torch.ops.fastgen import with_gc
 from ae_wavenet_tpu_torch.utils.config import WaveNetConfig
 
 SEGMENT_REL_TOL = 1e-2
+DRIFT_REL_TOL = 5e-2   # many layers deep, from x0 (see above)
 LOGIT_ABS_TOL = 0.02
 GRAD_REL_TOL = 0.05
 BF16 = torch.bfloat16
@@ -78,20 +89,51 @@ def segment_inputs(wn, cfg: WaveNetConfig, ids, cond, spk, seed: int = 0):
     return dils, x0, cond_tm, packed, xs, ys, cot
 
 
+def _skip0(x0, packed, seed: int):
+    """A random incoming skip [B, P, n_skp] f32."""
+    gen = torch.Generator(device=x0.device).manual_seed(seed)
+    return torch.randn(*x0.shape[:2], packed[0][3].shape[0] - x0.shape[2],
+                       generator=gen, device=x0.device)
+
+
+def segment_tolerance(name: str) -> float:
+    """The tolerance of ``segment_calls``'s case ``name`` against its plain
+    version on the same inputs."""
+    return DRIFT_REL_TOL if name.startswith("gated_stack_fused") else SEGMENT_REL_TOL
+
+
+def stack_layerwise(got, dils, cond_tm, packed, x0, skip_seed: int = 1):
+    """What the plain layer gives on the input stream that the whole-stack
+    kernel itself produced: from ``got`` = (skip, L - 1 mids, L ys) of the
+    ``gated_stack_fused`` case, the same tuple with layer l computed from
+    got's mid l - 1, and the skip as the sum of those layers' terms."""
+    n = len(dils)
+    mids = got[1:n]
+    skip = _skip0(x0, packed, skip_seed)
+    outs_x, outs_y = [], []
+    for l in range(n):
+        x_new, _, y = gated.gated_layer_fused_reference(
+            x0 if l == 0 else mids[l - 1], cond_tm, skip, *packed[l], dd=dils[l],
+            r0=gated.valid_lo(dils, 0), save_y=True)
+        outs_x.append(x_new)
+        outs_y.append(y)
+    return (skip, *outs_x[:-1], *outs_y)
+
+
 def segment_calls(dils, cond_tm, packed, xs, ys, cot, skip_seed: int = 1):
     """{kernel name: (wrapper name, call(fn))} for one segment each, chosen
     where the schedule is hardest: the pair and the single layer with the
     largest dilation (the forward's halo spans the most rows) and a pair
     and a single layer below the top, so the upstream prev-tap cotangent
-    (prev_dd) is read."""
+    (prev_dd) is read; the whole stack from x0 into a random incoming skip,
+    saving everything and saving nothing; and groups of up to 5 and of 3
+    layers below the top that end on the largest dilation.  Every call
+    returns a flat tuple of tensors."""
     n = len(dils)
     vl = lambda i: gated.valid_lo(dils, i)  # noqa: E731
     top = n - 2 if n % 2 == 0 else n - 3   # the last pair of the schedule
     mid = max(top - 2, 0)
-    b, p = xs[0].shape[:2]
-    gen = torch.Generator(device=xs[0].device).manual_seed(skip_seed)
-    skip0 = torch.randn(b, p, packed[0][3].shape[0] - xs[0].shape[2],
-                        generator=gen, device=xs[0].device)
+    skip0 = _skip0(xs[0], packed, skip_seed)
 
     def fresh(d):
         return {k: v.clone() for k, v in d.items()}
@@ -121,7 +163,27 @@ def segment_calls(dils, cond_tm, packed, xs, ys, cot, skip_seed: int = 1):
                   valid_lo=vl(i), cur_valid_lo=vl(i + 1),
                   y_saved=ys[i] if saved else None)
 
+    def stack_fwd(fn, save=True):
+        skip, mids, ys_all = fn(xs[0], cond_tm, skip0.clone(), packed, dils=dils,
+                                r0=vl(0), save_y=save, save_mids=save)
+        return (skip, *mids, *ys_all)
+
+    # the first layer below the top with the largest dilation ends the groups
+    hi = max(range(n - 1), key=lambda i: (dils[i], -i)) if n > 1 else 0
+
+    def group_bwd(fn, size):
+        c, i, k = fresh(cot), max(hi + 1 - size, 0), hi + 1
+        return fn(tuple(xs[i:k]), cond_tm, c["gxcur"], c["gxprev"], c["gskip"],
+                  c["gcond"], tuple(packed[i:k]), tuple(ys[i:k]),
+                  dds=tuple(dils[i:k]), prev_dd=dils[k],
+                  valid_los=tuple(vl(m) for m in range(i, k)), cur_valid_lo=vl(k))
+
     return {
+        "gated_stack_fused": ("gated_stack_fused", stack_fwd),
+        "gated_stack_fused_no_save": (
+            "gated_stack_fused", lambda fn: stack_fwd(fn, save=False)),
+        "gated_group_bwd": ("gated_group_bwd", lambda fn: group_bwd(fn, 5)),
+        "gated_group_bwd_3": ("gated_group_bwd", lambda fn: group_bwd(fn, 3)),
         "gated_pair_fused": ("gated_pair_fused", pair_fwd),
         "gated_layer_fused": ("gated_layer_fused", layer_fwd),
         "gated_pair_bwd": ("gated_pair_bwd", pair_bwd),
@@ -142,13 +204,15 @@ def compare_outputs(got, want) -> tuple[float, float]:
 
 # ------------------------------------------------------------ the stack
 
-def stack_run(wn, cfg, ids, cond, spk, probe, ops, save_y, fuse_pairs):
+def stack_run(wn, cfg, ids, cond, spk, probe, ops, save_y, fuse_pairs,
+              full_fusion=False, bwd_group=0):
     """Logits [B, T, Q] (f32) and every gradient (wavenet parameters and
     cond) of mean(logits * probe) through the fused stack."""
     wn.zero_grad(set_to_none=True)
     c = cond.detach().clone().requires_grad_(True)
     logits = gated.stack_apply(wn, cfg, ids, c, spk, btq=True, ops=ops,
-                               save_y=save_y, fuse_pairs=fuse_pairs)
+                               save_y=save_y, fuse_pairs=fuse_pairs,
+                               full_fusion=full_fusion, bwd_group=bwd_group)
     (logits.float() * probe).mean().backward()
     grads = {n: p.grad.detach().clone() for n, p in wn.named_parameters()
              if p.grad is not None}
@@ -171,11 +235,16 @@ def stack_passes(lg: float, rel: float) -> bool:
     return lg < LOGIT_ABS_TOL and rel < GRAD_REL_TOL
 
 
+FAULT_TILE = 64  # csrc/gated.cu: rows per tile
+
+
 def planted_faults(wn, cfg: WaveNetConfig):
-    """{name: (wavenet, ops)}: plain versions with a fault planted, which the
-    stack check must reject.  Layer 10's skip dropped; in the pair of stack
-    layers 2 and 3, the pair's layer 2 reading its prev tap (mid, the rows
-    the kernel carries across tiles) one row off."""
+    """{name: (wavenet, ops, schedule keywords of ``stack_run``)}: plain
+    versions with a fault planted, which the stack check must reject.  Layer
+    10's skip dropped; in the pair of stack layers 2 and 3, the pair's layer
+    2 reading its prev tap (mid, the rows the kernel carries across tiles)
+    one row off; inside the whole-stack forward, layer 7's prev tap one row
+    off."""
     l_skip = min(10, len(wn.layers) - 1)
     wn_bad = copy.deepcopy(wn)
     with torch.no_grad():
@@ -190,6 +259,43 @@ def planted_faults(wn, cfg: WaveNetConfig):
         return gated.gated_pair_fused_reference(x, cond, skip, pk1, pk2, dd1=dd1,
                                                 dd2=dd2, r0=r0, save_y=save_y)
 
-    return {f"layer {l_skip} skip dropped": (wn_bad, gated.PLAIN),
+    l_tap = min(7, len(dils) - 1)
+
+    def stack_off(x, cond, skip, packed, *, dils, r0, save_y=False, save_mids=True):
+        bad = tuple(d + (i == l_tap) for i, d in enumerate(dils))
+        return gated.gated_stack_fused_reference(
+            x, cond, skip, packed, dils=bad, r0=r0, save_y=save_y,
+            save_mids=save_mids)
+
+    pairs, fused = {"full_fusion": False}, {"full_fusion": True}
+    return {f"layer {l_skip} skip dropped": (wn_bad, gated.PLAIN, pairs),
             "pair (2, 3): layer 2's prev tap one row off":
-                (wn, gated.PLAIN._replace(pair_fwd=pair_off))}
+                (wn, gated.PLAIN._replace(pair_fwd=pair_off), pairs),
+            f"whole stack: layer {l_tap}'s prev tap one row off":
+                (wn, gated.PLAIN._replace(stack_fwd=stack_off), fused)}
+
+
+def planted_segment_faults() -> dict:
+    """{name: (segment of ``segment_calls``, faulty plain version)}, which
+    that segment's check must reject.  The grouped backward with every
+    boundary between two layers of the group losing the prev-tap cotangent
+    of the rows whose source lies in another tile: what the kernel hands
+    over between blocks through global memory.  (It moves the whole stack's
+    gradients by under GRAD_REL_TOL of the largest, so it is held against
+    the kernel's own outputs.)"""
+    inner_upstream = gated._inner_upstream
+
+    def no_carry(gxn, g_xin, n_res, dd_up):
+        # row r's prev-tap cotangent feeds row r - dd_up of the layer below
+        r = torch.arange(g_xin.shape[1], device=g_xin.device)
+        same_tile = (r // FAULT_TILE == (r - dd_up) // FAULT_TILE)[None, :, None]
+        prev = torch.where(same_tile, g_xin[..., :n_res], 0.0)
+        return inner_upstream(gxn, torch.cat([prev, g_xin[..., n_res:]], -1),
+                              n_res, dd_up)
+
+    def group_no_carry(*args, **kw):
+        with mock.patch.object(gated, "_inner_upstream", no_carry):
+            return gated.gated_group_bwd_reference(*args, **kw)
+
+    return {"grouped backward: prev-tap cotangents from another tile dropped":
+            ("gated_group_bwd", group_no_carry)}

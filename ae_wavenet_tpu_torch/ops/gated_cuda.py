@@ -1,11 +1,13 @@
-"""The fused gated stack's kernels: one or two layers, forward and backward.
+"""The fused gated stack's kernels: one layer, two layers, the whole stack
+(forward) or a group of layers (backward).
 
-Wrappers of ``csrc/gated.cu``, a kernel written by hand for Hopper
-(``sm_90a``) that replaces the TPU kernels of
+Wrappers of ``csrc/gated.cu``, kernels written by hand for Hopper
+(``sm_90a``) that replace the TPU kernels of
 ``ae_wavenet_tpu/ops/gated_pallas.py``: ``gated_pair_fused`` (K1),
-``gated_layer_fused`` (K1b), ``gated_pair_bwd`` (K2) and
-``gated_layer_bwd`` (K2b).  Their signatures and contract are those of the
-plain versions in ``ops/gated.py``.
+``gated_layer_fused`` (K1b), ``gated_pair_bwd`` (K2), ``gated_layer_bwd``
+(K2b), ``gated_stack_fused`` (K7) and ``gated_group_bwd`` (K8).  Their
+signatures and contract are those of the plain versions in
+``ops/gated.py``.
 
 Each wrapper dispatches on the device of the tensors it is given: CUDA
 tensors launch the kernel on the current stream (and raise on what it
@@ -16,7 +18,10 @@ The kernels choose their own tiles (64 rows per tile, chunks of rows per
 block sized to fill the card); the reference's ``gated_tile`` and
 ``gated_bwd_tile`` are TPU schedule knobs and are not read.  Shape limits:
 ``filter_sz == 2``; n_res, n_cond, n_dil and n_skp multiples of 8 (16-byte
-row loads); the widths' shared-memory footprint within one block's 227 KB.
+row loads); the widths' shared-memory footprint within one block's 227 KB;
+the grouped backward takes saved y only.  The whole-stack forward and the
+grouped backward are cooperative launches of as many blocks as the card
+holds at once, with a barrier across the grid between layers.
 """
 
 from __future__ import annotations
@@ -51,6 +56,18 @@ def _pad_weights(dims, w_in, b_in, w_out, b_out):
     [Rp + Sp] f32."""
     _, _, r, c, d, s, rp, cp, dp, sp = dims
     dev = w_in.device
+    if (rp, cp, dp, sp) == (r, c, d, s):
+        # nothing to pad (as at the flagship widths): one cast each, so a
+        # launch of many layers does not wait on a dozen small kernels a layer
+        def cast(w):
+            return w.detach().to(BF16, memory_format=torch.contiguous_format)
+
+        def bias(v, n):
+            if v is None:
+                return torch.zeros(n, device=dev)
+            return v.detach().float().contiguous()
+
+        return cast(w_in), bias(b_in, 2 * d), cast(w_out), bias(b_out, r + s)
     ar = lambda n: torch.arange(n, device=dev)  # noqa: E731
     rows = torch.cat([ar(r), rp + ar(r), 2 * rp + ar(c)])
     gcols = torch.cat([ar(d), dp + ar(d)])
@@ -83,7 +100,7 @@ def _check(dims, tensors: dict, smem: int) -> None:
         if v.device.type != "cuda":
             raise ValueError(f"{name}: the gated kernels take CUDA tensors, "
                              f"got {v.device}")
-        shape, dtype = want.get(name.rstrip("12"), (None, None))
+        shape, dtype = want.get(name.rstrip("0123456789"), (None, None))
         if shape is not None and (tuple(v.shape) != shape or v.dtype != dtype):
             raise ValueError(f"{name}: {tuple(v.shape)} {v.dtype}, the kernel "
                              f"takes {shape} {dtype}")
@@ -185,6 +202,60 @@ def gated_pair_fused(x, cond, skip, pk1, pk2, *, dd1: int, dd2: int, r0: int,
     return out
 
 
+def _check_depth(n: int, what: str) -> None:
+    """The fused kernels take their per-layer tables by value in the launch's
+    parameters, which bounds the layers of one launch."""
+    from ae_wavenet_tpu_torch.ops import _build
+
+    most = _build.load().awt_gated_max_fused_layers()
+    if n > most:
+        raise ValueError(f"{what} takes at most {most} layers in one launch, "
+                         f"got {n}")
+
+
+def gated_stack_fused(x, cond, skip, packed, *, dils, r0: int,
+                      save_y: bool = False, save_mids: bool = True):
+    """K7: every gated layer forward in one launch; see
+    ``gated.gated_stack_fused_reference``."""
+    if x.device.type == "cpu":
+        return gated.gated_stack_fused_reference(
+            x, cond, skip, packed, dils=dils, r0=r0, save_y=save_y,
+            save_mids=save_mids)
+    n = len(dils)
+    if n < 2 or len(packed) != n:
+        raise ValueError(f"the whole-stack forward takes two or more layers and "
+                         f"one weight set each, got {n} dilations and "
+                         f"{len(packed)} weight sets")
+    _check_depth(n, "the whole-stack forward")
+    dims = _dims(x, cond, packed[0][0], packed[0][2])
+    _check(dims, {"x": x, "cond": cond, "skip": skip},
+           _smem("awt_gated_fwd_smem", dims))
+    b, p, _, _, d = dims[:5]
+    if not 0 <= r0 < p:
+        raise ValueError(f"r0={r0} leaves no rows of {p}")
+    dev = x.device
+
+    def stream(width):
+        t = torch.empty(b, p, width, dtype=BF16, device=dev)
+        t[:, :r0] = 0
+        return t
+
+    save_y = save_y and save_mids
+    mids = [stream(x.shape[2]) for _ in range(n - 1 if save_mids else min(2, n - 1))]
+    ys = [stream(2 * d) for _ in range(n)] if save_y else []
+    layers = []
+    for l in range(n):
+        src = x if l == 0 else mids[(l - 1) % len(mids)]
+        dst = None if l == n - 1 else mids[l % len(mids)]
+        layers += [*_pad_weights(dims, *packed[l]), ys[l] if save_y else None,
+                   src, dst]
+    bar = torch.zeros(1, dtype=torch.int64, device=dev)
+    _call("awt_gated_stack", None, _ptrs(cond, skip, bar, *layers),
+          _ints(*dims, n, r0, *dils), dev)
+    gated_stack_fused.launches += 1
+    return skip, tuple(mids) if save_mids else (), tuple(ys)
+
+
 # --------------------------------------------------------------- backward
 
 def _dw(kind, lo, g, n, m, x=None, cond=None, dd=0, a=None):
@@ -209,6 +280,30 @@ def _dw(kind, lo, g, n, m, x=None, cond=None, dd=0, a=None):
     return out, out_b
 
 
+def _scratch(dims, dev) -> tuple:
+    """One layer's g_y, h and g_out (bf16), which the backward kernel writes
+    for the weight-gradient products."""
+    b, p, r, _, d, s = dims[:6]
+    return (torch.empty(b, p, 2 * d, dtype=BF16, device=dev),
+            torch.empty(b, p, d, dtype=BF16, device=dev),
+            torch.empty(b, p, r + s, dtype=BF16, device=dev))
+
+
+def _weight_grads(dims, saved: list, xs, cond, dds, vls) -> list:
+    """Per layer (dW_in, db_in, dW_out, db_out) from its ``_scratch``;
+    empties ``saved``, so each layer's buffers go back to the allocator as
+    soon as its products are queued."""
+    r, c, d, s = dims[2:6]
+    grads = []
+    for l in range(len(saved)):
+        gy, h, gout = saved[l]
+        saved[l] = None
+        dwi, dbi = _dw(0, vls[l], gy, 2 * d, 2 * r + c, x=xs[l], cond=cond, dd=dds[l])
+        dwo, dbo = _dw(1, vls[l], gout, r + s, d, a=h)
+        grads += [dwi, dbi, dwo, dbo]
+    return grads
+
+
 def _bwd(nl, xs, cond, gxcur, gxprev, gskip, gcond, pks, ys, dds, vls,
          prev_dd, cur_valid_lo):
     dims = _dims(xs[0], cond, pks[0][0], pks[0][2])
@@ -221,7 +316,7 @@ def _bwd(nl, xs, cond, gxcur, gxprev, gskip, gcond, pks, ys, dds, vls,
         if tuple(v.shape) != tuple(xs[0].shape) or v.dtype != BF16:
             raise ValueError(f"{name}: {tuple(v.shape)} {v.dtype}, the kernel "
                              f"takes {tuple(xs[0].shape)} {BF16}")
-    b, p, r, c, d, s, _, _, dp, _ = dims
+    (b, p, r), dp = dims[:3], dims[8]
     dev = xs[0].device
     r0 = vls[0]
     chunk, n_chunks = _chunk(dev, p - r0, b, dds[-1] if nl == 2 else 0)
@@ -237,23 +332,15 @@ def _bwd(nl, xs, cond, gxcur, gxprev, gskip, gcond, pks, ys, dds, vls,
             continue
         win, binp, wout, _ = _pad_weights(dims, pks[l][0], pks[l][1],
                                           pks[l][2], None)
-        gy = torch.empty(b, p, 2 * d, dtype=BF16, device=dev)
-        h = torch.empty(b, p, d, dtype=BF16, device=dev)
-        gout = torch.empty(b, p, r + s, dtype=BF16, device=dev)
-        layers += [xs[l], ys[l], win, binp, wout, gy, h, gout]
-        saved.append((gy, h, gout))
+        saved.append(_scratch(dims, dev))
+        layers += [xs[l], ys[l], win, binp, wout, *saved[-1]]
     ints = [*dims, prev_dd, cur_valid_lo, r0, chunk, dds[0], vls[0],
             dds[1] if nl == 2 else 0, vls[1] if nl == 2 else 0, n_chunks]
     _call("awt_gated_bwd", nl,
           _ptrs(cond, gxcur, gxprev, gskip, gcond, gxc, gxp, gcur2, gp2, yf,
                 *layers), _ints(*ints), dev)
-    grads = []
-    for l, (gy, h, gout) in enumerate(saved):
-        dwi, dbi = _dw(0, vls[l], gy, 2 * d, 2 * r + c, x=xs[l], cond=cond,
-                       dd=dds[l])
-        dwo, dbo = _dw(1, vls[l], gout, r + s, d, a=h)
-        grads += [dwi, dbi, dwo, dbo]
-    return (gxc, gxp, gcond, *grads)
+    del layers
+    return (gxc, gxp, gcond, *_weight_grads(dims, saved, xs, cond, dds, vls))
 
 
 def gated_layer_bwd(x, cond, gxcur, gxprev, gskip, gcond, w_in, w_out, b_in, *,
@@ -293,5 +380,53 @@ def gated_pair_bwd(x1, x2, cond, gxcur, gxprev, gskip, gcond, pk1, pk2, y1, y2,
     return out
 
 
-for _f in (gated_layer_fused, gated_pair_fused, gated_layer_bwd, gated_pair_bwd):
+def gated_group_bwd(xs_g, cond, gxcur, gxprev, gskip, gcond, pks, ys_g, *, dds,
+                    prev_dd: int, valid_los, cur_valid_lo: int):
+    """K8: two or more consecutive gated layers backward in one launch
+    (saved y); see ``gated.gated_group_bwd_reference``."""
+    if xs_g[0].device.type == "cpu":
+        return gated.gated_group_bwd_reference(
+            xs_g, cond, gxcur, gxprev, gskip, gcond, pks, ys_g, dds=dds,
+            prev_dd=prev_dd, valid_los=valid_los, cur_valid_lo=cur_valid_lo)
+    n = len(dds)
+    if n < 2 or not (len(xs_g) == len(pks) == len(ys_g) == len(valid_los) == n):
+        raise ValueError(f"the grouped backward takes two or more layers with a "
+                         f"stream, a weight set, a y and a valid_lo each, got "
+                         f"{n} dilations")
+    if any(y is None for y in ys_g):
+        raise ValueError("the grouped backward takes saved y (no recompute mode)")
+    _check_depth(n, "the grouped backward")
+    dims = _dims(xs_g[0], cond, pks[0][0], pks[0][2])
+    tensors = {"cond": cond, "gxcur": gxcur, "gxprev": gxprev, "gskip": gskip,
+               "gcond": gcond}
+    for l in range(n):
+        tensors[f"x{l + 1}"], tensors[f"y{l + 1}"] = xs_g[l], ys_g[l]
+    _check(dims, tensors, _smem("awt_gated_bwd_smem", dims))
+    for v, name in ((gxcur, "gxcur"), (gxprev, "gxprev")):
+        if tuple(v.shape) != tuple(xs_g[0].shape) or v.dtype != BF16:
+            raise ValueError(f"{name}: {tuple(v.shape)} {v.dtype}, the kernel "
+                             f"takes {tuple(xs_g[0].shape)} {BF16}")
+    b, p, r = dims[:3]
+    dev = xs_g[0].device
+    gxc, gxp = torch.zeros_like(xs_g[0]), torch.zeros_like(xs_g[0])
+    inner = [torch.empty(b, p, r, device=dev) for _ in range(3)]  # gcur, gp0, gp1
+    layers, saved = [], []
+    for l in range(n):
+        win, binp, wout, _ = _pad_weights(dims, pks[l][0], pks[l][1], pks[l][2],
+                                          None)
+        saved.append(_scratch(dims, dev))
+        layers += [xs_g[l], ys_g[l], win, binp, wout, *saved[-1]]
+    bar = torch.zeros(1, dtype=torch.int64, device=dev)
+    _call("awt_gated_group", None,
+          _ptrs(cond, gxcur, gxprev, gskip, gcond, gxc, gxp, *inner, bar, *layers),
+          _ints(*dims, n, prev_dd, cur_valid_lo, valid_los[0],
+                *(v for l in range(n) for v in (dds[l], valid_los[l]))), dev)
+    del inner, layers
+    grads = _weight_grads(dims, saved, xs_g, cond, dds, valid_los)
+    gated_group_bwd.launches += 1
+    return (gxc, gxp, gcond, *grads)
+
+
+for _f in (gated_layer_fused, gated_pair_fused, gated_layer_bwd, gated_pair_bwd,
+           gated_stack_fused, gated_group_bwd):
     _f.launches = 0

@@ -9,6 +9,10 @@ Replaces the TPU kernel ``ae_wavenet_tpu/ops/vq_pallas.py``
     counts [K]    f32    rows per code (exact integers)
     sums   [K, D] f32    sum of the rows of z per code
 
+A caller that reads only codes and quant (the serving and eval halves of the
+bottleneck) passes ``stats=False``: counts and sums come back as None and
+their launch, half of the kernel's time, is skipped.
+
 ``|z_n|^2`` is constant per row and left out of the distances, as in the TPU
 kernel; ``VQBottleneck._nearest`` keeps it and stays the unfused path.  The
 kernel has no backward: its inputs are detached latents.
@@ -31,12 +35,16 @@ _MAX_D = 256  # csrc/vq.cu MAX_D
 
 
 @torch.no_grad()
-def vq_lookup_reference(z: torch.Tensor, codebook: torch.Tensor):
+def vq_lookup_reference(z: torch.Tensor, codebook: torch.Tensor,
+                        stats: bool = True):
     """Plain PyTorch version of the kernel's contract (csrc/vq.cu):
-    -> (codes [N] int32, quant [N, D], counts [K], sums [K, D])."""
+    -> (codes [N] int32, quant [N, D], counts [K], sums [K, D]); counts and
+    sums are None without ``stats``."""
     vq_lookup_reference.launches += 1
     d2 = codebook.square().sum(1)[None, :] - 2.0 * (z @ codebook.t())
     codes = d2.argmin(1)  # the first index on ties
+    if not stats:
+        return codes.to(torch.int32), codebook[codes], None, None
     onehot = torch.nn.functional.one_hot(codes, codebook.shape[0]).to(z.dtype)
     return (codes.to(torch.int32), codebook[codes], onehot.sum(0), onehot.t() @ z)
 
@@ -44,11 +52,12 @@ def vq_lookup_reference(z: torch.Tensor, codebook: torch.Tensor):
 vq_lookup_reference.launches = 0
 
 
-def vq_lookup_fused(z: torch.Tensor, codebook: torch.Tensor):
+def vq_lookup_fused(z: torch.Tensor, codebook: torch.Tensor, stats: bool = True):
     """z [N, D] f32, codebook [K, D] f32 -> (codes [N] int32, quant [N, D],
-    counts [K], sums [K, D]).  On CUDA tensors this launches ``csrc/vq.cu``
-    on the current stream; on CPU tensors it runs
-    :func:`vq_lookup_reference`.  No gradient flows through it."""
+    counts [K], sums [K, D]); counts and sums are None without ``stats``.
+    On CUDA tensors this launches ``csrc/vq.cu`` on the current stream; on
+    CPU tensors it runs :func:`vq_lookup_reference`.  No gradient flows
+    through it."""
     if z.dim() != 2 or codebook.dim() != 2 or z.shape[1] != codebook.shape[1]:
         raise ValueError(f"z {tuple(z.shape)} and codebook {tuple(codebook.shape)}: "
                          "need [N, D] and [K, D]")
@@ -56,7 +65,7 @@ def vq_lookup_fused(z: torch.Tensor, codebook: torch.Tensor):
         raise ValueError("need at least one row of z")
     z, codebook = z.detach(), codebook.detach()
     if z.device.type == "cpu":
-        return vq_lookup_reference(z, codebook)
+        return vq_lookup_reference(z, codebook, stats)
     if z.device.type != "cuda":
         raise ValueError(f"no VQ kernel for device {z.device}")
     for name, v in (("z", z), ("codebook", codebook)):
@@ -76,12 +85,13 @@ def vq_lookup_fused(z: torch.Tensor, codebook: torch.Tensor):
     dev = z.device
     codes = torch.empty(n, dtype=torch.int32, device=dev)
     quant = torch.empty(n, d, device=dev)
-    counts = torch.empty(k, device=dev)
-    sums = torch.empty(k, d, device=dev)
+    counts = torch.empty(k, device=dev) if stats else None
+    sums = torch.empty(k, d, device=dev) if stats else None
     with torch.cuda.device(dev):
         rc = lib.awt_vq_lookup(z.data_ptr(), codebook.data_ptr(), n, k, d,
                                codes.data_ptr(), quant.data_ptr(),
-                               counts.data_ptr(), sums.data_ptr(),
+                               counts.data_ptr() if stats else None,
+                               sums.data_ptr() if stats else None,
                                torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"vq kernel launch failed: CUDA error {rc} "

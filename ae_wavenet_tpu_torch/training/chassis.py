@@ -13,20 +13,21 @@ Counterpart of ``ae_wavenet_tpu.training.chassis``:
   come from a generator seeded by (seed, step), so a resume continues the
   same stream.
 * :class:`Chassis` (``:150``): holdout split, ``train`` (one metrics
-  fetch per log point, ``ckpt_every`` saves, SIGTERM/SIGINT save and
-  stop), ``evaluate``, ``save`` and ``resume``.
+  fetch per log point, async ``ckpt_every`` saves with keep-last-N and
+  keep-best retention, SIGTERM/SIGINT save and stop, a profiler trace of
+  the first ``profile_steps`` steps), ``evaluate``, ``save`` and ``resume``.
 
 Checkpoints are export files (``training/weights.py``) named
-``step_XXXXXXXX.pt`` in the checkpoint directory.  Not ported yet
-(ROADMAP.md): data parallelism (``mesh``), ``spec.norm="dataset"`` without
-stored statistics, the MFCC inverter, async and keep-last-N saves,
-TensorBoard and profiling.
+``step_XXXXXXXX.pt`` in the checkpoint directory, written and pruned by
+``training/checkpoint.py``.  It runs on the card unless the caller passes
+``device="cpu"``.  Not ported yet (ROADMAP.md): data parallelism
+(``mesh``), ``spec.norm="dataset"`` without stored statistics, the MFCC
+inverter and TensorBoard.
 """
 
 from __future__ import annotations
 
-import os
-import re
+import contextlib
 import signal
 import sys
 import threading
@@ -38,7 +39,10 @@ import torch
 from ae_wavenet_tpu_torch.data.dataset import PackedDataset, WindowSampler
 from ae_wavenet_tpu_torch.data.loader import device_batches
 from ae_wavenet_tpu_torch.models import autoencoder as ae
+from ae_wavenet_tpu_torch.training import checkpoint as ckpt_mod
 from ae_wavenet_tpu_torch.training import weights
+from ae_wavenet_tpu_torch.utils import device as device_mod
+from ae_wavenet_tpu_torch.utils import profiling as prof_mod
 from ae_wavenet_tpu_torch.utils.config import RunConfig, TrainConfig
 from ae_wavenet_tpu_torch.utils.debug import assert_all_finite
 from ae_wavenet_tpu_torch.utils.logging import MetricsLogger
@@ -119,9 +123,10 @@ class Adam:
 
     def load_named(self, named: dict) -> None:
         pre = self._prefix()
-        want = set(self.named_state())
-        if not want <= set(named):
-            raise KeyError(f"optimizer state missing {sorted(want - set(named))[:5]}")
+        weights.check_merge(
+            {k: v.shape for k, v in self.named_state().items()},
+            {k: v for k, v in named.items() if k.startswith("opt_state.")},
+            "opt_state")
         self.count = int(named[f"{pre}.0.count"])
         for k, p in self.params.items():
             for slot, store in (("mu", self.mu), ("nu", self.nu)):
@@ -163,27 +168,13 @@ def fetch(metrics: dict) -> dict:
     return dict(zip(keys, vals.cpu().tolist()))
 
 
-_CKPT = re.compile(r"step_(\d{8})\.pt$")
-
-
-def checkpoint_path(ckpt_dir: str, step: int) -> str:
-    return os.path.join(ckpt_dir, f"step_{step:08d}.pt")
-
-
-def latest_step(ckpt_dir: str) -> int | None:
-    if not os.path.isdir(ckpt_dir):
-        return None
-    steps = [int(m.group(1)) for f in os.listdir(ckpt_dir)
-             if (m := _CKPT.match(f))]
-    return max(steps) if steps else None
-
-
 class Chassis:
     """Owns config, model, optimizer and data; ``train(n)`` runs the loop."""
 
     def __init__(self, cfg: RunConfig, data_prefix: str, ckpt_dir: str | None = None,
-                 device="cpu", log_stream=None, nan_checks: bool = False,
-                 mesh=None):
+                 device="cuda", log_stream=None, nan_checks: bool = False,
+                 mesh=None, profile_dir: str | None = None,
+                 profile_steps: int = 0):
         if mesh is not None:
             raise NotImplementedError(
                 "data parallelism is not ported yet (ROADMAP.md, modules: data "
@@ -199,9 +190,12 @@ class Chassis:
                 "yet (ROADMAP.md, modules: CLI and utilities)")
         self.cfg = cfg
         self.ckpt_dir = ckpt_dir
-        self.device = torch.device(device)
+        self.device = device_mod.resolve(device)
         self.logger = MetricsLogger(log_stream if log_stream is not None else sys.stdout)
         self.nan_checks = nan_checks
+        self.profile_dir = profile_dir
+        self.profile_steps = profile_steps if profile_dir else 0
+        self.profile_summary: dict = {}
         self.preempted = False
         self.spec = ae.make_window_spec(cfg)
         self.dataset = PackedDataset(data_prefix)
@@ -236,25 +230,48 @@ class Chassis:
         self.opt = Adam(self.model.named_parameters(), cfg.train)
         self.step = 0
         self.stats: dict = {}
+        self._saver: ckpt_mod.Saver | None = None
+        # best-holdout tracking for checkpoint retention: the last holdout
+        # eval as (step, recon CE), and the (step, CE) of the best
+        # checkpoint so far (kept by pruning, recorded in the BEST sidecar)
+        self._last_eval: tuple[int, float] | None = None
+        self.best_ckpt: tuple[int, float] | None = None
 
     # ------------------------------------------------------------ persist
-    def save(self) -> str:
+    def save(self, blocking: bool = True) -> str:
+        """``blocking=False`` (the loop's periodic saves): take the host
+        snapshot and return while a background thread writes the file.  A
+        holdout eval counts for the checkpoint that holds the weights it
+        evaluated, so BEST names the step that was evaluated: an eval at
+        another step than a save is attributed to no checkpoint."""
         if not self.ckpt_dir:
             raise ValueError("no checkpoint directory")
-        os.makedirs(self.ckpt_dir, exist_ok=True)
-        path = checkpoint_path(self.ckpt_dir, self.step)
-        weights.save_export(path, self.model, self.cfg, self.step,
-                            extra=self.opt.named_state())
-        return path
+        if self._saver is None:
+            self._saver = ckpt_mod.Saver()
+        ev = self._last_eval
+        if ev is not None and ev[0] == self.step and (
+                self.best_ckpt is None or ev[1] < self.best_ckpt[1]):
+            self.best_ckpt = ev
+        state = weights.export_state(self.model, self.opt.named_state())
+        return self._saver.save(self.ckpt_dir, self.step, state, self.cfg,
+                                blocking=blocking,
+                                keep_last=self.cfg.train.ckpt_keep,
+                                best=self.best_ckpt)
+
+    def wait_for_saves(self) -> None:
+        if self._saver is not None:
+            self._saver.wait()
+
+    close = wait_for_saves
 
     def resume(self, step: int | None = None) -> int:
-        step = latest_step(self.ckpt_dir) if step is None else step
-        if step is None:
-            raise FileNotFoundError(f"no checkpoints under {self.ckpt_dir}")
-        got, named, _cfg = weights.load_named(checkpoint_path(self.ckpt_dir, step))
+        got, named, _cfg = ckpt_mod.load(self.ckpt_dir, step)
         weights.load_into(self.model, named)
         self.opt.load_named(named)
         self.step = got
+        # go on tracking the best checkpoint, or the first save after the
+        # resume could prune it
+        self.best_ckpt = ckpt_mod.best_info(self.ckpt_dir)
         return got
 
     # --------------------------------------------------------------- eval
@@ -300,6 +317,12 @@ class Chassis:
                 stop["flag"] = True
             for sig in (signal.SIGTERM, signal.SIGINT):
                 old_handlers[sig] = signal.signal(sig, _handler)
+        # a trace of the first profile_steps steps (utils/profiling)
+        prof_stack = contextlib.ExitStack()
+        profiling = self.profile_steps > 0
+        if profiling:
+            self.profile_summary = prof_stack.enter_context(
+                prof_mod.trace(self.profile_dir))
         try:
             for s, (wav, spk) in device_batches(self.sampler, self.step, n_steps,
                                                 self.device, block=kk,
@@ -308,6 +331,14 @@ class Chassis:
                                      wav, spk, s, kk)
                 self.step = s + kk
                 samples_done += kk * t_cfg.batch_sz * self.spec.n_win
+                if profiling and self.step - start >= self.profile_steps:
+                    prof_stack.close()  # waits for the device, writes the trace
+                    profiling = False
+                    self.logger.log(self.step, {
+                        "profile_trace": self.profile_dir,
+                        "profile_window_ms": self.profile_summary["window_ms"],
+                        "profile_device_busy_share":
+                            self.profile_summary["device_busy_share"]})
                 if crossed(t_cfg.log_every, s, self.step) or \
                         self.step == start + n_steps:
                     fetched = fetch(metrics)
@@ -327,8 +358,9 @@ class Chassis:
                 if eval_every and crossed(eval_every, s, self.step):
                     ev = {f"eval_{k}": v for k, v in self.evaluate().items()}
                     self.logger.log(self.step, ev)
+                    self._last_eval = (self.step, float(ev["eval_recon_ce"]))
                 if self.ckpt_dir and crossed(t_cfg.ckpt_every, s, self.step):
-                    self.save()
+                    self.save(blocking=False)
                 if stop["flag"]:
                     self.preempted = True
                     path = self.save()
@@ -336,6 +368,10 @@ class Chassis:
                                                 "saved": path})
                     break
         finally:
+            prof_stack.close()
+            # the loop's async saves are complete before train() returns
+            # (callers resume or read checkpoints right after)
+            self.wait_for_saves()
             for sig, h in old_handlers.items():
                 signal.signal(sig, h)
         return history

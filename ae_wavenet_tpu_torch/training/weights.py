@@ -14,6 +14,7 @@ imports into the JAX package.  The optimizer state keeps optax's names
 
 from __future__ import annotations
 
+import math
 import os
 
 import numpy as np
@@ -35,26 +36,40 @@ def _port_name(name: str) -> str | None:
     raise KeyError(f"unexpected tensor name {name!r}")
 
 
+def check_merge(ref: dict, new: dict, what: str) -> None:
+    """The reference's guarded merge (``training/checkpoint.merge_into``) as
+    a check of names and shapes: ``new`` ({name: array}) must hold exactly
+    ``ref``'s names ({name: shape}) with their shapes, or the runtime config
+    builds another model than the checkpoint's."""
+    if set(ref) != set(new):
+        odd = sorted(set(ref) ^ set(new))[:5]
+        raise ValueError(
+            f"checkpoint {what} tree has {len(new)} leaves but "
+            f"the current config builds {len(ref)} (e.g. {odd}) — the "
+            f"model architecture changed since the save; resume "
+            f"with the checkpoint's embedded config (CLI `resume` "
+            f"does this) or match the flags (aux_frame_weight, "
+            f"bottleneck kind, model dims) to the original run")
+    for name, shape in ref.items():
+        got = tuple(np.shape(new[name]))
+        if tuple(shape) != got and not (math.prod(shape) == math.prod(got) == 1):
+            # (a 0-d count may come back from an export as one element)
+            raise ValueError(
+                f"checkpoint {what} leaf shape {got} != "
+                f"model's {tuple(shape)} ({name}) — architecture drift "
+                f"since the save")
+
+
 def load_into(model: AutoEncoder, named: dict) -> AutoEncoder:
-    """Copy {reference dotted name: array} into ``model`` (every tensor
-    must be present with its shape; ``opt_state.*`` is ignored)."""
+    """Copy {reference dotted name: array} into ``model``: exactly the
+    model's tensors, each with its shape (:func:`check_merge`;
+    ``opt_state.*`` is ignored)."""
     own = model.state_dict()
-    state = {}
-    for name, v in named.items():
-        key = _port_name(name)
-        if key is None:
-            continue
-        if key not in own:
-            raise KeyError(f"{name}: no such tensor in the model")
-        t = torch.as_tensor(np.asarray(v, dtype=np.float32))
-        if tuple(t.shape) != tuple(own[key].shape):
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                             f"{tuple(own[key].shape)}")
-        state[key] = t
-    missing = sorted(set(own) - set(state))
-    if missing:
-        raise KeyError(f"missing {len(missing)} tensors, e.g. {missing[:5]}")
-    model.load_state_dict(state)
+    new = {key: v for name, v in named.items()
+           if (key := _port_name(name)) is not None}
+    check_merge({k: v.shape for k, v in own.items()}, new, "params")
+    model.load_state_dict({k: torch.as_tensor(np.asarray(v, dtype=np.float32))
+                           for k, v in new.items()})
     return model
 
 
@@ -80,10 +95,10 @@ def load_export(path: str):
     return step, from_named({k: v.numpy() for k, v in named.items()}, cfg), cfg
 
 
-def save_export(path: str, model: AutoEncoder, cfg: config_mod.RunConfig,
-                step: int, extra: dict | None = None) -> None:
-    """Write the export payload; ``extra`` adds named tensors (the
-    optimizer state).  The file appears atomically."""
+def export_state(model: AutoEncoder, extra: dict | None = None) -> dict:
+    """{reference dotted name: CPU tensor}: a host snapshot (copies, so a
+    later step does not write into it) of the model and of ``extra``'s
+    named tensors (the optimizer state)."""
     buffers = {k for k, _ in model.named_buffers()}
     state = {}
     for k, v in model.state_dict().items():
@@ -91,10 +106,23 @@ def save_export(path: str, model: AutoEncoder, cfg: config_mod.RunConfig,
             name = "bn_state." + k.removeprefix("bottleneck.")
         else:
             name = "params." + k
-        state[name] = v.detach().float().cpu().contiguous()
+        state[name] = v.detach().to("cpu", torch.float32, copy=True).contiguous()
     for name, v in (extra or {}).items():
-        state[name] = v.detach().cpu().contiguous()
+        state[name] = v.detach().to("cpu", copy=True).contiguous()
+    return state
+
+
+def write_export(path: str, state: dict, cfg: config_mod.RunConfig,
+                 step: int) -> None:
+    """Write the export payload; the file appears atomically."""
     tmp = path + ".tmp"
     torch.save({"step": int(step), "run_config_json": config_mod.to_json(cfg),
                 "state": state}, tmp)
     os.replace(tmp, path)
+
+
+def save_export(path: str, model: AutoEncoder, cfg: config_mod.RunConfig,
+                step: int, extra: dict | None = None) -> None:
+    """Write the export payload; ``extra`` adds named tensors (the
+    optimizer state)."""
+    write_export(path, export_state(model, extra), cfg, step)

@@ -29,27 +29,37 @@ power limit:
    then the CLI with ``--int8`` and with ``--int4`` on a checkpoint whose
    config has ``vq_use_pallas=True``; the launch counters are set to 0
    before each run and show which kernels it went through;
-6. train-kernels: the four gated-stack kernels (``csrc/gated.cu``) against
-   their plain versions at the full ``chorowski`` width (seeded random
-   weights, every bias perturbed), each output, at B = 2 with 4,100 loss
-   samples (a ragged last tile) and again at the training path's shape
-   (B = 4, n_win = 48,000), where both are also timed; the whole stack
-   through ``GatedStack`` in all four schedules (logits and every
-   gradient); two faults planted in the plain version, which the same check
-   must reject;
-7. train: the train CLI, ``new --preset chorowski --pallas-stack`` at B = 4,
-   n_win = 48,000 for 6 steps and ``resume`` for 2 more (the main path:
-   pairs, saved y), then 2 steps of the single-layer schedule
-   (``--no-gated-fuse-pairs --no-gated-save-y``); the launch counters are
-   set to 0 before each run and read after it, and each gated kernel must
-   have launched once per segment per step on its path and no plain
-   version at all; median step time, samples/s, peak memory, and the
-   step's time split from CUDA events around its parts in 3 steps of one
-   ``Chassis`` run; 3 more steps with ``--vq-use-pallas`` (the fused VQ
-   lookup once per step, the first step's loss equal to the run without it);
+6. train-kernels: the six gated-stack kernels (``csrc/gated.cu``: one
+   layer, a pair, the whole stack forward; one layer, a pair, a group of
+   layers backward) against their plain versions at the full ``chorowski``
+   width (seeded random weights, every bias perturbed), each output, at
+   B = 2 with 4,100 loss samples (a ragged last tile) and again at the
+   training path's shape (B = 4, n_win = 48,000), where both are also
+   timed; the grouped backward's bits on a second launch; the whole stack
+   through ``GatedStack`` in seven schedules (logits and every gradient);
+   four faults planted in the plain versions, which the same checks must
+   reject; the stack's forward and backward timed under pairs, full fusion,
+   and full fusion with groups of 5;
+7. train: the train CLI at B = 4, n_win = 48,000.  ``new --preset chorowski
+   --pallas-stack`` for 4 steps and ``resume`` for 2 more (the main path:
+   pairs, saved y); 2 steps of the single-layer schedule
+   (``--no-gated-fuse-pairs --no-gated-save-y``); 3 steps with
+   ``--vq-use-pallas`` (the fused VQ lookup once per step, the first step's
+   loss equal to the run without it); then the whole-stack path,
+   ``--gated-full-fusion --gated-bwd-group 5 --ckpt-keep 2 --ckpt-every 2
+   --eval-every 2`` for 4 steps and ``resume`` for 2 (one forward launch per
+   step and per eval batch, four grouped backward launches per step, the
+   first step's loss beside the main path's, the checkpoints that retention
+   leaves), 2 steps of ``--gated-full-fusion`` alone (pair backward) and 2
+   steps under ``--profile-steps 2`` (device-busy share, top kernels).  The
+   launch counters are set to 0 before each run and read after it: every
+   gated kernel must have launched exactly as its path says and no plain
+   version at all.  Median step time, samples/s and peak memory of each
+   path, and the step's time split from CUDA events around its parts in 3
+   steps of one ``Chassis`` run, for the main and the whole-stack path;
 8. eval: ``cli/eval.py --quality`` on the checkpoint that run wrote.
 
-Then one JSON line describing the eight kernels (each with its launches on
+Then one JSON line describing the ten kernels (each with its launches on
 its path, its error against the plain version, its time beside the plain
 version's and the card's bound for the same work), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
@@ -85,7 +95,10 @@ BATCH_SAMPLES = 2000
 BATCH_WAV_LEN = 10200   # chorowski: cond frames for 2000 samples after rf
 STACK_B, STACK_T = 2, 4100       # phase 5 checks: 4100 = 64 * 64 + 4 (ragged)
 TRAIN_B, TRAIN_WIN = 4, 48000    # the training path's shape
-TRAIN_STEPS, RESUME_STEPS = 6, 2
+TRAIN_STEPS, RESUME_STEPS = 4, 2
+GROUP = 5               # layers per grouped backward on the whole-stack path
+EVAL_EVERY, CKPT_KEEP = 2, 2   # on the whole-stack path
+LOSS_TOL = 0.02         # first-step loss, whole-stack path vs main path
 Q_LOGIT_REL_TOL = 0.01  # int8/int4 kernel vs plain: exact integer sums on both sides
 Q_VS_BF16_TOL = {"int8": 0.10, "int4": 0.40}  # tests_tpu/test_pallas_tpu.py:241-269
 PLAIN_T = 32            # steps of the plain versions' timing
@@ -101,6 +114,8 @@ GATED = {  # wrapper -> the Pallas kernel it replaces
     "gated_layer_fused": "ae_wavenet_tpu/ops/gated_pallas.py:105",
     "gated_pair_bwd": "ae_wavenet_tpu/ops/gated_pallas.py:859",
     "gated_layer_bwd": "ae_wavenet_tpu/ops/gated_pallas.py:643",
+    "gated_stack_fused": "ae_wavenet_tpu/ops/gated_pallas.py:355",
+    "gated_group_bwd": "ae_wavenet_tpu/ops/gated_pallas.py:1095",
 }
 
 
@@ -601,15 +616,22 @@ def _phase_vq(card: str, dev, data: str) -> dict:
         # planted fault in the plain version: |e|^2 left out of the distances
         bad = verdict(z, codes, (-2.0 * (z @ e.t())).argmin(1))
         check(bool(bad), f"vq {label}: planted fault '|e|^2 dropped' passes")
+        # what serving and eval call: codes and rows only, one launch fewer
+        lean = vq.vq_lookup_fused(z, e, stats=False)
+        check(torch.equal(lean[0], got[0]) and torch.equal(lean[1], got[1])
+              and lean[2] is None and lean[3] is None,
+              f"vq {label}: the lookup without statistics differs")
         k_ms = cuda_ms(lambda: vq.vq_lookup_fused(z, e), 20)
+        lean_ms = cuda_ms(lambda: vq.vq_lookup_fused(z, e, stats=False), 20)
         p_ms = cuda_ms(lambda: vq.vq_lookup_reference(z, e), 20)
         b_ms, by = bound(tensor_bytes(z, e, got), {"f32": 2 * n * k * d})
         print(f"[vq] {label}: N={n} K={k} D={d}: {n_diff} codes differ from the plain "
               f"version (near-ties only), {len(torch.unique(codes))} codes in use, quant "
               f"== codebook[codes], counts exact (sum {n}), sums max|d| {err:.4g} of "
               f"{scale:.4g} (tol {VQ_SUM_REL_TOL}), same bits twice; planted fault "
-              f"'|e|^2 dropped': {bad[0]}: rejected; kernel {k_ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms, bound {b_ms:.6f} ms by {by} | {card}")
+              f"'|e|^2 dropped': {bad[0]}: rejected; kernel {k_ms:.4f} ms "
+              f"({lean_ms:.4f} ms without the statistics: same codes and rows), "
+              f"plain {p_ms:.4f} ms, bound {b_ms:.6f} ms by {by} | {card}")
         out[label] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                       "bound_ms": b_ms, "bound_by": by, "n": n}
     return out
@@ -632,7 +654,7 @@ def phase_serve(card: str, dev, data: str, tmp: str) -> dict:
     ckpt, ckpt_vq, out = (os.path.join(tmp, n)
                           for n in ("model.pt", "model_vq.pt", "out.wav"))
     t0 = time.perf_counter()
-    model0 = ae.init(cfg, torch.Generator().manual_seed(1))
+    model0 = ae.init(cfg, torch.Generator().manual_seed(1), "cpu")
     save_export(ckpt, model0, cfg, 0)
     # the same weights under a config that asks for the fused VQ lookup
     cfg_vq = dataclasses.replace(cfg, bottleneck=dataclasses.replace(
@@ -758,50 +780,79 @@ def _phase_train_kernels(card: str, dev) -> dict:
     wn, ids, cond, spk = chk.random_stack(wcfg, STACK_B, STACK_T, 0, dev)
     dils, _, cond_tm, packed, xs, ys, cot = chk.segment_inputs(wn, wcfg, ids, cond, spk)
     errs = {}
-    for name, (wrapper, call) in chk.segment_calls(dils, cond_tm, packed, xs, ys,
-                                                   cot).items():
-        got = call(getattr(gc, wrapper))
+    calls = chk.segment_calls(dils, cond_tm, packed, xs, ys, cot)
+    faults = {seg: (name, bad)
+              for name, (seg, bad) in chk.planted_segment_faults().items()}
+    def held(name, wrapper, call, got, x0, where) -> tuple[float, float, str]:
+        """``got`` against the plain version (the whole-stack forward also
+        layer by layer on its own streams): -> (max|d|, rel, a note)."""
         want = call(getattr(gated, wrapper + "_reference"))
         torch.cuda.synchronize()
         ab, rel = chk.compare_outputs(got, want)
+        tol, note = chk.segment_tolerance(name), ""
+        check(len(got) == len(want), f"{name}: {len(got)} outputs, plain {len(want)}")
         check(all(bool(torch.isfinite(g.float()).all()) for g in got),
-              f"{name}: non-finite kernel output")
-        check(rel < chk.SEGMENT_REL_TOL,
-              f"{name} vs plain: {rel:.4g} of max|plain| (tol {chk.SEGMENT_REL_TOL})")
+              f"{name} {where}: non-finite kernel output")
+        check(rel < tol, f"{name} vs plain {where}: {rel:.4g} of max|plain| (tol {tol})")
+        if name == "gated_stack_fused":
+            note = f" from x0 within {rel:.3g} (max|d| {ab:.4g}, tol {tol}: " \
+                   f"rounding adds up over {len(dils)} layers)"
+            ab, rel = chk.compare_outputs(
+                got, chk.stack_layerwise(got, dils, cond_tm, packed, x0))
+            tol = chk.SEGMENT_REL_TOL
+            check(rel < tol, f"{name} layer by layer {where}: {rel:.4g} (tol {tol})")
+            note += f", and layer by layer on its own streams within {rel:.3g}"
+        return ab, rel, f"(max|d| {ab:.4g}, tol {tol})" + note
+
+    for name, (wrapper, call) in calls.items():
+        got = call(getattr(gc, wrapper))
+        ab, rel, note = held(name, wrapper, call, got, xs[0], f"at B={STACK_B}")
         errs[wrapper] = max(errs.get(wrapper, 0.0), ab)
-        print(f"[train-kernels] {name} B={STACK_B} t_in={xs[0].shape[1]}: every "
-              f"output within {rel:.3g} of max|plain| (max|d| {ab:.4g}, tol "
-              f"{chk.SEGMENT_REL_TOL}) | {card}")
-    del xs, ys, cot
+        print(f"[train-kernels] {name} B={STACK_B} t_in={xs[0].shape[1]}: "
+              f"{len(got)} outputs within {rel:.3g} of max|plain| {note} | {card}")
+        if name in faults:  # the same check on a planted fault must fail
+            fault, bad = faults[name]
+            _, rel_f = chk.compare_outputs(got, call(bad))
+            check(rel_f >= chk.SEGMENT_REL_TOL, f"planted fault '{fault}' passes")
+            print(f"[train-kernels] planted fault '{fault}' in the plain version: "
+                  f"{rel_f:.4g} of max|plain|: rejected | {card}")
+    del xs, ys, cot, calls
 
     probe = torch.randn(STACK_B, STACK_T, wcfg.n_quant,
                         generator=torch.Generator().manual_seed(3)).to(dev)
-    ref = None
-    for save_y in (True, False):
-        for pairs in (True, False):
-            lg_k, g_k = chk.stack_run(wn, wcfg, ids, cond, spk, probe, None,
-                                      save_y, pairs)
-            lg_p, g_p = chk.stack_run(wn, wcfg, ids, cond, spk, probe, gated.PLAIN,
-                                      save_y, pairs)
-            lg, rel = chk.stack_errors(lg_k, g_k, lg_p, g_p)
-            check(chk.stack_passes(lg, rel),
-                  f"stack save_y={save_y} pairs={pairs}: logits {lg:.4g} (tol "
-                  f"{chk.LOGIT_ABS_TOL}), grads {rel:.4g} (tol {chk.GRAD_REL_TOL})")
-            print(f"[train-kernels] GatedStack save_y={save_y} pairs={pairs}: logits "
-                  f"max|d| {lg:.4g} (tol {chk.LOGIT_ABS_TOL}), {len(g_k)} gradients "
-                  f"max|d| {rel:.4g} of max|plain| (tol {chk.GRAD_REL_TOL}) | {card}")
-            if save_y and pairs:
-                ref = (lg_k, g_k)
-    for name, (wn_bad, ops) in chk.planted_faults(wn, wcfg).items():
-        lg_f, g_f = chk.stack_run(wn_bad, wcfg, ids, cond, spk, probe, ops, True, True)
-        lg, rel = chk.stack_errors(*ref, lg_f, g_f)
+    # (save_y, pairs, full_fusion, bwd_group)
+    schedules = [(True, True, False, 0), (True, False, False, 0),
+                 (False, True, False, 0), (False, False, False, 0),
+                 (True, True, True, 0), (True, True, True, GROUP),
+                 (True, True, False, GROUP)]
+    refs = {}
+    for save_y, pairs, fused, group in schedules:
+        sched = dict(full_fusion=fused, bwd_group=group)
+        lg_k, g_k = chk.stack_run(wn, wcfg, ids, cond, spk, probe, None,
+                                  save_y, pairs, **sched)
+        lg_p, g_p = chk.stack_run(wn, wcfg, ids, cond, spk, probe, gated.PLAIN,
+                                  save_y, pairs, **sched)
+        lg, rel = chk.stack_errors(lg_k, g_k, lg_p, g_p)
+        label = (f"save_y={save_y} pairs={pairs} full_fusion={fused} "
+                 f"bwd_group={group}")
+        check(chk.stack_passes(lg, rel),
+              f"stack {label}: logits {lg:.4g} (tol {chk.LOGIT_ABS_TOL}), grads "
+              f"{rel:.4g} (tol {chk.GRAD_REL_TOL})")
+        print(f"[train-kernels] GatedStack {label}: logits max|d| {lg:.4g} (tol "
+              f"{chk.LOGIT_ABS_TOL}), {len(g_k)} gradients max|d| {rel:.4g} of "
+              f"max|plain| (tol {chk.GRAD_REL_TOL}) | {card}")
+        refs.setdefault(fused, (lg_k, g_k))  # the first run of each forward
+    for name, (wn_bad, ops, sched) in chk.planted_faults(wn, wcfg).items():
+        lg_f, g_f = chk.stack_run(wn_bad, wcfg, ids, cond, spk, probe, ops, True, True,
+                                  **sched)
+        lg, rel = chk.stack_errors(*refs[sched["full_fusion"]], lg_f, g_f)
         check(not chk.stack_passes(lg, rel), f"planted fault '{name}' passes")
         print(f"[train-kernels] planted fault '{name}' in the plain version: logits "
               f"{lg:.4g}, grads {rel:.4g}: rejected | {card}")
-    del wn, ids, cond, spk, probe, ref
+    del wn, ids, cond, spk, probe, refs
 
     # at the training path's shape: each kernel against its plain version
-    # again (the full chunk count, halos reaching into the previous chunk,
+    # again (every block of the card at work, rows handed between blocks,
     # the full split-K), then both timed
     wn, ids, cond, spk = chk.random_stack(wcfg, TRAIN_B, TRAIN_WIN, 1, dev)
     dils, x0, cond_tm, packed, xs, ys, cot = chk.segment_inputs(wn, wcfg, ids, cond, spk)
@@ -811,18 +862,19 @@ def _phase_train_kernels(card: str, dev) -> dict:
     for name, (wrapper, call) in chk.segment_calls(dils, cond_tm, packed, xs, ys,
                                                    cot).items():
         kern, plain = getattr(gc, wrapper), getattr(gated, wrapper + "_reference")
-        got, want = call(kern), call(plain)
-        torch.cuda.synchronize()
-        ab, rel = chk.compare_outputs(got, want)
-        check(all(bool(torch.isfinite(g.float()).all()) for g in got),
-              f"{name} at B={TRAIN_B}: non-finite kernel output")
-        check(rel < chk.SEGMENT_REL_TOL,
-              f"{name} vs plain at B={TRAIN_B}: {rel:.4g} of max|plain| (tol "
-              f"{chk.SEGMENT_REL_TOL})")
+        got = call(kern)
+        ab, rel, note = held(name, wrapper, call, got, x0, f"at B={TRAIN_B}")
         errs[wrapper] = max(errs[wrapper], ab)
-        del got, want
         timing = ""
-        if not name.endswith("recompute"):
+        if name == "gated_group_bwd":  # fixed-order sums: the same bits again
+            again = call(kern)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{name}: two launches gave different bits")
+            timing = "; same bits on a second launch"
+            del again
+        del got
+        if name == wrapper:  # the other cases are variants of these
             k_ms = cuda_ms(lambda: call(kern), 3)
             p_ms = cuda_ms(lambda: call(plain), 1)
             moved = []
@@ -836,18 +888,26 @@ def _phase_train_kernels(card: str, dev) -> dict:
             # the least work: the n_win loss rows of every batch row through
             # each layer's two GEMMs, once forward, twice backward (inputs
             # and weights); every operand read once, every output written once
-            ops = (2 * TRAIN_B * TRAIN_WIN * macs * (2 if "pair" in wrapper else 1)
+            kw = moved[0][1]
+            n_layers = (len(kw["dils"]) if "dils" in kw else len(kw["dds"])
+                        if "dds" in kw else 2 if "pair" in wrapper else 1)
+            ops = (2 * TRAIN_B * TRAIN_WIN * macs * n_layers
                    * (2 if "bwd" in wrapper else 1))
             b_ms, by = bound(tensor_bytes(moved), {"bf16": ops})
+            del moved
             times[wrapper] = (k_ms, p_ms, b_ms, by)
-            timing = (f"; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
-                      f"{b_ms:.3f} ms by {by}")
+            timing += (f"; {n_layers} layer(s): kernel {k_ms:.3f} ms, plain "
+                       f"{p_ms:.3f} ms, bound {b_ms:.3f} ms by {by}")
         print(f"[train-kernels] {name} B={TRAIN_B} t_in={x0.shape[1]}: every output "
-              f"within {rel:.3g} of max|plain| (max|d| {ab:.4g}, tol "
-              f"{chk.SEGMENT_REL_TOL}){timing} | {card}")
+              f"within {rel:.3g} of max|plain| {note}{timing} | {card}")
     del xs, ys, cot
-    for label, ops in (("kernel", gated.kernel_ops()), ("plain", gated.PLAIN)):
-        sched = gated.Schedule(dils, True, True, ops)
+    # the whole stack under each schedule, the kernels' three in one call
+    for label, ops, fused, group in (
+            ("kernel, pairs", gated.kernel_ops(), False, 0),
+            ("kernel, full fusion", gated.kernel_ops(), True, 0),
+            (f"kernel, full fusion + groups of {GROUP}", gated.kernel_ops(), True, GROUP),
+            ("plain, pairs", gated.PLAIN, False, 0)):
+        sched = gated.Schedule(dils, True, True, ops, fused, group)
         out = {}
         fwd = cuda_s(lambda: out.update(r=gated.run_forward(sched, x0, cond_tm,
                                                             packed, True)))
@@ -856,24 +916,24 @@ def _phase_train_kernels(card: str, dev) -> dict:
         bwd = cuda_s(lambda: gated.run_backward(sched, g_skip, xs_s, ys_s, cond_tm,
                                                 packed))
         del out, skip, xs_s, ys_s
-        print(f"[train-kernels] stack {label} (pairs, saved y) B={TRAIN_B} t_in="
+        print(f"[train-kernels] stack {label} (saved y) B={TRAIN_B} t_in="
               f"{x0.shape[1]}: forward {fwd * 1e3:.1f} ms, backward "
               f"{bwd * 1e3:.1f} ms | {card}")
     return {"errs": errs, "times": times}
 
 
 def _run_cli(argv) -> list[dict]:
-    """cli.train.main(argv) -> its JSON metric records (stdout captured)."""
+    """cli.train.main(argv) -> the JSON records it printed, one per line
+    (stdout captured): the train records hold "loss", the eval records
+    "eval_recon_ce", a profiled run's last one "profile"."""
     from ae_wavenet_tpu_torch.cli import train as cli
 
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(argv)
     check(rc == 0, f"train CLI returned {rc}")
-    recs = []
-    for ln in buf.getvalue().splitlines():
-        if ln.startswith('{"step"'):
-            recs.append(json.loads(ln))
+    recs = [json.loads(ln) for ln in buf.getvalue().splitlines()
+            if ln.startswith('{"')]
     for r in recs:
         check(all(math.isfinite(v) for v in r.values() if isinstance(v, float)),
               f"non-finite metrics: {r}")
@@ -883,26 +943,30 @@ def _run_cli(argv) -> list[dict]:
 def _path_run(argv, expect: dict, card: str, label: str):
     """One CLI run with every launch counter set to 0 just before it and
     read just after: each gated kernel and the VQ kernel must have launched
-    exactly ``expect[name]`` times (``vq_lookup_fused``: 0 unless given) and
-    no plain version at all.  -> (metric records, launches by kernel)."""
+    exactly ``expect[name]`` times (0 unless given) and no plain version at
+    all.  -> (train records, launches by kernel, the run's peak GiB, every
+    record)."""
     import torch
 
     from ae_wavenet_tpu_torch.ops import gated, gated_cuda as gc
     from ae_wavenet_tpu_torch.ops import vq_cuda as vq
 
-    expect = {"vq_lookup_fused": 0, **expect}
+    expect = {**dict.fromkeys(GATED, 0), "vq_lookup_fused": 0, **expect}
     kernels = [getattr(gc, n) for n in GATED] + [vq.vq_lookup_fused]
     plain = [getattr(gated, n + "_reference") for n in GATED] + [vq.vq_lookup_reference]
     for f in kernels + plain:
         f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     recs = _run_cli(argv)
     torch.cuda.synchronize()
     got = {f.__name__: f.launches for f in kernels}
     plain_runs = {f.__name__: f.launches for f in plain}
+    peak = torch.cuda.max_memory_allocated() / 2**30
     check(got == expect, f"{label}: kernel launches {got}, expected {expect}")
     check(not any(plain_runs.values()), f"{label}: plain versions ran {plain_runs}")
-    print(f"[train] {label}: launches {got}; plain versions {plain_runs} | {card}")
-    return recs, got
+    print(f"[train] {label}: launches {got}; plain versions {plain_runs}; peak memory "
+          f"{peak:.2f} GiB | {card}")
+    return [r for r in recs if "loss" in r], got, peak, recs
 
 
 class _Spans:
@@ -977,14 +1041,36 @@ def step_split(cfg, data: str, dev, n_steps: int = 3) -> dict:
     return out
 
 
-def phase_train(card: str, dev, tmp: str) -> dict:
+def _median_step(recs: list[dict], eval_every: int = 0) -> float:
+    """Median step seconds from the records' samples/s, the first step (its
+    warm-up) left out, and with ``eval_every`` the steps that follow an eval
+    and a save: the loop's clock charges those to the next step."""
     import statistics
 
-    import torch
+    return statistics.median(
+        TRAIN_B * TRAIN_WIN / r["samples_per_sec"] for r in recs[1:]
+        if not (eval_every and (r["step"] - 1) % eval_every == 0))
 
+
+def _print_split(cfg, data: str, dev, label: str, card: str) -> None:
+    s = step_split(cfg, data, dev)
+    fwd_rest = s["forward"] - s["encoder"] - s["upsampler"] - s["stack forward"]
+    bwd_rest = s["backward"] - s["stack backward"]
+    print(f"[train] step split, {label} (B={TRAIN_B}, n_win={TRAIN_WIN}, 3 steps, ms "
+          f"per step; device spans from CUDA events): host step {s['host step']:.1f}, "
+          f"loader wait {s['loader wait']:.2f}; device step {s['step']:.1f} = forward "
+          f"and loss {s['forward']:.1f} (encoder {s['encoder']:.1f}, upsampler "
+          f"{s['upsampler']:.1f}, stack forward {s['stack forward']:.1f}, the rest "
+          f"{fwd_rest:.1f}) + backward {s['backward']:.1f} (stack backward "
+          f"{s['stack backward']:.1f}, the rest {bwd_rest:.1f}) + optimizer "
+          f"{s['optimizer']:.1f} | {card}")
+
+
+def phase_train(card: str, dev, tmp: str) -> dict:
     from ae_wavenet_tpu_torch.data.dataset import make_synthetic_dataset
     from ae_wavenet_tpu_torch.models import autoencoder as ae
     from ae_wavenet_tpu_torch.ops import gated
+    from ae_wavenet_tpu_torch.training import checkpoint as ckpt_mod
     from ae_wavenet_tpu_torch.utils.config import chorowski_config
 
     data, ckpt = os.path.join(tmp, "train"), os.path.join(tmp, "ckpt")
@@ -994,25 +1080,26 @@ def phase_train(card: str, dev, tmp: str) -> dict:
                            clip_len=(u_len + 4000, u_len + 30000), seed=1)
     n_layers = len(gated.stack_dils(cfg.wavenet))
     check(n_layers % 2 == 0, f"{n_layers} layers: the pair schedule leaves one alone")
+    check(n_layers % GROUP == 0, f"{n_layers} layers: groups of {GROUP} leave some")
 
     def expect(pairs: int, layers: int, steps: int) -> dict:
         return {"gated_pair_fused": pairs * steps, "gated_layer_fused": layers * steps,
                 "gated_pair_bwd": pairs * steps, "gated_layer_bwd": layers * steps}
 
-    torch.cuda.reset_peak_memory_stats(dev)
+    shape = ["--preset", "chorowski", "--pallas-stack", "--batch-sz", str(TRAIN_B),
+             "--n-win", str(TRAIN_WIN), "--data", data, "--log-every", "1"]
     # the main path (pairs, saved y) at the CLI's default --device (cuda, no
     # index), as a user runs it: new, then resume
-    common = ["--data", data, "--ckpt-dir", ckpt, "--log-every", "1"]
     t0 = time.perf_counter()
-    new, n_new = _path_run(
-        ["new", "--preset", "chorowski", "--pallas-stack", "--batch-sz", str(TRAIN_B),
-         "--n-win", str(TRAIN_WIN), "--n-steps", str(TRAIN_STEPS), *common],
+    new, n_new, peak_new, _ = _path_run(
+        ["new", *shape, "--n-steps", str(TRAIN_STEPS), "--ckpt-dir", ckpt],
         expect(n_layers // 2, 0, TRAIN_STEPS), card, "main path, new")
-    res, n_res = _path_run(["resume", "--n-steps", str(RESUME_STEPS), *common],
-                           expect(n_layers // 2, 0, RESUME_STEPS), card,
-                           "main path, resume")
+    res, n_res, peak_res, _ = _path_run(
+        ["resume", "--n-steps", str(RESUME_STEPS), "--data", data, "--log-every", "1",
+         "--ckpt-dir", ckpt],
+        expect(n_layers // 2, 0, RESUME_STEPS), card, "main path, resume")
     wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    peak = max(peak_new, peak_res)
     check([r["step"] for r in new] == list(range(1, TRAIN_STEPS + 1)),
           f"new run logged steps {[r['step'] for r in new]}")
     check([r["step"] for r in res] == list(range(TRAIN_STEPS + 1,
@@ -1020,61 +1107,141 @@ def phase_train(card: str, dev, tmp: str) -> dict:
           f"resumed run logged steps {[r['step'] for r in res]}")
     ce = [r["recon_ce"] for r in new + res]
     check(ce[-1] < ce[0], f"recon_ce did not fall: {ce}")
-    sps = [r["samples_per_sec"] for r in new[1:] + res[1:]]
-    step_s = statistics.median(TRAIN_B * TRAIN_WIN / v for v in sps)
+    step_s = _median_step(new + res[1:])
     print(f"[train] CLI new {TRAIN_STEPS} + resume {RESUME_STEPS} steps in {wall:.1f} "
           f"s; recon_ce {' '.join(f'{v:.4f}' for v in ce)}; perplexity "
           f"{new[-1]['perplexity']:.2f}, grad_norm {res[-1]['grad_norm']:.4g} | {card}")
-    print(f"[train] median step {step_s * 1e3:.1f} ms -> "
+    print(f"[train] main path (pairs): median step {step_s * 1e3:.1f} ms -> "
           f"{TRAIN_B * TRAIN_WIN / step_s:.0f} samples/s (B={TRAIN_B}, n_win="
           f"{TRAIN_WIN}); peak memory {peak:.2f} GiB | {card}")
 
     # the single-layer path (--no-gated-fuse-pairs --no-gated-save-y)
-    alt, n_alt = _path_run(
-        ["new", "--preset", "chorowski", "--pallas-stack", "--no-gated-fuse-pairs",
-         "--no-gated-save-y", "--batch-sz", str(TRAIN_B), "--n-win", str(TRAIN_WIN),
-         "--n-steps", "2", "--data", data, "--ckpt-dir", os.path.join(tmp, "ckpt_alt"),
-         "--log-every", "1"],
+    alt, n_alt, _, _ = _path_run(
+        ["new", *shape, "--no-gated-fuse-pairs", "--no-gated-save-y", "--n-steps", "2",
+         "--ckpt-dir", os.path.join(tmp, "ckpt_alt")],
         expect(0, n_layers, 2), card, "single-layer path, new")
     check(len(alt) == 2, f"single-layer run logged {len(alt)} steps")
 
     # the main path again with the fused VQ lookup: once per step, and the
     # first step (same seed, same data) loses nothing to it
     ckpt_vq = os.path.join(tmp, "ckpt_vq")
-    fused, n_vq = _path_run(
-        ["new", "--preset", "chorowski", "--pallas-stack", "--vq-use-pallas",
-         "--batch-sz", str(TRAIN_B), "--n-win", str(TRAIN_WIN), "--n-steps",
-         str(VQ_TRAIN_STEPS), "--data", data, "--ckpt-dir", ckpt_vq,
-         "--log-every", "1"],
+    fused, n_vq, _, _ = _path_run(
+        ["new", *shape, "--vq-use-pallas", "--n-steps", str(VQ_TRAIN_STEPS),
+         "--ckpt-dir", ckpt_vq],
         {**expect(n_layers // 2, 0, VQ_TRAIN_STEPS), "vq_lookup_fused": VQ_TRAIN_STEPS},
         card, "main path with --vq-use-pallas, new")
     check(len(fused) == VQ_TRAIN_STEPS, f"--vq-use-pallas run logged {len(fused)} steps")
     d_loss = abs(fused[0]["loss"] - new[0]["loss"])
     check(d_loss < 1e-4, f"first-step loss with --vq-use-pallas {fused[0]['loss']} vs "
           f"{new[0]['loss']} without")
-    step_vq = statistics.median(TRAIN_B * TRAIN_WIN / r["samples_per_sec"]
-                                for r in fused[1:])
     ce_vq = " ".join(f"{r['recon_ce']:.4f}" for r in fused)
     print(f"[train] --vq-use-pallas: first-step loss {fused[0]['loss']:.6f} vs "
           f"{new[0]['loss']:.6f} without (|d| {d_loss:.2g} < 1e-4); recon_ce {ce_vq}; "
           f"perplexity {fused[-1]['perplexity']:.2f}; median step "
-          f"{step_vq * 1e3:.1f} ms | {card}")
+          f"{_median_step(fused) * 1e3:.1f} ms | {card}")
+
+    # the whole-stack path: every layer's forward in one launch (also for
+    # each of an eval's 8 batches, which save nothing), the backward in
+    # groups of GROUP layers; async saves with retention; new, then resume
+    ckpt_ws = os.path.join(tmp, "ckpt_ws")
+    runtime = ["--ckpt-dir", ckpt_ws, "--ckpt-keep", str(CKPT_KEEP), "--ckpt-every",
+               "2", "--eval-every", str(EVAL_EVERY)]
+
+    def expect_ws(steps: int, first: int) -> dict:
+        evals = (first + steps) // EVAL_EVERY - first // EVAL_EVERY
+        return {"gated_stack_fused": steps + 8 * evals,
+                "gated_group_bwd": steps * n_layers // GROUP}
+
+    ws_new, n_ws, peak_ws, all_new = _path_run(
+        ["new", *shape, "--gated-full-fusion", "--gated-bwd-group", str(GROUP),
+         "--n-steps", str(TRAIN_STEPS), *runtime],
+        expect_ws(TRAIN_STEPS, 0), card, "whole-stack path, new")
+    ws_res, n_ws_res, peak_ws_res, all_res = _path_run(
+        ["resume", "--n-steps", str(RESUME_STEPS), "--data", data, "--log-every", "1",
+         *runtime], expect_ws(RESUME_STEPS, TRAIN_STEPS), card,
+        "whole-stack path, resume")
+    ce_ws = [r["recon_ce"] for r in ws_new + ws_res]
+    check([r["step"] for r in ws_new + ws_res]
+          == list(range(1, TRAIN_STEPS + RESUME_STEPS + 1)),
+          f"whole-stack runs logged steps {[r['step'] for r in ws_new + ws_res]}")
+    check(ce_ws[-1] < ce_ws[0], f"whole-stack path: recon_ce did not fall: {ce_ws}")
+    d_ws = abs(ws_new[0]["loss"] - new[0]["loss"])
+    check(d_ws < LOSS_TOL, f"whole-stack path: first-step loss {ws_new[0]['loss']} vs "
+          f"the main path's {new[0]['loss']} (tol {LOSS_TOL})")
+    evals = {r["step"]: r["eval_recon_ce"] for r in all_new + all_res
+             if "eval_recon_ce" in r}
+    last = TRAIN_STEPS + RESUME_STEPS
+    best = ckpt_mod.best_info(ckpt_ws)
+    saved = sorted(s for s in range(1, last + 1) if s % 2 == 0)
+    check(sorted(evals) == list(range(EVAL_EVERY, last + 1, EVAL_EVERY)),
+          f"whole-stack path: evals at {sorted(evals)}")
+    check(best is not None and best[1] == min(evals.values())
+          and evals[best[0]] == best[1],
+          f"whole-stack path: BEST {best}, evals {evals}")
+    want_files = sorted({f"step_{s:08d}.pt" for s in saved[-CKPT_KEEP:] + [best[0]]}
+                        | {"LATEST", "BEST"})
+    check(sorted(os.listdir(ckpt_ws)) == want_files,
+          f"whole-stack path: retention left {sorted(os.listdir(ckpt_ws))}, expected "
+          f"{want_files}")
+    check(ckpt_mod.latest_step(ckpt_ws) == last, "whole-stack path: LATEST is not the "
+          "last step")
+    step_ws = _median_step(ws_new + ws_res[1:], EVAL_EVERY)
+    print(f"[train] whole-stack path (--gated-full-fusion --gated-bwd-group {GROUP}): "
+          f"recon_ce {' '.join(f'{v:.4f}' for v in ce_ws)}; first-step loss "
+          f"{ws_new[0]['loss']:.6f} vs the main path's {new[0]['loss']:.6f} (|d| "
+          f"{d_ws:.2g} < {LOSS_TOL}); eval recon_ce {evals}; --ckpt-keep {CKPT_KEEP} "
+          f"left {want_files}, BEST {best} | {card}")
+    print(f"[train] whole-stack path: median step (of those that follow no eval and "
+          f"save) {step_ws * 1e3:.1f} ms -> "
+          f"{TRAIN_B * TRAIN_WIN / step_ws:.0f} samples/s; peak memory "
+          f"{max(peak_ws, peak_ws_res):.2f} GiB (main path {step_s * 1e3:.1f} ms, "
+          f"{peak:.2f} GiB) | {card}")
+
+    # full fusion alone: the whole-stack forward, the pair backward
+    ff, n_ff, peak_ff, _ = _path_run(
+        ["new", *shape, "--gated-full-fusion", "--n-steps", "3"],
+        {"gated_stack_fused": 3, "gated_pair_bwd": 3 * n_layers // 2}, card,
+        "--gated-full-fusion alone, new")
+    step_ff = _median_step(ff)
+    print(f"[train] --gated-full-fusion alone: median step {step_ff * 1e3:.1f} ms -> "
+          f"{TRAIN_B * TRAIN_WIN / step_ff:.0f} samples/s; peak memory {peak_ff:.2f} "
+          f"GiB | {card}")
+
+    # two profiled steps of the whole-stack path
+    _, n_prof, _, all_prof = _path_run(
+        ["new", *shape, "--gated-full-fusion", "--gated-bwd-group", str(GROUP),
+         "--n-steps", "2", "--profile-steps", "2", "--profile-dir",
+         os.path.join(tmp, "prof")],
+        {"gated_stack_fused": 2, "gated_group_bwd": 2 * n_layers // GROUP}, card,
+        "whole-stack path under --profile-steps 2")
+    prof = [r["profile"] for r in all_prof if "profile" in r]
+    check(len(prof) == 1 and any("profile_trace" in r for r in all_prof),
+          f"profiled run printed {len(prof)} summaries")
+    prof = prof[0]
+    names = " ".join(k["name"] for k in prof["top_kernels"])
+    check(prof["device_busy_share"] is not None
+          and 0.0 < prof["device_busy_share"] <= 1.0,
+          f"profile: device-busy share {prof['device_busy_share']}")
+    check("gated_stack_kernel" in names and "gated_group_kernel" in names,
+          f"profile: the top kernels are {names}")
+    check(os.path.getsize(prof["trace_file"]) > 0, "profile: empty trace file")
+    tops = "; ".join(f"{k['name'][:60]} {k['ms'] / 2:.2f} ms/step x{k['calls'] // 2}"
+                     for k in prof["top_kernels"])
+    print(f"[train] profile of 2 steps of the whole-stack path (torch.profiler): "
+          f"device busy {prof['device_busy_share'] * 100:.2f}% of the "
+          f"{prof['window_ms']:.1f} ms window ({prof['device_busy_ms']:.1f} ms in "
+          f"{prof['n_kernels']} kernels and copies); top kernels by device time: "
+          f"{tops} | {card}")
 
     cfg = dataclasses.replace(
         cfg, train=dataclasses.replace(cfg.train, batch_sz=TRAIN_B, n_win=TRAIN_WIN),
         wavenet=dataclasses.replace(cfg.wavenet, use_pallas_stack=True))
-    s = step_split(cfg, data, dev)
-    fwd_rest = s["forward"] - s["encoder"] - s["upsampler"] - s["stack forward"]
-    bwd_rest = s["backward"] - s["stack backward"]
-    print(f"[train] step split (B={TRAIN_B}, n_win={TRAIN_WIN}, 3 steps, ms per step; "
-          f"device spans from CUDA events): host step {s['host step']:.1f}, loader "
-          f"wait {s['loader wait']:.2f}; device step {s['step']:.1f} = forward and "
-          f"loss {s['forward']:.1f} (encoder {s['encoder']:.1f}, upsampler "
-          f"{s['upsampler']:.1f}, stack forward {s['stack forward']:.1f}, the rest "
-          f"{fwd_rest:.1f}) + backward {s['backward']:.1f} (stack backward "
-          f"{s['stack backward']:.1f}, the rest {bwd_rest:.1f}) + optimizer "
-          f"{s['optimizer']:.1f} | {card}")
-    launches = {n: n_new[n] + n_res[n] + n_alt[n] + n_vq[n] for n in GATED}
+    _print_split(cfg, data, dev, "main path (pairs)", card)
+    _print_split(dataclasses.replace(cfg, wavenet=dataclasses.replace(
+        cfg.wavenet, gated_full_fusion=True, gated_bwd_group=GROUP)), data, dev,
+        f"whole-stack path (full fusion, groups of {GROUP})", card)
+    runs = (n_new, n_res, n_alt, n_vq, n_ws, n_ws_res, n_ff, n_prof)
+    launches = {n: sum(r[n] for r in runs) for n in GATED}
     launches["vq_lookup_fused"] = n_vq["vq_lookup_fused"]
     return {"launches": launches, "data": data, "ckpt_vq": ckpt_vq}
 

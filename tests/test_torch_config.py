@@ -52,6 +52,8 @@ def test_port_imports_no_jax():
             "ae_wavenet_tpu_torch.eval.quality, ae_wavenet_tpu_torch.cli.eval, "
             "ae_wavenet_tpu_torch.models.autoencoder, "
             "ae_wavenet_tpu_torch.training.weights, "
+            "ae_wavenet_tpu_torch.training.checkpoint, "
+            "ae_wavenet_tpu_torch.utils.profiling, ae_wavenet_tpu_torch.utils.device, "
             "ae_wavenet_tpu_torch.data.dataset, ae_wavenet_tpu_torch.utils.wavio, "
             "chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'ae_wavenet_tpu')]; "

@@ -238,6 +238,10 @@ def test_vq_kernel_takes_the_first_index_on_ties(cuda_device):
     assert torch.equal(quant, e[codes.long()])
     assert counts[:2].tolist() == [2.0, 1.0] and float(counts.sum()) == 3.0
     assert sums[0].tolist() == [2.5, 0.5]
+    # without the statistics: the same codes and rows, one launch fewer
+    lean = vq_cuda.vq_lookup_fused(z, e, stats=False)
+    assert torch.equal(lean[0], codes) and torch.equal(lean[1], quant)
+    assert lean[2] is None and lean[3] is None
 
 
 @pytest.mark.cuda
@@ -282,7 +286,8 @@ GCFG = WaveNetConfig(n_blocks=1, n_block_layers=8, n_res=32, n_dil=32,
                      n_skp=32, n_post=32, n_lc_in=16, n_lc_out=32,
                      n_global_embed=8, n_speakers=10)
 SEGMENTS = ["gated_pair_fused", "gated_layer_fused", "gated_pair_bwd",
-            "gated_layer_bwd", "gated_layer_bwd_recompute"]
+            "gated_layer_bwd", "gated_layer_bwd_recompute", "gated_stack_fused",
+            "gated_stack_fused_no_save", "gated_group_bwd", "gated_group_bwd_3"]
 
 
 @pytest.mark.cuda
@@ -305,28 +310,58 @@ def test_gated_kernel_matches_plain(cuda_device, name):
         assert g.shape == w.shape and g.dtype == w.dtype
         assert bool(torch.isfinite(g.float()).all())
     _, rel = gchk.compare_outputs(got, want)
-    assert rel < gchk.SEGMENT_REL_TOL, rel
+    assert rel < gchk.segment_tolerance(name), rel
+    if name == "gated_stack_fused":  # and each layer on the kernel's own streams
+        _, rel = gchk.compare_outputs(
+            got, gchk.stack_layerwise(got, dils, cond_tm, packed, xs[0]))
+        assert rel < gchk.SEGMENT_REL_TOL, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(gchk.planted_segment_faults()))
+def test_gated_kernel_rejects_planted_fault(cuda_device, name):
+    """A fault planted in the plain version fails the kernel's own check."""
+    segment, bad = gchk.planted_segment_faults()[name]
+    wn, ids, cond, spk = gchk.random_stack(GCFG, 3, 150, 0, cuda_device)
+    dils, _, cond_tm, packed, xs, ys, cot = gchk.segment_inputs(wn, GCFG, ids,
+                                                                cond, spk)
+    wrapper, call = gchk.segment_calls(dils, cond_tm, packed, xs, ys, cot)[segment]
+    _, rel = gchk.compare_outputs(call(getattr(tgc, wrapper)), call(bad))
+    assert rel >= gchk.SEGMENT_REL_TOL, rel
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("save_y", [True, False])
 @pytest.mark.parametrize("fuse_pairs", [True, False])
-def test_gated_stack_matches_plain(cuda_device, save_y, fuse_pairs):
+@pytest.mark.parametrize("full_fusion", [False, True])
+@pytest.mark.parametrize("bwd_group", [0, 3])
+def test_gated_stack_matches_plain(cuda_device, save_y, fuse_pairs, full_fusion,
+                                   bwd_group):
     """The whole stack through GatedStack with the kernels against the same
     schedule with the plain versions: logits and every gradient."""
     wn, ids, cond, spk = gchk.random_stack(GCFG, 2, 150, 1, cuda_device)
     probe = torch.randn(2, 150, GCFG.n_quant, device=cuda_device)
+    sched = dict(full_fusion=full_fusion, bwd_group=bwd_group)
+    if bwd_group and not save_y:
+        with pytest.raises(ValueError, match="gated_save_y"):
+            gchk.stack_run(wn, GCFG, ids, cond, spk, probe, None, save_y,
+                           fuse_pairs, **sched)
+        return
+    counted = {tgc.gated_stack_fused: int(full_fusion),
+               tgc.gated_group_bwd: 2 if bwd_group else 0}  # (0,1,2) (3,4,5) (6,7)
+    before = {f: f.launches for f in counted}
     lg_k, g_k = gchk.stack_run(wn, GCFG, ids, cond, spk, probe, None, save_y,
-                               fuse_pairs)
+                               fuse_pairs, **sched)
+    assert {f: f.launches - before[f] for f in counted} == counted
     lg_p, g_p = gchk.stack_run(wn, GCFG, ids, cond, spk, probe, tgt.PLAIN,
-                               save_y, fuse_pairs)
+                               save_y, fuse_pairs, **sched)
     lg, rel = gchk.stack_errors(lg_k, g_k, lg_p, g_p)
     assert gchk.stack_passes(lg, rel), (lg, rel)
-    for name, (wn_bad, ops) in gchk.planted_faults(wn, GCFG).items():
-        if "prev tap" in name and not fuse_pairs:
-            continue  # that fault sits in the pair kernel's plain version
+    for name, (wn_bad, ops, kw) in gchk.planted_faults(wn, GCFG).items():
+        if kw["full_fusion"] != full_fusion or ("pair" in name and not fuse_pairs):
+            continue  # that fault sits in a kernel this schedule does not run
         lg_f, g_f = gchk.stack_run(wn_bad, GCFG, ids, cond, spk, probe, ops,
-                                   save_y, fuse_pairs)
+                                   save_y, fuse_pairs, **sched)
         assert not gchk.stack_passes(*gchk.stack_errors(lg_k, g_k, lg_f, g_f)), name
 
 
@@ -362,7 +397,7 @@ def test_encode_on_card_matches_cpu_with_reference_precision(cuda_device):
     set_reference_precision()
     try:
         cfg = chorowski_config()
-        model = ae.init(cfg, torch.Generator().manual_seed(1)).eval()
+        model = ae.init(cfg, torch.Generator().manual_seed(1), "cpu").eval()
         wav = (torch.randn(2, 32000, generator=torch.Generator().manual_seed(2))
                * 4000).clamp(-32768, 32767).to(torch.int16)
         with torch.no_grad():
@@ -383,3 +418,19 @@ def test_gated_kernels_reject_what_they_cannot_take(cuda_device):
         tgc.gated_layer_fused(x0.float(), cond_tm, skip, *packed[0], dd=1, r0=1)
     with pytest.raises(ValueError, match="cpu"):
         tgc.gated_layer_fused(x0, cond_tm.cpu(), skip, *packed[0], dd=1, r0=1)
+    with pytest.raises(ValueError, match="two or more layers"):
+        tgc.gated_stack_fused(x0, cond_tm, skip, packed[:1], dils=dils[:1], r0=1)
+    with pytest.raises(ValueError, match="skip"):
+        tgc.gated_stack_fused(x0, cond_tm, skip.to(torch.bfloat16), packed,
+                              dils=dils, r0=1)
+    cot = {k: torch.zeros_like(x0) for k in ("gxcur", "gxprev")}
+    gskip = torch.zeros_like(skip, dtype=torch.bfloat16)
+    gcond = torch.zeros(cond_tm.shape, device=cuda_device)
+    group = dict(dds=dils[:3], prev_dd=dils[3], valid_los=(1, 3, 7), cur_valid_lo=15)
+    with pytest.raises(ValueError, match="saved y"):
+        tgc.gated_group_bwd((x0,) * 3, cond_tm, cot["gxcur"], cot["gxprev"], gskip,
+                            gcond, packed[:3], (None,) * 3, **group)
+    with pytest.raises(ValueError, match="two or more layers"):
+        tgc.gated_group_bwd((x0,), cond_tm, cot["gxcur"], cot["gxprev"], gskip,
+                            gcond, packed[:1], (None,), dds=dils[:1], prev_dd=2,
+                            valid_los=(1,), cur_valid_lo=3)

@@ -256,3 +256,174 @@ def test_plain_forward_kernels_match_pallas():
     errs += [_cmp_rows(g, w, gated.valid_lo(dils, k), top)
              for g, w, top in zip(got1, want1, (lpad + off, off, off))]
     assert max(errs) < SEG_TOL, errs
+
+
+# ----------------------- the whole-stack forward and the grouped backward
+
+FUSED = [(True, 0, True), (True, 0, False), (True, 3, True), (True, 4, True),
+         (False, 3, True), (True, 8, True)]  # (full_fusion, bwd_group, save_y)
+
+
+@pytest.mark.parametrize("save_y,save_mids", [(True, True), (False, True),
+                                              (False, False)])
+def test_plain_stack_fused_matches_pallas(save_y, save_mids):
+    """All five layers from x0 into a random incoming skip: skip, each mid
+    and each y on the layer's valid rows; no mids and no ys when nothing is
+    saved."""
+    dils, cond_tm, packed, xs, _, _, j, jpk, (p_len, lpad, off, ncp) = _segment()
+    n = len(dils)
+    vl = [gated.valid_lo(dils, i) for i in range(n)]
+    gen = torch.Generator().manual_seed(6)
+    skip = torch.randn(*xs[0].shape[:2], KW["n_skp"], generator=gen)
+    got = gated.gated_stack_fused_reference(
+        xs[0], cond_tm, skip.clone(), packed, dils=dils, r0=vl[0], save_y=save_y,
+        save_mids=save_mids)
+    want = gp.gated_stack_fused(
+        _jx(xs[0], lpad + off).astype(jnp.bfloat16), j["cond"], _jx(skip, off),
+        tuple(jpk), dils=dils, t_min=(off + vl[0]) // TILE, tile=TILE,
+        interpret=True, save_y=save_y, save_mids=save_mids)
+    assert len(got[1]) == len(want[1]) == (n - 1 if save_mids else 0)
+    assert len(got[2]) == len(want[2]) == (n if save_y and save_mids else 0)
+    errs = [_cmp_rows(got[0], want[0], vl[-1], off)]
+    errs += [_cmp_rows(g, w, vl[i], lpad + off)
+             for i, (g, w) in enumerate(zip(got[1], want[1]))]
+    errs += [_cmp_rows(g, w, vl[i], off) for i, (g, w) in enumerate(zip(got[2], want[2]))]
+    assert max(errs) < SEG_TOL, errs
+    for t in (*got[1], *got[2]):
+        assert not t[:, : vl[0]].any()  # rows below r0 hold zeros
+
+
+def _group_args(dils, xs, ys, packed, cot, i, k):
+    """Layers [i, k) of the stack as one group: the plain version's keywords."""
+    n, p = len(dils), xs[0].shape[1]
+    return dict(dds=tuple(dils[i:k]), prev_dd=dils[k] if k < n else 0,
+                valid_los=tuple(gated.valid_lo(dils, m) for m in range(i, k)),
+                cur_valid_lo=gated.valid_lo(dils, k) if k < n else p)
+
+
+@pytest.mark.parametrize("i,k", [(2, 5), (1, 4), (0, 5), (0, 4)])
+def test_plain_group_bwd_matches_pallas(i, k):
+    """Groups of 3, 4 and 5 layers, at the top of the stack (prev_dd = 0,
+    no upstream) and below it: the three streams on the valid rows and all
+    4G weight gradients."""
+    dils, cond_tm, packed, xs, ys, cot, j, jpk, (p_len, lpad, off, ncp) = _segment()
+    kw = _group_args(dils, xs, ys, packed, cot, i, k)
+    c = {n: v.clone() for n, v in cot.items()}
+    got = gated.gated_group_bwd_reference(
+        tuple(xs[i:k]), cond_tm, c["gxcur"], c["gxprev"], c["gskip"], c["gcond"],
+        tuple(packed[i:k]), tuple(ys[i:k]), **kw)
+    top = k == len(dils)
+    want = gp.gated_group_bwd(
+        tuple(_jx(xs[m], lpad + off).astype(jnp.bfloat16) for m in range(i, k)),
+        j["cond"], j["gxcur"], j["gxprev"], j["gskip"], j["gcond"],
+        tuple(jpk[i:k]), tuple(_jx(ys[m], off).astype(jnp.bfloat16)
+                               for m in range(i, k)),
+        dds=kw["dds"], prev_dd=kw["prev_dd"], t_min=(off + kw["valid_los"][0]) // TILE,
+        valid_los=tuple(off + v for v in kw["valid_los"]),
+        cur_valid_lo=p_len if top else off + kw["cur_valid_lo"], tile=TILE,
+        interpret=True)
+    assert len(got) == len(want) == 3 + 4 * (k - i)
+    lo, n_in = kw["valid_los"][0], 2 * KW["n_res"]
+    errs = [_cmp_rows(got[0], want[0], lo, lpad + off),
+            _cmp_rows(got[1], want[1], lo, lpad + off),
+            _cmp_rows(got[2], want[2], 0, off)]
+    errs += [_cmp_dw(got[3 + 4 * m : 7 + 4 * m], want[3 + 4 * m : 7 + 4 * m], n_in, ncp)
+             for m in range(k - i)]
+    assert max(errs) < SEG_TOL, errs
+
+
+@pytest.mark.parametrize("i", [3, 1])
+def test_plain_group_bwd_of_two_equals_the_pair_bwd(i):
+    """G = 2 is the pair backward, bit for bit (at the top and below it)."""
+    dils, cond_tm, packed, xs, ys, cot, *_ = _segment()
+    kw = _group_args(dils, xs, ys, packed, cot, i, i + 2)
+    a, b = ({n: v.clone() for n, v in cot.items()} for _ in range(2))
+    got = gated.gated_group_bwd_reference(
+        tuple(xs[i : i + 2]), cond_tm, a["gxcur"], a["gxprev"], a["gskip"],
+        a["gcond"], tuple(packed[i : i + 2]), tuple(ys[i : i + 2]), **kw)
+    want = gated.gated_pair_bwd_reference(
+        xs[i], xs[i + 1], cond_tm, b["gxcur"], b["gxprev"], b["gskip"], b["gcond"],
+        packed[i], packed[i + 1], ys[i], ys[i + 1], dd1=dils[i], dd2=dils[i + 1],
+        prev_dd=kw["prev_dd"], valid_lo1=kw["valid_los"][0],
+        valid_lo2=kw["valid_los"][1], cur_valid_lo=kw["cur_valid_lo"])
+    assert len(got) == len(want) == 11
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("full_fusion,bwd_group,save_y", FUSED)
+def test_fused_schedules_forward_matches_pallas(full_fusion, bwd_group, save_y):
+    params, port, ids, cond, spk, _ = _setup()
+    want = gp.stack_apply(params, JCFG, ids, cond, spk, tile=TILE, interpret=True,
+                          save_y=save_y, full_fusion=full_fusion, bwd_group=bwd_group)
+    before = gated.gated_stack_fused_reference.launches
+    with torch.no_grad():
+        got = gated.stack_apply(port, TCFG, _t(ids, True), _t(cond), _t(spk, True),
+                                save_y=save_y, full_fusion=full_fusion,
+                                bwd_group=bwd_group)
+    assert gated.gated_stack_fused_reference.launches == before + int(full_fusion)
+    assert got.shape == want.shape
+    d = np.abs(got.float().numpy() - np.asarray(want, np.float32)).max()
+    assert d < 0.05, d
+
+
+@pytest.mark.parametrize("full_fusion,bwd_group,save_y", FUSED)
+def test_fused_schedules_grads_match_xla(full_fusion, bwd_group, save_y):
+    """Gradients through the whole-stack forward and the grouped backward
+    (groups of 3 with a pair left over, of 4 with one layer left over, of 8
+    = the whole stack) against XLA's bf16 stack."""
+    _, port, ids, cond, spk, probe = _setup()
+    ref = _jax_grads()["bf16"]
+    port.zero_grad(set_to_none=True)
+    c = _t(cond).clone().requires_grad_(True)
+    before = gated.gated_group_bwd_reference.launches
+    out = gated.stack_apply(port, TCFG, _t(ids, True), c, _t(spk, True),
+                            save_y=save_y, full_fusion=full_fusion,
+                            bwd_group=bwd_group)
+    (out.float() * _t(probe)).mean().backward()
+    assert (gated.gated_group_bwd_reference.launches > before) == (bwd_group >= 3)
+    mine = {"p." + k: p.grad.numpy() for k, p in port.named_parameters()
+            if p.grad is not None}
+    mine["c"] = c.grad.numpy()
+    keys = sorted(ref)
+    assert set(mine) <= set(keys)
+    fp = np.concatenate([np.ravel(mine[k]) if k in mine else np.zeros(ref[k].size)
+                         for k in keys])
+    fx = np.concatenate([np.ravel(ref[k]) for k in keys])
+    assert np.isfinite(fp).all()
+    assert np.abs(fp - fx).max() / np.abs(fx).max() < GRAD_REL_TOL
+
+
+@pytest.mark.parametrize("n_layers,group,want", [
+    (20, 5, [(0, 1, 2, 3, 4), (5, 6, 7, 8, 9), (10, 11, 12, 13, 14),
+             (15, 16, 17, 18, 19)]),
+    (8, 3, [(0, 1, 2), (3, 4, 5), (6, 7)]),
+    (5, 4, [(0, 1, 2, 3), (4,)]),
+    (5, 3, [(0, 1, 2), (3, 4)]),
+])
+def test_bwd_segments_of_the_grouped_schedule(n_layers, group, want):
+    """Greedy runs of up to ``group`` layers; a run of 2 is a pair whatever
+    fuse_pairs says, a run of 1 a single layer; the forward is one segment
+    with full fusion; without saved y one layer per segment."""
+    dils = tuple(2 ** (i % 10) for i in range(n_layers))
+    for pairs in (True, False):
+        s = gated.Schedule(dils, True, pairs, gated.PLAIN, True, group)
+        assert s.bwd_segments() == want
+        assert s.fwd_segments() == [tuple(range(n_layers))]
+    s = gated.Schedule(dils, False, True, gated.PLAIN, True, group)
+    assert s.bwd_segments() == [(i,) for i in range(n_layers)]
+    s = gated.Schedule(dils, True, True, gated.PLAIN, True, 2)  # below 3: pairs
+    assert s.bwd_segments() == gated.Schedule(dils, True, True, gated.PLAIN).fwd_segments()
+
+
+def test_stack_forward_then_pair_backward_equals_the_pair_path():
+    """The whole-stack forward leaves values on rows [vl_0, vl_i) of mid_i
+    and y_i where the pair path leaves zeros; the pair backward masks them,
+    so its gradients equal the pair path's within bf16 reduction order."""
+    _, port, ids, cond, spk, probe = _setup()
+    pr = _t(np.transpose(probe, (0, 2, 1)).copy())
+    args = (port, TCFG, _t(ids, True), _t(cond), _t(spk, True), pr, gated.PLAIN)
+    lg_a, g_a = gated_check.stack_run(*args, True, True, full_fusion=True)
+    lg_b, g_b = gated_check.stack_run(*args, True, True)
+    lg, rel = gated_check.stack_errors(lg_a, g_a, lg_b, g_b)
+    assert lg < 1e-2 and rel < 1e-2, (lg, rel)

@@ -138,7 +138,7 @@ def test_cli_quantized_flags_select_the_sampler(tmp_path, monkeypatch, flags, mo
     port_cfg = tcfg.from_json(jcfg.to_json(dataclasses.replace(
         cfg, bottleneck=dataclasses.replace(cfg.bottleneck, vq_use_pallas=True))))
     ckpt, data, out = (str(tmp_path / n) for n in ("port.pt", "synth", "out.wav"))
-    weights.save_export(ckpt, tae.init(port_cfg, torch.Generator().manual_seed(3)),
+    weights.save_export(ckpt, tae.init(port_cfg, torch.Generator().manual_seed(3), "cpu"),
                         port_cfg, 0)
     make_synthetic_dataset(data, n_clips=1, n_speakers=1, clip_len=(7000, 7500))
     seen, check = set(), tfc._check_mode
@@ -163,7 +163,7 @@ def test_port_export_imports_into_jax(tmp_path):
     the reference's tree, and load_export returns them to the port."""
     cfg = _cfg()
     port_cfg = tcfg.from_json(jcfg.to_json(cfg))
-    model = tae.init(port_cfg, torch.Generator().manual_seed(3))
+    model = tae.init(port_cfg, torch.Generator().manual_seed(3), "cpu")
     path = str(tmp_path / "port.pt")
     weights.save_export(path, model, port_cfg, 11)
     ref_params, ref_bn = _jax_model(cfg)

@@ -42,6 +42,7 @@ from ae_wavenet_tpu_torch.models import bottlenecks as tbn
 from ae_wavenet_tpu_torch.models import encoder as tenc
 from ae_wavenet_tpu_torch.ops import gated
 from ae_wavenet_tpu_torch.training import chassis as tch
+from ae_wavenet_tpu_torch.training import checkpoint as tckpt
 from ae_wavenet_tpu_torch.training import weights
 from ae_wavenet_tpu_torch.utils import config as tcfg
 
@@ -97,14 +98,65 @@ def test_train_cli_new_then_resume_through_fused_stack(data_prefix, tmp_path, ca
 
 @pytest.mark.parametrize("flag", [["--gated-full-fusion"], ["--gated-bwd-group", "3"],
                                   ["--vq-use-pallas"], ["--ckpt-keep", "3"]])
-def test_cli_refuses_unported_kernels(data_prefix, flag):
+def test_cli_refuses_unported_kernels(data_prefix, flag, tmp_path, capsys):
+    """Every flag this test once saw refused is ported since: it reaches the
+    config, and the two schedule flags and retention run."""
     argv = ["new", "--preset", "chorowski", "--pallas-stack", "--data", data_prefix,
             "--device", "cpu", *flag]
-    if flag == ["--vq-use-pallas"]:  # ported since: the flag reaches the config
-        assert ttrain.setup(argv)[1].bottleneck.vq_use_pallas is True
+    cfg = ttrain.setup(argv)[1]
+    if flag == ["--vq-use-pallas"]:
+        assert cfg.bottleneck.vq_use_pallas is True
         return
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ttrain.setup(argv)
+    assert (cfg.wavenet.gated_full_fusion, cfg.wavenet.gated_bwd_group,
+            cfg.train.ckpt_keep) == (flag[0] == "--gated-full-fusion",
+                                     3 if flag[0] == "--gated-bwd-group" else 0,
+                                     3 if flag[0] == "--ckpt-keep" else 0)
+    common = ["--data", data_prefix, "--ckpt-dir", str(tmp_path), "--device", "cpu",
+              "--log-every", "1"]
+    if flag[0] == "--ckpt-keep":  # retention: the newest N and LATEST's stay
+        assert ttrain.main(["new", "--preset", "tiny", "--n-steps", "8",
+                            "--ckpt-every", "1", *flag, *common]) == 0
+        assert tckpt.complete_steps(str(tmp_path)) == {6, 7, 8}
+        assert tckpt.latest_step(str(tmp_path)) == 8
+        return
+    plain = {"--gated-full-fusion": gated.gated_stack_fused_reference,
+             "--gated-bwd-group": gated.gated_group_bwd_reference}[flag[0]]
+    before = plain.launches
+    assert ttrain.main(["new", "--preset", "tiny", "--pallas-stack", "--compute-dtype",
+                        "bfloat16", "--n-block-layers", "5", "--gated-full-fusion",
+                        "--gated-bwd-group", "3", "--n-steps", "3", *common]) == 0
+    assert ttrain.main(["resume", "--n-steps", "2", *common]) == 0
+    recs = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith('{"step"')]
+    assert [r["step"] for r in recs] == [1, 2, 3, 4, 5]
+    assert all(np.isfinite(r["recon_ce"]) for r in recs)
+    assert plain.launches == before + 5  # 5 layers: one group of 3 and a pair
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--gated-bwd-group", "3", "--no-gated-save-y"], "gated_bwd_group=3.*gated_save_y"),
+    (["--gated-full-fusion", "--n-blocks", "1", "--n-block-layers", "1"],
+     "gated_full_fusion.*two or more layers"),
+])
+def test_cli_raises_on_a_schedule_that_does_not_apply(data_prefix, flags, match):
+    """The reference warns and falls back to the pair or per-layer schedule
+    (``gated_pallas.py:1350-1361``); the port raises, naming both flags."""
+    with pytest.raises(ValueError, match=match):
+        ttrain.setup(["new", "--preset", "chorowski", "--pallas-stack", "--data",
+                      data_prefix, "--device", "cpu", *flags])
+
+
+def test_library_entry_points_default_to_the_card(data_prefix, monkeypatch):
+    """``Chassis(cfg, data)`` and ``autoencoder.init(cfg)`` with no device run
+    on the card, and say so clearly when there is none."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = _port_cfg(jcfg.tiny_config())
+    with pytest.raises(RuntimeError, match="no CUDA device is available"):
+        tch.Chassis(cfg, data_prefix, log_stream=io.StringIO())
+    with pytest.raises(RuntimeError, match="no CUDA device is available"):
+        tae.init(cfg)
+    model = tae.init(cfg, device="cpu")
+    assert next(model.parameters()).device.type == "cpu"
 
 
 def test_train_cli_with_the_fused_vq_lookup(data_prefix, tmp_path, capsys):
@@ -131,7 +183,7 @@ def test_train_cli_with_the_fused_vq_lookup(data_prefix, tmp_path, capsys):
     assert abs(fused[0]["loss"] - plain[0]["loss"]) < 1e-4
     assert all(np.isfinite(r["recon_ce"]) and np.isfinite(r["perplexity"])
                for r in fused)
-    cfg = weights.load_named(tch.checkpoint_path(str(tmp_path / "fused"), 3))[2]
+    cfg = tckpt.load_config(str(tmp_path / "fused"), 3)[1]
     assert cfg.bottleneck.vq_use_pallas is True
 
 
@@ -345,11 +397,13 @@ def test_resume_reproduces_the_stream(data_prefix, tmp_path):
     """As tests/test_train_e2e.py:59: 4 steps, save, 4 more; a fresh chassis
     resumed from the save runs the same 4 steps."""
     cfg = _port_cfg(_tiny_run(n_steps=8, log_every=1))
-    a = tch.Chassis(cfg, data_prefix, ckpt_dir=str(tmp_path), log_stream=io.StringIO())
+    a = tch.Chassis(cfg, data_prefix, ckpt_dir=str(tmp_path), device="cpu",
+                    log_stream=io.StringIO())
     a.train(4)
     a.save()
     hist_a = a.train(4)
-    b = tch.Chassis(cfg, data_prefix, ckpt_dir=str(tmp_path), log_stream=io.StringIO())
+    b = tch.Chassis(cfg, data_prefix, ckpt_dir=str(tmp_path), device="cpu",
+                    log_stream=io.StringIO())
     assert b.resume(4) == 4
     hist_b = b.train(4)
     np.testing.assert_allclose([h["recon_ce"] for h in hist_b],
@@ -361,10 +415,12 @@ def test_chassis_holdout_ckpt_every_and_sigterm(data_prefix, tmp_path):
     SIGTERM during training that saves, stops and resumes."""
     cfg = _port_cfg(_tiny_run(n_steps=500, log_every=1, ckpt_every=2,
                               holdout_every=4))
-    ch = tch.Chassis(cfg, data_prefix, ckpt_dir=str(tmp_path), log_stream=io.StringIO())
+    ch = tch.Chassis(cfg, data_prefix, ckpt_dir=str(tmp_path), device="cpu",
+                    log_stream=io.StringIO())
     assert set(ch.sampler.eligible) <= {1, 2, 3, 5, 6, 7}
     ch.train(4)
-    assert sorted(os.listdir(tmp_path)) == ["step_00000002.pt", "step_00000004.pt"]
+    assert sorted(os.listdir(tmp_path)) == ["LATEST", "step_00000002.pt",
+                                            "step_00000004.pt"]
     ev = ch.evaluate(n_batches=2)
     assert ev["split"] == "holdout" and np.isfinite(ev["recon_ce"])
     draw = ch.sampler.batch_at
@@ -380,7 +436,7 @@ def test_chassis_holdout_ckpt_every_and_sigterm(data_prefix, tmp_path):
     ch.train(496)
     assert ch.preempted and 4 < ch.step < 500
     assert "preempted_at" in log.getvalue()
-    again = tch.Chassis(cfg, data_prefix, ckpt_dir=str(tmp_path),
+    again = tch.Chassis(cfg, data_prefix, ckpt_dir=str(tmp_path), device="cpu",
                         log_stream=io.StringIO())
     assert again.resume() == ch.step
 
@@ -393,11 +449,11 @@ def test_jax_checkpoint_resumes_in_port_and_back(data_prefix, tmp_path):
     ja = jch.Chassis(cfg, data_prefix, log_stream=io.StringIO())
     ja.train(3)
     tree = {"params": ja.params, "opt_state": ja.opt_state, "bn_state": ja.bn_state}
-    torch_compat.export_torch(tch.checkpoint_path(str(tmp_path), 3), 3, tree, cfg)
+    torch_compat.export_torch(tckpt.checkpoint_path(str(tmp_path), 3), 3, tree, cfg)
     want = [h["recon_ce"] for h in ja.train(2)]
     ja.close()
     port = tch.Chassis(_port_cfg(cfg), data_prefix, ckpt_dir=str(tmp_path),
-                       log_stream=io.StringIO())
+                       device="cpu", log_stream=io.StringIO())
     assert port.resume() == 3 and port.opt.count == 3
     got = [h["recon_ce"] for h in port.train(2)]
     np.testing.assert_allclose(got, want, atol=1e-3)

@@ -143,3 +143,14 @@ def test_gradient_flows_straight_through_the_fused_lookup():
     (zq.sum() + aux["bn_loss"]).backward()
     assert z.grad is not None and bool(torch.isfinite(z.grad).all())
     assert float(z.grad.abs().sum()) > 0
+
+
+def test_lookup_without_stats_returns_the_same_codes_and_rows():
+    """A caller that drops the EMA counts and sums (``codes``, ``forward``)
+    gets the same codes and rows, and None for the two it does not read."""
+    gen = torch.Generator().manual_seed(3)
+    z, e = torch.randn(50, 6, generator=gen), torch.randn(9, 6, generator=gen)
+    full = vq_cuda.vq_lookup_fused(z, e)
+    lean = vq_cuda.vq_lookup_fused(z, e, stats=False)
+    assert torch.equal(full[0], lean[0]) and torch.equal(full[1], lean[1])
+    assert lean[2] is None and lean[3] is None
