@@ -4,30 +4,27 @@
 // with ctypes (see ops/gated_cuda.py).
 //
 // Replaces the TPU kernels of ae_wavenet_tpu/ops/gated_pallas.py:
-//   gated_layer_fused (K1b) and gated_pair_fused (K1)  -> gated_fwd_kernel<1|2>
-//   gated_layer_bwd (K2b, saved-y and recompute modes) and
-//   gated_pair_bwd (K2)                                -> gated_bwd_kernel<1|2>
-//                                                         + gated_dw_kernel
+//   gated_layer_fused (K1b) and gated_pair_fused (K1)  -> wg_fwd_kernel<1|2>
+//   gated_layer_bwd (K2b) and gated_pair_bwd (K2)      -> wg_bwd_kernel<1|2>
+//                                                         + wg_dw_kernel
+//     (K2b's recompute mode, no saved y: gated_bwd_recompute_kernel)
 //   gated_stack_fused (K7, every layer in one launch)  -> gated_stack_kernel
 //   gated_group_bwd (K8, G >= 3 layers in one launch)  -> gated_group_kernel
-//                                                         + gated_dw_kernel
+//                                                         + wg_dw_kernel
 // The contract (rounding points and masks) is written out at the top of
 // ops/gated.py, which also holds the plain PyTorch version of each.
 //
 // Layout: time-major [B, P, C] bf16 streams (f32 skip / gcond), P = t_in
-// rows, layer i valid from row vl_i.  Weights come zero-padded to 16-column
-// multiples (Rp, Cp, Dp, Sp) so every WMMA tile is whole:
+// rows, layer i valid from row vl_i.
+//
+// Two tile cores.  The Hopper core (wgmma fed by TMA, "Hopper core" below)
+// runs K1, K1b, K2, K2b with saved y and every weight-gradient product; it
+// reads the weights unpadded.  The first core (WMMA fragments from L2, one
+// 8-warp block per SM) still runs K7, K8's data-gradient tiles and K2b's
+// recompute mode, on weights zero-padded to 16-column multiples (Rp, Cp,
+// Dp, Sp):
 //   win  [2Rp + Cp][2Dp]  rows prev | cur | cond, cols f | g
 //   wout [Dp][Rp + Sp]    cols res | skip
-//
-// What bounds it on this card.  At the flagship width a layer is two
-// products per row, 928 x 512 and 256 x 640 (about 1.3 MFLOP per row, per
-// direction), at roughly 1 FLOP per byte of the weights if they were
-// re-read per row.  So the work is tensor-core bound as long as the weights
-// are reused across many rows: a block takes 64 rows, keeps their xin
-// (120 KB) and h in shared memory and streams the weights through WMMA
-// fragments from L2 (1.3 MB per layer, resident in the 50 MB L2), so each
-// weight byte is read once per 64 rows.
 //
 // What the design does about the TPU schedule.  The Pallas grid walks the
 // time tiles of a batch row in order and carries state between them (the
@@ -40,16 +37,17 @@
 //     needs from the neighbouring chunk are recomputed as a halo at the
 //     chunk's start (forward: layer 1 on the dd2 rows below, into a
 //     per-block scratch; backward: layer 2 on the dd2 rows above, which
-//     only yields its prev-tap cotangent);
+//     only yields its prev-tap cotangent); the chunks are sized so that all
+//     blocks are resident at once (one wave), which keeps the halo at
+//     dd2 / chunk of a layer;
 //   * inside a chunk the carried rows go through global memory that the
 //     block itself wrote (mid, and the f32 cotangent between the two
-//     layers of a pair), ordered by __syncthreads;
+//     layers of a pair), ordered by a barrier of the block's threads;
 //   * the weight gradients are long-K products over every row of every
 //     batch row: the backward writes g_y, h and g_out (bf16), and
-//     gated_dw_kernel computes xin^T g_y and h^T g_out with split-K
-//     partials in f32, reduced in a fixed order by gated_reduce_kernel
-//     (deterministic); gated_colsum_kernel sums g_y and g_out over the
-//     rows for the bias gradients the same way;
+//     wg_dw_kernel computes xin^T g_y and h^T g_out, and the column sums of
+//     g_y and g_out for the bias gradients, with split-K partials in f32,
+//     reduced in a fixed order by gated_reduce_kernel (deterministic);
 //   * the whole-stack forward and the grouped backward carry rows across
 //     chunks for many layers (the sum of the dilations, up to 2,045 rows),
 //     which a recomputed halo would pay for with more work than the layers
@@ -66,6 +64,7 @@
 //     prev-tap cotangents, written at row g - dd, used in turn.  A barrier
 //     that is not met within seconds traps.
 
+#include <cuda.h>  // CUtensorMap; the encoder comes from the runtime's driver entry point
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -162,10 +161,7 @@ struct FwdLayer {
 
 struct FwdP {
   Dims d;
-  const bf16* x; const bf16* cond; float* skip;
-  bf16* mid; bf16* xout; bf16* halo;
-  FwdLayer L[2];
-  int r0, chunk;
+  float* skip;
 };
 
 // One layer on the tile whose xin is in shared memory.  The new residual
@@ -269,58 +265,6 @@ __device__ void fwd_layer_tile(const FwdP& p, const FwdLayer& L, int b, int t0,
     }
   }
   __syncthreads();
-}
-
-template <int NL>
-__global__ void __launch_bounds__(NTHR) gated_fwd_kernel(FwdP p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Dims& d = p.d;
-  bf16* xs = reinterpret_cast<bf16*>(smem);
-  bf16* hs = xs + TM * (d.kp() + SKEW);
-  float* stage = reinterpret_cast<float*>(hs + TM * (d.Dp + SKEW));
-  const int b = blockIdx.y;
-  const int blk = blockIdx.y * gridDim.x + blockIdx.x;
-  const int c0 = p.r0 + blockIdx.x * p.chunk;
-  const int c1 = min(c0 + p.chunk, d.P);
-  if (c0 >= c1) return;
-  const bf16* xb = p.x + (size_t)b * d.P * d.R;
-  const int dd1 = p.L[0].dd, dd2 = p.L[1].dd;
-  auto prev1 = [&](int g) -> const bf16* {
-    return g - dd1 >= 0 ? xb + (size_t)(g - dd1) * d.R : nullptr;
-  };
-  auto cur1 = [&](int g) -> const bf16* { return xb + (size_t)g * d.R; };
-  bf16* hal = p.halo + (size_t)blk * dd2 * d.R;  // rows [c0 - dd2, c0)
-
-  if (NL == 2) {
-    // halo: layer 1 on the rows below the chunk that layer 2's prev tap reads
-    for (int t0 = max(c0 - dd2, p.r0); t0 < c0; t0 += TM) {
-      const int nr = min(TM, c0 - t0);
-      load_xin(xs, d, b, t0, nr, p.cond, true, prev1, cur1, 0);
-      __syncthreads();
-      fwd_layer_tile(p, p.L[0], b, t0, nr, hal, c0 - dd2, true, xs, hs, stage);
-    }
-  }
-  bf16* midb = p.mid + (size_t)b * d.P * d.R;
-  auto prev2 = [&](int g) -> const bf16* {
-    const int s = g - dd2;
-    if (s < p.r0 || s < 0) return nullptr;
-    if (s < c0) return hal + (size_t)(s - (c0 - dd2)) * d.R;
-    return midb + (size_t)s * d.R;
-  };
-  auto cur2 = [&](int g) -> const bf16* { return midb + (size_t)g * d.R; };
-  bf16* outb = (NL == 2 ? p.mid : p.xout) + (size_t)b * d.P * d.R;
-  for (int t0 = c0; t0 < c1; t0 += TM) {
-    const int nr = min(TM, c1 - t0);
-    load_xin(xs, d, b, t0, nr, p.cond, true, prev1, cur1, 0);
-    __syncthreads();
-    fwd_layer_tile(p, p.L[0], b, t0, nr, outb, 0, false, xs, hs, stage);
-    if (NL == 2) {
-      load_xin(xs, d, b, t0, nr, p.cond, false, prev2, cur2, 0);
-      __syncthreads();
-      fwd_layer_tile(p, p.L[1], b, t0, nr, p.xout + (size_t)b * d.P * d.R, 0,
-                     false, xs, hs, stage);
-    }
-  }
 }
 
 // ------------------------------------------------------------ backward
@@ -589,8 +533,9 @@ __device__ void bwd_layer_tile(const BwdP& p, int mode, int b, int t0, int nr,
   __syncthreads();
 }
 
-template <int NL>
-__global__ void __launch_bounds__(NTHR) gated_bwd_kernel(BwdP p) {
+// K2b's recompute mode (no saved y) on the first core: one layer,
+// descending tiles over the block's chunk.
+__global__ void __launch_bounds__(NTHR) gated_bwd_recompute_kernel(BwdP p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Dims& d = p.d;
   const int ldx = d.kp() + SKEW, ldo = d.rsp() + SKEW, ldy = 2 * d.Dp + SKEW;
@@ -600,22 +545,9 @@ __global__ void __launch_bounds__(NTHR) gated_bwd_kernel(BwdP p) {
   const int c0 = p.r0 + blockIdx.x * p.chunk;
   const int c1 = min(c0 + p.chunk, d.P);
   if (c0 >= c1) return;
-  if (NL == 2) {
-    // halo: layer 2 on the rows above the chunk, for its prev-tap
-    // cotangent into the chunk's top rows
-    const int hi = min(c1 + p.L[1].dd, d.P);
-    for (int t0 = c1; t0 < hi; t0 += TM)
-      bwd_layer_tile(p, HALO, b, t0, min(TM, hi - t0), c0, smem, stage);
-  }
-  const int nt = (c1 - c0 + TM - 1) / TM;
-  for (int k = nt - 1; k >= 0; --k) {  // descending tiles
-    const int t0 = c0 + k * TM, nr = min(TM, c1 - t0);
-    if (NL == 2) {
-      bwd_layer_tile(p, UPPER, b, t0, nr, c0, smem, stage);
-      bwd_layer_tile(p, LOWER, b, t0, nr, c0, smem, stage);
-    } else {
-      bwd_layer_tile(p, SINGLE, b, t0, nr, c0, smem, stage);
-    }
+  for (int k = (c1 - c0 + TM - 1) / TM - 1; k >= 0; --k) {  // descending tiles
+    const int t0 = c0 + k * TM;
+    bwd_layer_tile(p, SINGLE, b, t0, min(TM, c1 - t0), c0, smem, stage);
   }
 }
 
@@ -785,142 +717,1017 @@ int launch_resident(void (*kernel)(P), P& p, int n_tiles, int smem,
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-// ------------------------------------------------------ weight gradients
+// ============================================================ Hopper core
+//
+// K1 (pair forward), K1b (one layer forward), K2 and K2b with saved y (pair
+// and one layer backward) and the weight-gradient products of K2, K2b and
+// K8 run here: wgmma fed by TMA, in blocks of three warpgroups.
+//
+// What bounds it.  A 64-row tile of one layer is 64 x 1.28 MFLOP against
+// 1.28 MB of weights (chorowski), so the weights are re-read from L2 once
+// per 64 rows of every layer: about 64 bytes per SM per cycle at the
+// tensor cores' peak.  The tile core keeps the activations of the tile in
+// shared memory and streams only the weights, in K-slabs of 32 KB, through
+// a ring that one producer thread keeps full with TMA while two consumer
+// warpgroups run wgmma on the slabs that have arrived.
+//
+// Layout of a tile.  Activations sit in shared memory as K-major tiles of
+// 64 rows x 64 columns (8 KB, the 128-byte swizzle of wgmma's canonical
+// layout: the 16-byte group c of row r at group c ^ (r % 8)), one run of
+// such atoms per part: xin = [prev | cur | cond], each part zero-padded to
+// a multiple of 64 columns, so a width that is any multiple of 8 works and
+// nothing is padded in the model.  The weights are read unpadded: TMA fills
+// what lies beyond a tensor's edge with zeros.
+//
+// Forward (per layer and tile):
+//   y = xin @ w_in: warpgroup w takes gate channels [128 c, 128 c + 128)
+//     for c = w, w + 2, ...: one m64n256 accumulator, f in its first 128
+//     columns, g in its last 128 (four TMA boxes of 64 channels: f lo, f hi,
+//     g lo, g hi), so the gate is thread-local; w_in is [K][N] with N
+//     contiguous, read as wgmma's MN-major (transposed) B;
+//   the gate, the saved y and h are computed from the accumulator
+//     registers; h goes to shared memory in the K-major layout (over the
+//     prev part of xin, which y no longer needs, when it fits);
+//   out = h @ w_out: columns [res | skip] in chunks of 128 (m64n128), the
+//     residual add and the f32 skip accumulation from the registers.
+// Backward (per layer and tile):
+//   g_out = bf16([gxn | gskip]) built in shared memory (and written for
+//     dW_out); g_h = g_out @ w_out^T: w_out [D][R + S] is K-major as B =
+//     w_out^T, so the same tensor is read through wgmma's other operand
+//     layout; no transposed copy;
+//   g_y from the registers into shared memory (over g_out) and to global
+//     memory for dW_in; g_xin = g_y @ w_in^T (w_in again K-major as B),
+//     scattered into prev / cur / cond from the registers.
+// Weight gradients: part[s] = A^T G over split s's rows, A = xin (gathered
+// by TMA from x at two row offsets and cond) or h, G = g_y or g_out; both
+// come in by TMA and feed wgmma as MN-major operands (128 x 256 output
+// tiles); the blocks of the first output-row tile also sum G's columns
+// from the same shared-memory slabs (the bias gradients), so no second pass
+// reads G.  The split partials are reduced in a fixed order
+// (gated_reduce_kernel): two launches give the same bits.
 
-constexpr int DW_BM = 128, DW_BN = 128, DW_BK = 32, DW_LD = DW_BN + SKEW;
+constexpr int WG_THREADS = 384;  // two consumer warpgroups, one producer warpgroup
+constexpr int CONSUMERS = 256;
+constexpr int ATOM = 8192;       // 64 rows x 64 bf16, 128-byte swizzle
+constexpr int SLAB = 32768;      // one ring stage
+constexpr int HALF = 16384;      // one consumer warpgroup's share of a stage
+constexpr int MAX_STAGES = 4;
+constexpr int SMEM_CAP = 232448;
+constexpr int DW_SLAB = 49152;   // A 2 x 8 KB + G 4 x 8 KB
+constexpr int BAR_BYTES = 2 * MAX_STAGES * 8;
 
-struct DwP {
-  int B, P, lo;     // rows [lo, P) of every batch row
-  int kind;         // 0: A = xin gathered from x (dd) and cond; 1: A = a
-  const bf16* x; const bf16* cond; int dd, R, C;
-  const bf16* a; int ka;
-  const bf16* g; int N;
-  int M;            // A's columns (2R + C, or ka)
-  float* part; long long rows_per;
+struct WgDims {
+  int B, P, R, C, D, S;
+  int Ra, Ca, Da, Oa, Ya;  // 64-column atoms of n_res, cond, n_dil, n_res + n_skp, 2 n_dil
 };
 
-// Columns m..m+7 of A's row (b, g); the widths are multiples of 8, so no
-// 8-column chunk straddles two of xin's parts.
-__device__ __forceinline__ uint4 dw_a8(const DwP& p, int b, int g, int m) {
-  const size_t rb = (size_t)b * p.P;
-  const uint4 z = make_uint4(0, 0, 0, 0);
-  if (m >= p.M) return z;
-  const bf16* src;
-  if (p.kind == 1) src = p.a + (rb + g) * p.ka + m;
-  else if (m < p.R) {
-    if (g - p.dd < 0) return z;
-    src = p.x + (rb + g - p.dd) * p.R + m;
-  } else if (m < 2 * p.R) src = p.x + (rb + g) * p.R + (m - p.R);
-  else src = p.cond + (rb + g) * p.C + (m - 2 * p.R);
-  return *reinterpret_cast<const uint4*>(src);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// part[s][m][n] = sum over split s's rows of A[row][m] * G[row][n]:
-// 128 x 128 output tiles, 8 warps of 64 x 32, 32 rows per step, the next
-// step's rows prefetched into registers and a second shared buffer.
-__global__ void __launch_bounds__(NTHR) gated_dw_kernel(DwP p) {
-  __shared__ __align__(128) unsigned short sa[2][DW_BK * DW_LD];
-  __shared__ __align__(128) unsigned short sb[2][DW_BK * DW_LD];
-  const int ntn = (p.N + DW_BN - 1) / DW_BN;
-  const int m0 = (blockIdx.x / ntn) * DW_BM, n0 = (blockIdx.x % ntn) * DW_BN;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int nrw = p.P - p.lo;
-  const long long total = (long long)p.B * nrw;
-  const long long rs = (long long)blockIdx.y * p.rows_per;
-  const long long re = min(total, rs + p.rows_per);
-  FragC acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  uint4 ra[2], rb[2];
-  auto fetch = [&](long long r0) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int c = threadIdx.x + j * NTHR, kr = c >> 4, cc = (c & 15) * 8;
-      const long long rho = r0 + kr;
-      ra[j] = rb[j] = make_uint4(0, 0, 0, 0);
-      if (rho < re) {
-        const int b = (int)(rho / nrw), g = p.lo + (int)(rho % nrw);
-        ra[j] = dw_a8(p, b, g, m0 + cc);
-        if (n0 + cc < p.N)
-          rb[j] = *reinterpret_cast<const uint4*>(
-              p.g + ((size_t)b * p.P + g) * p.N + n0 + cc);
-      }
+// ------------------------------------------------ barriers, TMA, wgmma
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+// Waits until the barrier's phase differs from `parity`; traps after
+// several seconds (a protocol fault, not a wait).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  long long t0 = 0;
+  for (int spin = 1;; ++spin) {
+    uint32_t ok;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(ok) : "r"(a), "r"(parity) : "memory");
+    if (ok) return;
+    if ((spin & 1023) == 0) {
+      if (t0 == 0) t0 = clock64();
+      else if (clock64() - t0 > SPIN_LIMIT) __trap();
     }
-  };
-  auto stash = [&](int buf) {
+  }
+}
+__device__ __forceinline__ void tma2(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                     int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)), "l"(map),
+      "r"(smem_u32(bar)), "r"(c0), "r"(c1) : "memory");
+}
+__device__ __forceinline__ void tma3(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                     int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)), "l"(map),
+      "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2) : "memory");
+}
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;" ::: "memory");
+}
+// generic-proxy writes to shared memory -> visible to wgmma
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accumulator accesses across a wait
+template <int N>
+__device__ __forceinline__ void acc_fence(float* a) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int c = threadIdx.x + j * NTHR, kr = c >> 4, cc = (c & 15) * 8;
-      *reinterpret_cast<uint4*>(&sa[buf][kr * DW_LD + cc]) = ra[j];
-      *reinterpret_cast<uint4*>(&sb[buf][kr * DW_LD + cc]) = rb[j];
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(a[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void acc_zero(float* a) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) a[i] = 0.f;
+}
+
+// Shared-memory matrix descriptors, 128-byte swizzle.  K-major: rows of 128
+// bytes, 8-row groups 1024 bytes apart.  MN-major: 64-element MN atoms
+// `lbo` bytes apart, 8-row K groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t kdesc(uint32_t a) {
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+__device__ __forceinline__ uint64_t mndesc(uint32_t a, uint32_t lbo) {
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// D[64 x 128] += A * B, bf16 in, f32 accumulate; A and B from shared memory
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n128(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// D[64 x 256] += A * B, bf16 in, f32 accumulate; A and B from shared memory
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n256(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+
+// The gate's tanh and sigmoid in the epilogues, from the hardware exp2 and
+// reciprocal (a few instructions each, against tens for tanhf and an IEEE
+// division): within a few f32 ulps of tanhf / expf, far below the bf16
+// rounding that follows, and short enough that the fully unrolled
+// epilogues stay small.
+__device__ __forceinline__ float fsigm(float v) { return __fdividef(1.f, 1.f + __expf(-v)); }
+__device__ __forceinline__ float ftanh(float v) {
+  return 1.f - __fdividef(2.f, __expf(2.f * v) + 1.f);
+}
+
+// byte offset of (row, col) in a run of K-major atoms
+__device__ __forceinline__ int swz(int row, int col) {
+  return (col >> 6) * ATOM + row * 128 + ((((col & 63) >> 3) ^ (row & 7)) << 4) +
+         (col & 7) * 2;
+}
+__device__ __forceinline__ uint32_t pack2(float a, float b) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+__device__ __forceinline__ void st2(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack2(a, b);
+}
+__device__ __forceinline__ void ld2(const bf16* p, float& a, float& b) {
+  __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(p);
+  a = __low2float(h);
+  b = __high2float(h);
+}
+__device__ __forceinline__ uint4 pack8(const float* v) {
+  uint4 u;
+  u.x = pack2(v[0], v[1]); u.y = pack2(v[2], v[3]);
+  u.z = pack2(v[4], v[5]); u.w = pack2(v[6], v[7]);
+  return u;
+}
+
+// The ring: stage index and phase, advanced in the same order by the
+// producer and by every consumer thread.
+struct Pipe {
+  int st, n;
+  uint32_t ph;
+  __device__ void next() {
+    if (++st == n) { st = 0; ph ^= 1; }
+  }
+};
+
+__device__ __forceinline__ void release(uint64_t* empty, int st) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(empty + st);  // 8 consumer warps
+}
+
+// One warpgroup's pass over `ns` slabs of the ring: issue(stage, j) runs
+// the wgmma of slab j (active warpgroups only), and the slab goes back to
+// the producer as soon as those products are done: with the activation
+// tile resident beside the ring, few stages fit, and a slab held through
+// the next one's products would leave one fewer in flight (slower on the
+// H100, forward and backward).  Both warpgroups walk every slab.
+template <typename Issue>
+__device__ __forceinline__ void mma_slabs(int ns, bool act, Pipe& pp, uint64_t* full,
+                                          uint64_t* empty, unsigned char* ring,
+                                          Issue issue) {
+  for (int j = 0; j < ns; ++j) {
+    mbar_wait(full + pp.st, pp.ph);
+    if (act) {
+      wg_fence();
+      issue(smem_u32(ring + pp.st * SLAB), j);
+      wg_commit();
+      wg_wait<0>();
     }
-  };
-  fetch(rs);
-  stash(0);
+    release(empty, pp.st);
+    pp.next();
+  }
+}
+
+__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty, int n) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < n; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
   __syncthreads();
-  int buf = 0;
-  for (long long r0 = rs; r0 < re; r0 += DW_BK) {
-    const bool more = r0 + DW_BK < re;
-    if (more) fetch(r0 + DW_BK);
-    const bf16* A = reinterpret_cast<const bf16*>(sa[buf]);
-    const bf16* G = reinterpret_cast<const bf16*>(sb[buf]);
-#pragma unroll
-    for (int kk = 0; kk < DW_BK; kk += 16) {
-      FragAc a[4];  // A^T[m][k] = A[k][m]
-      FragB bg[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(a[i], A + kk * DW_LD + wm * 64 + i * 16, DW_LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(bg[j], G + kk * DW_LD + wn * 32 + j * 16, DW_LD);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], bg[j], acc[i][j]);
-    }
-    if (more) stash(buf ^ 1);
-    __syncthreads();
-    buf ^= 1;
-  }
-  float* st = reinterpret_cast<float*>(sa) + warp * 256;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int m = m0 + wm * 64 + i * 16 + e / 16;
-        const int n = n0 + wn * 32 + j * 16 + e % 16;
-        if (m < p.M && n < p.N)
-          p.part[((size_t)blockIdx.y * p.M + m) * p.N + n] = st[e];
-      }
-      __syncwarp();
-    }
 }
 
-// part[s][n] = sum over split s's rows of G[row][n] (the bias gradients)
-__global__ void gated_colsum_kernel(const bf16* g, int P, int lo, int N,
-                                    long long total, long long rows_per,
-                                    float* part) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  const int nrw = P - lo;
-  const long long rs = (long long)blockIdx.y * rows_per;
-  const long long re = min(total, rs + rows_per);
-  float s = 0.f;
-  if (rs < re) {
-    int b = (int)(rs / nrw), r = lo + (int)(rs % nrw);
-    for (long long rho = rs; rho < re; ++rho) {
-      s += __bfloat162float(g[((size_t)b * P + r) * N + n]);
-      if (++r == P) { r = lo; ++b; }
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// Fill the xin tile (rows [t0, t0 + TM), parts prev | cur | cond) from row
+// pointers, as load_xin, with cp.async: every copy in flight at once;
+// rows >= nr, rows below valid_lo and null pointers give zeros (a copy of
+// 0 source bytes), and so do the columns past each part's width.  Only the
+// tap parts are written when with_cond is false.
+template <typename PrevF, typename CurF>
+__device__ void wg_load_xin(unsigned char* xs, const WgDims& d, int b, int t0, int nr,
+                            const bf16* cond, bool with_cond, PrevF prev, CurF cur,
+                            int valid_lo) {
+  const int gr = d.Ra * 8, ng = with_cond ? 2 * gr + d.Ca * 8 : 2 * gr;
+  const uint32_t xa = smem_u32(xs);
+  for (int i = threadIdx.x; i < TM * ng; i += CONSUMERS) {
+    const int row = i / ng, q = i - row * ng, g = t0 + row;
+    const int part = q < gr ? 0 : q < 2 * gr ? 1 : 2;
+    const int col = (q - part * gr) * 8;
+    const bool in = row < nr && g >= valid_lo;
+    const bf16* src = nullptr;
+    if (in) {
+      if (part == 0) {
+        if (col < d.R) { src = prev(g); if (src) src += col; }
+      } else if (part == 1) {
+        if (col < d.R) src = cur(g) + col;
+      } else if (col < d.C) {
+        src = cond + ((size_t)b * d.P + g) * d.C + col;
+      }
+    }
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                     xa + part * d.Ra * ATOM + swz(row, col)),
+                 "l"(src ? src : cond), "r"(src ? 16 : 0) : "memory");
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// ------------------------------------------------------------- forward
+
+struct WgFwdLayer {
+  CUtensorMap win[3];  // prev, cur, cond rows of w_in as [rows][f | g][n_dil]
+  CUtensorMap wout;    // w_out [n_dil][n_res + n_skp]
+  const float* bin; const float* bout;
+  bf16* y;  // [B, P, 2D] or null
+  int dd;
+};
+
+struct WgFwdP {
+  WgFwdLayer L[2];
+  WgDims d;
+  const bf16* x; const bf16* cond; float* skip;
+  bf16* mid; bf16* xout; bf16* halo;
+  int r0, chunk, nst, hoff, roff, boff;  // byte offsets of h, the ring, the barriers
+};
+
+// The weight slabs of one layer on one tile, in the order the consumers
+// take them.
+__device__ void wg_fwd_produce(const WgFwdLayer& L, const WgDims& d, Pipe& pp,
+                               uint64_t* full, uint64_t* empty, unsigned char* ring) {
+  const int gch = (d.D + 127) >> 7, och = (d.R + d.S + 127) >> 7;
+  for (int pass = 0; 2 * pass < gch; ++pass) {
+    const int nw = min(2, gch - 2 * pass);
+    for (int part = 0; part < 3; ++part) {
+      const int ns = ((part < 2 ? d.R : d.C) + 31) >> 5;
+      for (int j = 0; j < ns; ++j) {
+        mbar_wait(empty + pp.st, pp.ph ^ 1);
+        unsigned char* st = ring + pp.st * SLAB;
+        uint64_t* fb = full + pp.st;
+        mbar_expect_tx(fb, nw * HALF);
+        for (int w = 0; w < nw; ++w) {
+          const int ch = 2 * pass + w;
+          for (int q = 0; q < 4; ++q)  // f lo, f hi, g lo, g hi
+            tma3(st + w * HALF + q * 4096, &L.win[part], fb, ch * 128 + (q & 1) * 64,
+                 q >> 1, j * 32);
+        }
+        pp.next();
+      }
     }
   }
-  part[(size_t)blockIdx.y * N + n] = s;
+  for (int pass = 0; 2 * pass < och; ++pass) {
+    const int nw = min(2, och - 2 * pass);
+    for (int j = 0; j < d.Da; ++j) {
+      mbar_wait(empty + pp.st, pp.ph ^ 1);
+      unsigned char* st = ring + pp.st * SLAB;
+      uint64_t* fb = full + pp.st;
+      mbar_expect_tx(fb, nw * HALF);
+      for (int w = 0; w < nw; ++w)
+        for (int q = 0; q < 2; ++q)
+          tma2(st + w * HALF + q * 8192, &L.wout, fb, (2 * pass + w) * 128 + q * 64,
+               j * 64);
+      pp.next();
+    }
+  }
+}
+
+// One layer on the tile whose xin is in shared memory (consumer threads).
+// The new residual row g goes to out + (g - out_row0) * R (nowhere when out
+// is null); halo tiles write neither skip nor y.
+__device__ void wg_fwd_tile(const WgFwdP& p, const WgFwdLayer& L, int b, int t0, int nr,
+                            bf16* out, int out_row0, bool halo, unsigned char* sm,
+                            Pipe& pp, uint64_t* full, uint64_t* empty) {
+  const WgDims& d = p.d;
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int r_lo = (tid >> 5) * 16 + ((tid & 31) >> 2), c_lo = (tid & 3) * 2;
+  unsigned char* ring = sm + p.roff;
+  unsigned char* hs = sm + p.hoff;
+  const uint32_t xa = smem_u32(sm), ha = smem_u32(hs);
+  const size_t rowb = (size_t)b * d.P;
+
+  // y = xin @ w_in + b_in; gate; h -> shared memory
+  const int gch = (d.D + 127) >> 7;
+  for (int pass = 0; 2 * pass < gch; ++pass) {
+    const int ch = 2 * pass + wg;
+    const bool act = ch < gch;
+    float acc[128];
+    acc_zero<128>(acc);
+    for (int part = 0; part < 3; ++part) {
+      const uint32_t pa = xa + part * d.Ra * ATOM;
+      mma_slabs(((part < 2 ? d.R : d.C) + 31) >> 5, act, pp, full, empty, ring,
+                [&](uint32_t st, int j) {
+                  const uint32_t a0 = pa + (j >> 1) * ATOM + (j & 1) * 64;
+                  const uint32_t b0 = st + wg * HALF;
+#pragma unroll
+                  for (int kk = 0; kk < 2; ++kk)
+                    wgmma_n256<0, 1>(acc, kdesc(a0 + kk * 32), mndesc(b0 + kk * 2048, 4096));
+                });
+    }
+    acc_fence<128>(acc);
+    consumers_sync();  // xin's prev part is read by both warpgroups before h lands on it
+    if (act) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int n = ch * 128 + c_lo + i * 8;
+        const bool nin = n < d.D;
+        float bf0 = 0.f, bf1 = 0.f, bg0 = 0.f, bg1 = 0.f;
+        if (nin) {
+          bf0 = __ldg(L.bin + n); bf1 = __ldg(L.bin + n + 1);
+          bg0 = __ldg(L.bin + d.D + n); bg1 = __ldg(L.bin + d.D + n + 1);
+        }
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int row = r_lo + hf * 8, g = t0 + row;
+          const float yf0 = acc[i * 4 + hf * 2] + bf0, yf1 = acc[i * 4 + hf * 2 + 1] + bf1;
+          const float yg0 = acc[(i + 16) * 4 + hf * 2] + bg0;
+          const float yg1 = acc[(i + 16) * 4 + hf * 2 + 1] + bg1;
+          if (!halo && L.y && nin && row < nr) {
+            bf16* yp = L.y + (rowb + g) * 2 * d.D + n;
+            st2(yp, yf0, yf1);
+            st2(yp + d.D, yg0, yg1);
+          }
+          if (n < d.Da * 64) {
+            const float h0 = nin ? ftanh(yf0) * fsigm(yg0) : 0.f;
+            const float h1 = nin ? ftanh(yf1) * fsigm(yg1) : 0.f;
+            *reinterpret_cast<uint32_t*>(hs + swz(row, n)) = pack2(h0, h1);
+          }
+        }
+      }
+    }
+  }
+  fence_async();
+  consumers_sync();
+
+  // out = h @ w_out + b_out; x' = bf16(x + bf16(res)); skip += skip term
+  const int och = (d.R + d.S + 127) >> 7, lo = d.R + d.S;
+  const unsigned char* xc = sm + d.Ra * ATOM;  // the cur part: the residual input
+  for (int pass = 0; 2 * pass < och; ++pass) {
+    const int ch = 2 * pass + wg;
+    const bool act = ch < och;
+    float acc[64];
+    acc_zero<64>(acc);
+    mma_slabs(d.Da, act, pp, full, empty, ring, [&](uint32_t st, int j) {
+      const uint32_t a0 = ha + j * ATOM, b0 = st + wg * HALF;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_n128<0, 1>(acc, kdesc(a0 + kk * 32), mndesc(b0 + kk * 2048, 8192));
+    });
+    acc_fence<64>(acc);
+    if (!act) continue;
+    float2 sk[16][2];  // the skip rows this thread adds to, loaded first
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int n = ch * 128 + c_lo + i * 8;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = r_lo + hf * 8;
+        sk[i][hf] = !halo && n >= d.R && n < lo && row < nr
+                        ? *reinterpret_cast<const float2*>(
+                              p.skip + (rowb + t0 + row) * d.S + (n - d.R))
+                        : make_float2(0.f, 0.f);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int n = ch * 128 + c_lo + i * 8;
+      if (n >= lo) continue;
+      const float b0 = __ldg(L.bout + n), b1 = __ldg(L.bout + n + 1);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = r_lo + hf * 8, g = t0 + row;
+        if (row >= nr) continue;
+        const float o0 = acc[i * 4 + hf * 2] + b0, o1 = acc[i * 4 + hf * 2 + 1] + b1;
+        if (n < d.R) {
+          if (out) {
+            float x0, x1;
+            ld2(reinterpret_cast<const bf16*>(xc + swz(row, n)), x0, x1);
+            st2(out + (size_t)(g - out_row0) * d.R + n, x0 + rbf(o0), x1 + rbf(o1));
+          }
+        } else if (!halo) {
+          *reinterpret_cast<float2*>(p.skip + (rowb + g) * d.S + (n - d.R)) =
+              make_float2(sk[i][hf].x + o0, sk[i][hf].y + o1);
+        }
+      }
+    }
+  }
+}
+
+template <int NL>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+wg_fwd_kernel(const __grid_constant__ WgFwdP p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  const WgDims& d = p.d;
+  const int b = blockIdx.y;
+  const int c0 = p.r0 + blockIdx.x * p.chunk;
+  const int c1 = min(c0 + p.chunk, d.P);
+  if (c0 >= c1) return;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + p.boff);
+  uint64_t* empty = full + MAX_STAGES;
+  init_ring(full, empty, p.nst);
+  const int dd1 = p.L[0].dd, dd2 = NL == 2 ? p.L[1].dd : 0;
+  const int h0 = NL == 2 ? max(c0 - dd2, p.r0) : c0;  // first halo row
+  if (threadIdx.x >= CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (threadIdx.x == CONSUMERS) {
+      Pipe pp{0, p.nst, 0};
+      unsigned char* ring = sm + p.roff;
+      for (int t0 = h0; t0 < c0; t0 += TM) wg_fwd_produce(p.L[0], d, pp, full, empty, ring);
+      for (int t0 = c0; t0 < c1; t0 += TM)
+        for (int l = 0; l < NL; ++l) wg_fwd_produce(p.L[l], d, pp, full, empty, ring);
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    Pipe pp{0, p.nst, 0};
+    const bf16* xb = p.x + (size_t)b * d.P * d.R;
+    auto prev1 = [&](int g) -> const bf16* {
+      return g - dd1 >= 0 ? xb + (size_t)(g - dd1) * d.R : nullptr;
+    };
+    auto cur1 = [&](int g) -> const bf16* { return xb + (size_t)g * d.R; };
+    bf16* hal = p.halo + (size_t)(blockIdx.y * gridDim.x + blockIdx.x) * dd2 * d.R;
+    for (int t0 = h0; t0 < c0; t0 += TM) {  // layer 1 below the chunk, for layer 2's prev tap
+      const int nr = min(TM, c0 - t0);
+      consumers_sync();
+      wg_load_xin(sm, d, b, t0, nr, p.cond, true, prev1, cur1, 0);
+      fence_async();
+      consumers_sync();
+      wg_fwd_tile(p, p.L[0], b, t0, nr, hal, c0 - dd2, true, sm, pp, full, empty);
+    }
+    bf16* midb = p.mid + (size_t)b * d.P * d.R;
+    auto prev2 = [&](int g) -> const bf16* {
+      const int s = g - dd2;
+      if (s < p.r0 || s < 0) return nullptr;
+      if (s < c0) return hal + (size_t)(s - (c0 - dd2)) * d.R;
+      return midb + (size_t)s * d.R;
+    };
+    auto cur2 = [&](int g) -> const bf16* { return midb + (size_t)g * d.R; };
+    bf16* out1 = (NL == 2 ? p.mid : p.xout) + (size_t)b * d.P * d.R;
+    for (int t0 = c0; t0 < c1; t0 += TM) {
+      const int nr = min(TM, c1 - t0);
+      consumers_sync();
+      wg_load_xin(sm, d, b, t0, nr, p.cond, true, prev1, cur1, 0);
+      fence_async();
+      consumers_sync();
+      wg_fwd_tile(p, p.L[0], b, t0, nr, out1, 0, false, sm, pp, full, empty);
+      if (NL == 2) {
+        consumers_sync();
+        wg_load_xin(sm, d, b, t0, nr, p.cond, false, prev2, cur2, 0);
+        fence_async();
+        consumers_sync();
+        wg_fwd_tile(p, p.L[1], b, t0, nr, p.xout + (size_t)b * d.P * d.R, 0, false, sm,
+                    pp, full, empty);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------ backward
+
+struct WgBwdLayer {
+  CUtensorMap woutT;  // w_out [n_dil][n_res + n_skp], read as B = w_out^T
+  CUtensorMap winT;   // w_in [2 n_res + n_cond][2 n_dil], read as B = w_in^T
+  const bf16* y;
+  bf16* gy; bf16* h; bf16* gout;  // [B, P, 2D], [B, P, D], [B, P, R + S]
+  int dd, vl;
+};
+
+struct WgBwdP {
+  WgBwdLayer L[2];
+  WgDims d;
+  const bf16* cond; const bf16* gxcur; const bf16* gxprev; const bf16* gskip;
+  float* gcond; bf16* gxc; bf16* gxp;
+  float* gcur2; float* gp2;  // the pair's layer 2 -> layer 1 cotangent (f32)
+  int prev_dd, cur_vl, r0, chunk, nst, yoff, roff, boff;  // g_out at 0, g_y at yoff
+};
+
+// Upstream cotangent of the layer's output row g, channels r and r + 1
+// (r..r+7 for wg_gxn8), before the layer's own valid mask.
+__device__ __forceinline__ void wg_gxn2(const WgBwdP& p, int mode, int b, int g, int r,
+                                        float& o0, float& o1) {
+  const WgDims& d = p.d;
+  const size_t off = ((size_t)b * d.P + g) * d.R + r;
+  if (mode == LOWER) {
+    const float2 a = *reinterpret_cast<const float2*>(p.gcur2 + off);
+    o0 = a.x; o1 = a.y;
+    if (g + p.L[1].dd < d.P) {
+      const float2 q = *reinterpret_cast<const float2*>(p.gp2 + off);
+      o0 += q.x; o1 += q.y;
+    }
+    return;
+  }
+  o0 = o1 = 0.f;
+  if (g >= p.cur_vl) ld2(p.gxcur + off, o0, o1);
+  if (p.prev_dd && g + p.prev_dd < d.P) {
+    float q0, q1;
+    ld2(p.gxprev + off + (size_t)p.prev_dd * d.R, q0, q1);
+    o0 += q0; o1 += q1;
+  }
+}
+__device__ __forceinline__ void wg_gxn8(const WgBwdP& p, int mode, int b, int g, int r,
+                                        float* o) {
+  const WgDims& d = p.d;
+  const size_t off = ((size_t)b * d.P + g) * d.R + r;
+  if (mode == LOWER) {
+    ldf8(o, p.gcur2 + off);
+    if (g + p.L[1].dd < d.P) {
+      float q[8];
+      ldf8(q, p.gp2 + off);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) o[e] += q[e];
+    }
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e) o[e] = 0.f;
+  if (g >= p.cur_vl) ld8(o, p.gxcur + off);
+  if (p.prev_dd && g + p.prev_dd < d.P) {
+    float q[8];
+    ld8(q, p.gxprev + off + (size_t)p.prev_dd * d.R);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) o[e] += q[e];
+  }
+}
+
+__device__ void wg_bwd_produce(const WgBwdLayer& L, const WgDims& d, int mode, Pipe& pp,
+                               uint64_t* full, uint64_t* empty, unsigned char* ring) {
+  const int ch1 = (d.D + 127) >> 7;
+  const int ch2 = ((mode == HALO ? d.R : 2 * d.R + d.C) + 127) >> 7;
+  for (int k = 0; k < 2; ++k) {
+    const int nch = k == 0 ? ch1 : ch2, ns = k == 0 ? d.Oa : d.Ya;
+    const CUtensorMap* map = k == 0 ? &L.woutT : &L.winT;
+    for (int pass = 0; 2 * pass < nch; ++pass) {
+      const int nw = min(2, nch - 2 * pass);
+      for (int j = 0; j < ns; ++j) {
+        mbar_wait(empty + pp.st, pp.ph ^ 1);
+        unsigned char* st = ring + pp.st * SLAB;
+        uint64_t* fb = full + pp.st;
+        mbar_expect_tx(fb, nw * HALF);
+        for (int w = 0; w < nw; ++w)
+          tma2(st + w * HALF, map, fb, j * 64, (2 * pass + w) * 128);
+        pp.next();
+      }
+    }
+  }
+}
+
+__device__ void wg_bwd_tile(const WgBwdP& p, int mode, int b, int t0, int nr, int c0,
+                            unsigned char* sm, Pipe& pp, uint64_t* full, uint64_t* empty) {
+  const WgDims& d = p.d;
+  const WgBwdLayer& L = (mode == UPPER || mode == HALO) ? p.L[1] : p.L[0];
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int r_lo = (tid >> 5) * 16 + ((tid & 31) >> 2), c_lo = (tid & 3) * 2;
+  unsigned char* ring = sm + p.roff;
+  unsigned char* ys = sm + p.yoff;
+  const uint32_t ga = smem_u32(sm), ya = smem_u32(ys);
+  const size_t rowb = (size_t)b * d.P;
+  const int lo = d.R + d.S;
+
+  consumers_sync();
+  // g_out = bf16([gxn | gskip]) masked to valid rows (h, for dW_out, comes
+  // with g_y); each thread loads NB groups of 8 before it stores any
+  constexpr int NB = 8;
+  const int no = TM * d.Oa * 8;
+  for (int i0 = threadIdx.x; i0 < no; i0 += NB * CONSUMERS) {
+    float v[NB][8];
+    bool real[NB];
+#pragma unroll
+    for (int u = 0; u < NB; ++u) {
+      const int i = i0 + u * CONSUMERS, row = i / (d.Oa * 8), col = (i % (d.Oa * 8)) * 8;
+      const int g = t0 + row;
+      const bool ok = i < no && row < nr && g >= L.vl;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[u][e] = 0.f;
+      real[u] = false;
+      if (col < d.R) {
+        if (ok) { wg_gxn8(p, mode, b, g, col, v[u]); real[u] = true; }
+      } else if (ok && col < lo) {
+        ld8(v[u], p.gskip + (rowb + g) * d.S + (col - d.R));
+        real[u] = true;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < NB; ++u) {
+      const int i = i0 + u * CONSUMERS, row = i / (d.Oa * 8), col = (i % (d.Oa * 8)) * 8;
+      if (i >= no) continue;
+      const uint4 w = pack8(v[u]);
+      *reinterpret_cast<uint4*>(sm + swz(row, col)) = w;
+      if (real[u] && mode != HALO)
+        *reinterpret_cast<uint4*>(L.gout + (rowb + t0 + row) * lo + col) = w;
+    }
+  }
+  fence_async();
+  consumers_sync();
+
+  // g_h = g_out @ w_out^T; g_y = bf16([g_h s (1 - t^2) | g_h t s (1 - s)])
+  const int ch1 = (d.D + 127) >> 7;
+  for (int pass = 0; 2 * pass < ch1; ++pass) {
+    const int ch = 2 * pass + wg;
+    const bool act = ch < ch1;
+    float acc[64];
+    acc_zero<64>(acc);
+    mma_slabs(d.Oa, act, pp, full, empty, ring, [&](uint32_t st, int j) {
+      const uint32_t a0 = ga + j * ATOM, b0 = st + wg * HALF;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_n128<0, 0>(acc, kdesc(a0 + kk * 32), kdesc(b0 + kk * 32));
+    });
+    acc_fence<64>(acc);
+    consumers_sync();  // g_out is read by both warpgroups before g_y lands on it
+    if (!act) continue;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {  // two halves of 8 column blocks: fewer live registers
+      uint32_t yv[8][2][2];  // this thread's saved y (f, g pairs), loaded first
+#pragma unroll
+      for (int ii = 0; ii < 8; ++ii) {
+        const int n = ch * 128 + c_lo + (hh * 8 + ii) * 8;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int row = r_lo + hf * 8, g = t0 + row;
+          yv[ii][hf][0] = yv[ii][hf][1] = 0u;
+          if (n < d.D && row < nr && g >= L.vl) {
+            const bf16* yp = L.y + (rowb + g) * 2 * d.D + n;
+            yv[ii][hf][0] = __ldg(reinterpret_cast<const unsigned int*>(yp));
+            yv[ii][hf][1] = __ldg(reinterpret_cast<const unsigned int*>(yp + d.D));
+          }
+        }
+      }
+#pragma unroll
+      for (int ii = 0; ii < 8; ++ii) {
+        const int i = hh * 8 + ii, n = ch * 128 + c_lo + i * 8;
+        if (n >= d.D) continue;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int row = r_lo + hf * 8, g = t0 + row;
+          const bool ok = row < nr && g >= L.vl;
+          float yf0, yf1, yg0, yg1;
+          ld2(reinterpret_cast<const bf16*>(&yv[ii][hf][0]), yf0, yf1);
+          ld2(reinterpret_cast<const bf16*>(&yv[ii][hf][1]), yg0, yg1);
+          const float gh0 = acc[i * 4 + hf * 2], gh1 = acc[i * 4 + hf * 2 + 1];
+          const float tf0 = ftanh(yf0), sg0 = fsigm(yg0), tf1 = ftanh(yf1), sg1 = fsigm(yg1);
+          const float gf0 = gh0 * sg0 * (1.f - tf0 * tf0), gf1 = gh1 * sg1 * (1.f - tf1 * tf1);
+          const float gg0 = gh0 * tf0 * sg0 * (1.f - sg0), gg1 = gh1 * tf1 * sg1 * (1.f - sg1);
+          *reinterpret_cast<uint32_t*>(ys + swz(row, n)) = pack2(gf0, gf1);
+          *reinterpret_cast<uint32_t*>(ys + swz(row, d.D + n)) = pack2(gg0, gg1);
+          if (ok && mode != HALO) {
+            bf16* gp = L.gy + (rowb + g) * 2 * d.D + n;
+            st2(gp, gf0, gf1);
+            st2(gp + d.D, gg0, gg1);
+            st2(L.h + (rowb + g) * d.D + n, tf0 * sg0, tf1 * sg1);
+          }
+        }
+      }
+    }
+  }
+  for (int i = threadIdx.x; i < TM * (d.Ya * 8 - d.D / 4); i += CONSUMERS) {
+    const int w = d.Ya * 8 - d.D / 4, row = i / w, col = 2 * d.D + (i % w) * 8;
+    *reinterpret_cast<uint4*>(ys + swz(row, col)) = make_uint4(0, 0, 0, 0);
+  }
+  fence_async();
+  consumers_sync();
+
+  // g_xin = g_y @ w_in^T (f32) -> the input cotangents
+  const int ncols = mode == HALO ? d.R : 2 * d.R + d.C, ch2 = (ncols + 127) >> 7;
+  for (int pass = 0; 2 * pass < ch2; ++pass) {
+    const int ch = 2 * pass + wg;
+    const bool act = ch < ch2;
+    float acc[64];
+    acc_zero<64>(acc);
+    mma_slabs(d.Ya, act, pp, full, empty, ring, [&](uint32_t st, int j) {
+      const uint32_t a0 = ya + j * ATOM, b0 = st + wg * HALF;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_n128<0, 0>(acc, kdesc(a0 + kk * 32), kdesc(b0 + kk * 32));
+    });
+    acc_fence<64>(acc);
+    if (!act) continue;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {  // two halves of 8 column blocks: fewer live registers
+      float2 pre[8][2];  // gxn for cur columns, gcond for cond columns, loaded first
+#pragma unroll
+      for (int ii = 0; ii < 8; ++ii) {
+        const int n = ch * 128 + c_lo + (hh * 8 + ii) * 8;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int row = r_lo + hf * 8, g = t0 + row;
+          pre[ii][hf] = make_float2(0.f, 0.f);
+          if (n >= ncols || row >= nr || n < d.R) continue;
+          if (n < 2 * d.R) {
+            if (g >= L.vl) wg_gxn2(p, mode, b, g, n - d.R, pre[ii][hf].x, pre[ii][hf].y);
+          } else {
+            pre[ii][hf] = *reinterpret_cast<const float2*>(p.gcond + (rowb + g) * d.C +
+                                                             (n - 2 * d.R));
+          }
+        }
+      }
+#pragma unroll
+      for (int ii = 0; ii < 8; ++ii) {
+        const int i = hh * 8 + ii, n = ch * 128 + c_lo + i * 8;
+        if (n >= ncols) continue;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int row = r_lo + hf * 8, g = t0 + row;
+          if (row >= nr) continue;
+          const float v0 = acc[i * 4 + hf * 2], v1 = acc[i * 4 + hf * 2 + 1];
+          const float2 q = pre[ii][hf];
+          if (n < d.R) {
+            if (mode == SINGLE || mode == LOWER) {
+              st2(p.gxp + (rowb + g) * d.R + n, v0, v1);
+            } else {
+              const int s = g - L.dd;
+              if (s >= c0)
+                *reinterpret_cast<float2*>(p.gp2 + (rowb + s) * d.R + n) = make_float2(v0, v1);
+            }
+          } else if (n < 2 * d.R) {
+            const int r = n - d.R;
+            if (mode == UPPER)
+              *reinterpret_cast<float2*>(p.gcur2 + (rowb + g) * d.R + r) =
+                  make_float2(q.x + v0, q.y + v1);
+            else
+              st2(p.gxc + (rowb + g) * d.R + r, q.x + v0, q.y + v1);
+          } else {
+            *reinterpret_cast<float2*>(p.gcond + (rowb + g) * d.C + (n - 2 * d.R)) =
+                make_float2(q.x + v0, q.y + v1);
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int NL>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+wg_bwd_kernel(const __grid_constant__ WgBwdP p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  const WgDims& d = p.d;
+  const int b = blockIdx.y;
+  const int c0 = p.r0 + blockIdx.x * p.chunk;
+  const int c1 = min(c0 + p.chunk, d.P);
+  if (c0 >= c1) return;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + p.boff);
+  uint64_t* empty = full + MAX_STAGES;
+  init_ring(full, empty, p.nst);
+  // halo: layer 2 on the rows above the chunk, for its prev-tap cotangent
+  // into the chunk's top rows
+  const int hi = NL == 2 ? min(c1 + p.L[1].dd, d.P) : c1;
+  const int nt = (c1 - c0 + TM - 1) / TM;
+  if (threadIdx.x >= CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (threadIdx.x == CONSUMERS) {
+      Pipe pp{0, p.nst, 0};
+      unsigned char* ring = sm + p.roff;
+      for (int t0 = c1; t0 < hi; t0 += TM) wg_bwd_produce(p.L[1], d, HALO, pp, full, empty, ring);
+      for (int k = nt - 1; k >= 0; --k) {
+        if (NL == 2) {
+          wg_bwd_produce(p.L[1], d, UPPER, pp, full, empty, ring);
+          wg_bwd_produce(p.L[0], d, LOWER, pp, full, empty, ring);
+        } else {
+          wg_bwd_produce(p.L[0], d, SINGLE, pp, full, empty, ring);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    Pipe pp{0, p.nst, 0};
+    for (int t0 = c1; t0 < hi; t0 += TM)
+      wg_bwd_tile(p, HALO, b, t0, min(TM, hi - t0), c0, sm, pp, full, empty);
+    for (int k = nt - 1; k >= 0; --k) {  // descending tiles
+      const int t0 = c0 + k * TM, nr = min(TM, c1 - t0);
+      if (NL == 2) {
+        wg_bwd_tile(p, UPPER, b, t0, nr, c0, sm, pp, full, empty);
+        wg_bwd_tile(p, LOWER, b, t0, nr, c0, sm, pp, full, empty);
+      } else {
+        wg_bwd_tile(p, SINGLE, b, t0, nr, c0, sm, pp, full, empty);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------ weight gradients
+
+struct WgDwP {
+  CUtensorMap ma[2];  // A's boxes: kind 0: x (both taps) and cond; kind 1: a
+  CUtensorMap mg;     // G's boxes
+  float* part; float* part_b;
+  int P, lo, kind, dd, R, C, M, N, Ra, atoms;  // atoms: A's 64-column atoms, per part
+  int nsb, total, per, ntn, nst;  // slabs per batch row, slabs, slabs per split
+};
+
+// Row m of A's per-part padded columns -> its row of dW (-1: padding)
+__device__ __forceinline__ int dw_row(const WgDwP& p, int m) {
+  if (p.kind == 1) return m < p.M ? m : -1;
+  const int a = m >> 6, c = m & 63;
+  if (a < p.Ra) return a * 64 + c < p.R ? a * 64 + c : -1;
+  if (a < 2 * p.Ra) return (a - p.Ra) * 64 + c < p.R ? p.R + (a - p.Ra) * 64 + c : -1;
+  return (a - 2 * p.Ra) * 64 + c < p.C ? 2 * p.R + (a - 2 * p.Ra) * 64 + c : -1;
+}
+
+// part[s][m][n] = sum over split s's rows of A[row][m] G[row][n]: output
+// tiles of 128 x 256 (warpgroup w: rows 64 w .. 64 w + 63), 64 rows of
+// every batch row per slab; blocks of the first row tile also write
+// part_b[s][n] = the sum of G[row][n] over the same rows.
+__global__ void __launch_bounds__(WG_THREADS, 1)
+wg_dw_kernel(const __grid_constant__ WgDwP p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + p.nst * DW_SLAB);
+  uint64_t* empty = full + MAX_STAGES;
+  init_ring(full, empty, p.nst);
+  const int mt = blockIdx.x / p.ntn, n0 = (blockIdx.x % p.ntn) * 256;
+  const int s0 = blockIdx.y * p.per, s1 = min(s0 + p.per, p.total);
+  if (threadIdx.x >= CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (threadIdx.x == CONSUMERS) {
+      Pipe pp{0, p.nst, 0};
+      for (int s = s0; s < s1; ++s) {
+        const int b = s / p.nsb, g0 = p.lo + (s % p.nsb) * 64;
+        mbar_wait(empty + pp.st, pp.ph ^ 1);
+        unsigned char* st = sm + pp.st * DW_SLAB;
+        uint64_t* fb = full + pp.st;
+        const int nw = min(2, p.atoms - 2 * mt);
+        mbar_expect_tx(fb, (nw + 4) * 8192);
+        for (int w = 0; w < nw; ++w) {
+          const int a = 2 * mt + w;
+          if (p.kind == 1) tma3(st + w * 8192, &p.ma[0], fb, a * 64, g0, b);
+          else if (a < p.Ra) tma3(st + w * 8192, &p.ma[0], fb, a * 64, g0 - p.dd, b);
+          else if (a < 2 * p.Ra) tma3(st + w * 8192, &p.ma[0], fb, (a - p.Ra) * 64, g0, b);
+          else tma3(st + w * 8192, &p.ma[1], fb, (a - 2 * p.Ra) * 64, g0, b);
+        }
+        for (int q = 0; q < 4; ++q)
+          tma3(st + 16384 + q * 8192, &p.mg, fb, n0 + q * 64, g0, b);
+        pp.next();
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+    const bool act = 2 * mt + wg < p.atoms, sums = mt == 0;
+    const int col = threadIdx.x, cq = col >> 6, cc = col & 63;
+    Pipe pp{0, p.nst, 0};
+    float acc[128];
+    acc_zero<128>(acc);
+    float cs = 0.f;
+    int pend = -1;
+    for (int s = s0; s < s1; ++s) {
+      mbar_wait(full + pp.st, pp.ph);
+      unsigned char* st = sm + pp.st * DW_SLAB;
+      if (act) {
+        const uint32_t a0 = smem_u32(st) + wg * 8192, b0 = smem_u32(st) + 16384;
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_n256<1, 1>(acc, mndesc(a0 + kk * 2048, 8192), mndesc(b0 + kk * 2048, 8192));
+        wg_commit();
+      }
+      if (sums) {
+        const unsigned char* gcol = st + 16384 + cq * 8192 + (cc & 7) * 2;
+#pragma unroll 8
+        for (int k = 0; k < 64; ++k)
+          cs += __bfloat162float(*reinterpret_cast<const bf16*>(
+              gcol + k * 128 + (((cc >> 3) ^ (k & 7)) << 4)));
+      }
+      if (act) wg_wait<1>();
+      if (pend >= 0) release(empty, pend);
+      pend = pp.st;
+      pp.next();
+    }
+    if (act) wg_wait<0>();
+    if (pend >= 0) release(empty, pend);
+    acc_fence<128>(acc);
+    float* part = p.part + (size_t)blockIdx.y * p.M * p.N;
+    if (act) {
+      const int r_lo = (tid >> 5) * 16 + ((tid & 31) >> 2), c_lo = (tid & 3) * 2;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int m = dw_row(p, mt * 128 + wg * 64 + r_lo + hf * 8);
+        if (m < 0) continue;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int n = n0 + i * 8 + c_lo;
+          if (n < p.N)
+            *reinterpret_cast<float2*>(part + (size_t)m * p.N + n) =
+                make_float2(acc[i * 4 + hf * 2], acc[i * 4 + hf * 2 + 1]);
+        }
+      }
+    }
+    if (sums && n0 + col < p.N) p.part_b[(size_t)blockIdx.y * p.N + n0 + col] = cs;
+  }
 }
 
 // out[i] = sum_s part[s][i], in order of s
@@ -949,10 +1756,139 @@ Dims dims_from(const int* iv) {
   return d;
 }
 
+
+// ------------------------------------------------------------- host side
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library links the runtime alone
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                       cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                              cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)f;
+  }
+  return fn;
+}
+
+// A bf16 tensor map, 128-byte swizzle, zeros past the edges.  dims and box
+// innermost first; strides in bytes of dims 1.. .
+bool tensor_map(CUtensorMap* m, const void* base, int rank, const uint64_t* dims,
+                const uint64_t* strides, const uint32_t* box) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  cuuint64_t gd[3], gs[2];
+  cuuint32_t bx[3], es[3] = {1, 1, 1};
+  for (int i = 0; i < rank; ++i) {
+    gd[i] = dims[i];
+    bx[i] = box[i];
+    if (i) gs[i - 1] = strides[i - 1];
+  }
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), gd, gs,
+            bx, es, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// [rows][cols] row-major, boxes of br rows x bc columns
+bool map2(CUtensorMap* m, const bf16* base, int cols, int rows, int bc, int br) {
+  const uint64_t dims[2] = {(uint64_t)cols, (uint64_t)rows};
+  const uint64_t strides[1] = {(uint64_t)cols * 2};
+  const uint32_t box[2] = {(uint32_t)bc, (uint32_t)br};
+  return tensor_map(m, base, 2, dims, strides, box);
+}
+
+// [B, P, C] streams, boxes of 64 rows x 64 columns of one batch row
+bool map_stream(CUtensorMap* m, const bf16* base, int B, int P, int C) {
+  const uint64_t dims[3] = {(uint64_t)C, (uint64_t)P, (uint64_t)B};
+  const uint64_t strides[2] = {(uint64_t)C * 2, (uint64_t)P * C * 2};
+  const uint32_t box[3] = {64, 64, 1};
+  return tensor_map(m, base, 3, dims, strides, box);
+}
+
+WgDims wg_dims(const int* iv) {
+  WgDims d;
+  d.B = iv[0]; d.P = iv[1]; d.R = iv[2]; d.C = iv[3]; d.D = iv[4]; d.S = iv[5];
+  d.Ra = (d.R + 63) / 64; d.Ca = (d.C + 63) / 64; d.Da = (d.D + 63) / 64;
+  d.Oa = (d.R + d.S + 63) / 64; d.Ya = (2 * d.D + 63) / 64;
+  return d;
+}
+
+// Shared memory of the Hopper kernels: the tiles, then as many ring stages
+// as fit (2 to MAX_STAGES), then the barriers; bytes > SMEM_CAP when even
+// two stages do not fit.
+struct Layout { int tiles, aux, nst, bytes; };
+
+Layout ring_layout(int tiles, int aux, int stage) {
+  Layout l{tiles, aux, 0, 0};
+  l.nst = (SMEM_CAP - 1024 - BAR_BYTES - tiles) / stage;
+  if (l.nst > MAX_STAGES) l.nst = MAX_STAGES;
+  l.bytes = l.nst < 2 ? SMEM_CAP + 1 : 1024 + tiles + l.nst * stage + BAR_BYTES;
+  return l;
+}
+
+// forward: xin at 0, h over xin's prev part when one gate pass writes it
+// and it fits there (aux = its offset), else after xin
+Layout fwd_layout(const WgDims& d) {
+  const int xin = (2 * d.Ra + d.Ca) * ATOM;
+  const bool alias = (d.D + 127) / 128 <= 2 && d.Da <= d.Ra;
+  return ring_layout(alias ? xin : xin + d.Da * ATOM, alias ? 0 : xin, SLAB);
+}
+
+// backward: g_out at 0, g_y over it when one g_h pass writes it and it
+// fits there (aux = its offset), else after g_out
+Layout bwd_layout(const WgDims& d) {
+  const int go = d.Oa * ATOM;
+  const bool alias = (d.D + 127) / 128 <= 2 && d.Ya <= d.Oa;
+  return ring_layout(alias ? go : go + d.Ya * ATOM, alias ? 0 : go, SLAB);
+}
+
+template <typename P>
+int wg_launch(void (*kernel)(P), const P& p, dim3 grid, int smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, WG_THREADS, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <typename P>
+int wg_blocks_per_sm(void (*kernel)(P), int smem) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
+  if (err != cudaSuccess) return -(int)err;
+  int n = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, WG_THREADS, smem);
+  return err != cudaSuccess ? -(int)err : n;
+}
+
+// w_in's rows [row0, row0 + rows) as [rows][f | g][D], boxes of 32 rows x
+// 64 channels of f or of g
+bool map_win_part(CUtensorMap* m, const bf16* win, int row0, int rows, int D) {
+  const uint64_t dims[3] = {(uint64_t)D, 2, (uint64_t)rows};
+  const uint64_t strides[2] = {(uint64_t)D * 2, (uint64_t)D * 4};
+  const uint32_t box[3] = {64, 1, 32};
+  return tensor_map(m, win + (size_t)row0 * 2 * D, 3, dims, strides, box);
+}
+
 }  // namespace
 
 extern "C" {
 
+// the first core's shared memory (K7; K8 and K2b's recompute mode)
 int awt_gated_fwd_smem(const int* iv) {
   Dims d = dims_from(iv);
   return 2 * TM * (d.kp() + SKEW) + 2 * TM * (d.Dp + SKEW) + 4 * NWARP * STAGE;
@@ -965,63 +1901,98 @@ int awt_gated_bwd_smem(const int* iv) {
   return u + 4 * NWARP * STAGE;
 }
 
+// the Hopper kernels' shared memory: > 232,448 when the widths do not fit
+int awt_gated_wg_fwd_smem(const int* iv) { return fwd_layout(wg_dims(iv)).bytes; }
+int awt_gated_wg_bwd_smem(const int* iv) { return bwd_layout(wg_dims(iv)).bytes; }
+
+// Blocks of the Hopper forward (kind 0) or backward (kind 1) kernel that
+// one SM holds at these widths (negative: a CUDA error)
+int awt_gated_wg_blocks(int kind, const int* iv) {
+  const WgDims d = wg_dims(iv);
+  if (kind == 0) return wg_blocks_per_sm(wg_fwd_kernel<2>, fwd_layout(d).bytes);
+  return wg_blocks_per_sm(wg_bwd_kernel<2>, bwd_layout(d).bytes);
+}
+
 // ptr: x, cond, skip, mid, xout, halo, then per layer win, bin, wout, bout, y
+// (weights unpadded: win [2R + C][2D], wout [D][R + S] bf16; biases f32)
 // iv: 10 dims, r0, chunk, dd1, dd2, n_chunks
 int awt_gated_fwd(int nl, void* const* ptr, const int* iv, cudaStream_t stream) {
-  FwdP p;
-  p.d = dims_from(iv);
+  WgFwdP p;
+  const WgDims d = p.d = wg_dims(iv);
   p.x = (const bf16*)ptr[0]; p.cond = (const bf16*)ptr[1];
   p.skip = (float*)ptr[2]; p.mid = (bf16*)ptr[3]; p.xout = (bf16*)ptr[4];
   p.halo = (bf16*)ptr[5];
-  for (int l = 0; l < 2; ++l) {
+  for (int l = 0; l < nl; ++l) {
     void* const* q = ptr + 6 + 5 * l;
-    p.L[l] = FwdLayer{(const bf16*)q[0], (const float*)q[1], (const bf16*)q[2],
-                      (const float*)q[3], (bf16*)q[4], iv[12 + l]};
+    WgFwdLayer& L = p.L[l];
+    const bf16* win = (const bf16*)q[0];
+    if (!map_win_part(&L.win[0], win, 0, d.R, d.D) ||
+        !map_win_part(&L.win[1], win, d.R, d.R, d.D) ||
+        !map_win_part(&L.win[2], win, 2 * d.R, d.C, d.D) ||
+        !map2(&L.wout, (const bf16*)q[2], d.R + d.S, d.D, 64, 64))
+      return (int)cudaErrorInvalidValue;
+    L.bin = (const float*)q[1]; L.bout = (const float*)q[3]; L.y = (bf16*)q[4];
+    L.dd = iv[12 + l];
   }
   p.r0 = iv[10]; p.chunk = iv[11];
-  const int smem = awt_gated_fwd_smem(iv);
-  dim3 grid(iv[14], p.d.B);
-  if (nl == 2) {
-    cudaFuncSetAttribute(gated_fwd_kernel<2>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    gated_fwd_kernel<2><<<grid, NTHR, smem, stream>>>(p);
-  } else {
-    cudaFuncSetAttribute(gated_fwd_kernel<1>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    gated_fwd_kernel<1><<<grid, NTHR, smem, stream>>>(p);
-  }
-  return (int)cudaGetLastError();
+  const Layout lay = fwd_layout(d);
+  if (lay.nst < 2) return (int)cudaErrorInvalidValue;
+  p.nst = lay.nst; p.hoff = lay.aux; p.roff = lay.tiles;
+  p.boff = lay.tiles + lay.nst * SLAB;
+  const dim3 grid(iv[14], d.B);
+  return nl == 2 ? wg_launch(wg_fwd_kernel<2>, p, grid, lay.bytes, stream)
+                 : wg_launch(wg_fwd_kernel<1>, p, grid, lay.bytes, stream);
 }
 
-// ptr: cond, gxcur, gxprev, gskip, gcond, gxc, gxp, gcur2, gp2, yf, then per
-//      layer x, y, win, bin, wout, gy, h, gout
+// Saved y.  ptr: cond, gxcur, gxprev, gskip, gcond, gxc, gxp, gcur2, gp2,
+//      then per layer y, win, wout, gy, h, gout (weights unpadded)
 // iv: 10 dims, prev_dd, cur_vl, r0, chunk, dd1, vl1, dd2, vl2, n_chunks
 int awt_gated_bwd(int nl, void* const* ptr, const int* iv, cudaStream_t stream) {
+  WgBwdP p;
+  const WgDims d = p.d = wg_dims(iv);
+  p.cond = (const bf16*)ptr[0]; p.gxcur = (const bf16*)ptr[1];
+  p.gxprev = (const bf16*)ptr[2]; p.gskip = (const bf16*)ptr[3];
+  p.gcond = (float*)ptr[4]; p.gxc = (bf16*)ptr[5]; p.gxp = (bf16*)ptr[6];
+  p.gcur2 = (float*)ptr[7]; p.gp2 = (float*)ptr[8];
+  for (int l = 0; l < nl; ++l) {
+    void* const* q = ptr + 9 + 6 * l;
+    WgBwdLayer& L = p.L[l];
+    if (!map2(&L.woutT, (const bf16*)q[2], d.R + d.S, d.D, 64, 128) ||
+        !map2(&L.winT, (const bf16*)q[1], 2 * d.D, 2 * d.R + d.C, 64, 128))
+      return (int)cudaErrorInvalidValue;
+    L.y = (const bf16*)q[0]; L.gy = (bf16*)q[3]; L.h = (bf16*)q[4]; L.gout = (bf16*)q[5];
+    L.dd = iv[14 + 2 * l]; L.vl = iv[15 + 2 * l];
+  }
+  p.prev_dd = iv[10]; p.cur_vl = iv[11]; p.r0 = iv[12]; p.chunk = iv[13];
+  const Layout lay = bwd_layout(d);
+  if (lay.nst < 2) return (int)cudaErrorInvalidValue;
+  p.nst = lay.nst; p.yoff = lay.aux; p.roff = lay.tiles;
+  p.boff = lay.tiles + lay.nst * SLAB;
+  const dim3 grid(iv[18], d.B);
+  return nl == 2 ? wg_launch(wg_bwd_kernel<2>, p, grid, lay.bytes, stream)
+                 : wg_launch(wg_bwd_kernel<1>, p, grid, lay.bytes, stream);
+}
+
+// One layer, recompute mode (first core, weights padded).  ptr: cond,
+// gxcur, gxprev, gskip, gcond, gxc, gxp, yf, then x, win, bin, wout, gy, h,
+// gout.  iv: 10 dims, prev_dd, cur_vl, r0, chunk, dd, vl, n_chunks
+int awt_gated_bwd_recompute(void* const* ptr, const int* iv, cudaStream_t stream) {
   BwdP p;
   p.d = dims_from(iv);
   p.cond = (const bf16*)ptr[0]; p.gxcur = (const bf16*)ptr[1];
   p.gxprev = (const bf16*)ptr[2]; p.gskip = (const bf16*)ptr[3];
   p.gcond = (float*)ptr[4]; p.gxc = (bf16*)ptr[5]; p.gxp = (bf16*)ptr[6];
-  p.gcur2 = (float*)ptr[7]; p.gp2 = p.gp2w = (float*)ptr[8];
-  p.yf = (float*)ptr[9];
-  for (int l = 0; l < 2; ++l) {
-    void* const* q = ptr + 10 + 8 * l;
-    p.L[l] = BwdLayer{(const bf16*)q[0], (const bf16*)q[1], (const bf16*)q[2],
-                      (const float*)q[3], (const bf16*)q[4], (bf16*)q[5],
-                      (bf16*)q[6], (bf16*)q[7], iv[14 + 2 * l], iv[15 + 2 * l]};
-  }
+  p.gcur2 = p.gp2 = p.gp2w = nullptr;
+  p.yf = (float*)ptr[7];
+  void* const* q = ptr + 8;
+  p.L[0] = BwdLayer{(const bf16*)q[0], nullptr, (const bf16*)q[1], (const float*)q[2],
+                    (const bf16*)q[3], (bf16*)q[4], (bf16*)q[5], (bf16*)q[6], iv[14],
+                    iv[15]};
   p.prev_dd = iv[10]; p.cur_vl = iv[11]; p.r0 = iv[12]; p.chunk = iv[13];
   const int smem = awt_gated_bwd_smem(iv);
-  dim3 grid(iv[18], p.d.B);
-  if (nl == 2) {
-    cudaFuncSetAttribute(gated_bwd_kernel<2>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    gated_bwd_kernel<2><<<grid, NTHR, smem, stream>>>(p);
-  } else {
-    cudaFuncSetAttribute(gated_bwd_kernel<1>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    gated_bwd_kernel<1><<<grid, NTHR, smem, stream>>>(p);
-  }
+  cudaFuncSetAttribute(gated_bwd_recompute_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  gated_bwd_recompute_kernel<<<dim3(iv[16], p.d.B), NTHR, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -1075,28 +2046,41 @@ int awt_gated_group(void* const* ptr, const int* iv, cudaStream_t stream) {
                          awt_gated_bwd_smem(iv), stream);
 }
 
-// ptr: x, cond, a, g, part, out, part_b, out_b
-// iv: B, P, lo, kind, dd, R, C, ka, N, M, splits, rows_per, splits_b, rows_per_b
+// dW = A^T G and db = the column sums of G over rows [lo, P) of every batch
+// row, A = xin (kind 0: gathered from x at row g - dd and g, and cond) or a
+// (kind 1, [B, P, ka]).  ptr: x, cond, a, g, part, out, part_b, out_b
+// iv: B, P, lo, kind, dd, R, C, ka, N, M, splits
 int awt_gated_dw(void* const* ptr, const int* iv, cudaStream_t stream) {
-  DwP p;
-  p.B = iv[0]; p.P = iv[1]; p.lo = iv[2]; p.kind = iv[3]; p.dd = iv[4];
-  p.R = iv[5]; p.C = iv[6]; p.ka = iv[7]; p.N = iv[8]; p.M = iv[9];
-  p.x = (const bf16*)ptr[0]; p.cond = (const bf16*)ptr[1];
-  p.a = (const bf16*)ptr[2]; p.g = (const bf16*)ptr[3];
-  p.part = (float*)ptr[4]; p.rows_per = iv[11];
-  const int splits = iv[10], splits_b = iv[12];
-  dim3 grid(((p.M + DW_BM - 1) / DW_BM) * ((p.N + DW_BN - 1) / DW_BN), splits);
-  gated_dw_kernel<<<grid, NTHR, 0, stream>>>(p);
-  int rc = (int)cudaGetLastError();
+  WgDwP p;
+  const int B = iv[0];
+  p.P = iv[1]; p.lo = iv[2]; p.kind = iv[3]; p.dd = iv[4]; p.R = iv[5]; p.C = iv[6];
+  const int ka = iv[7];
+  p.N = iv[8]; p.M = iv[9];
+  const int splits = iv[10];
+  p.Ra = (p.R + 63) / 64;
+  bool ok = map_stream(&p.mg, (const bf16*)ptr[3], B, p.P, p.N);
+  if (p.kind == 0) {
+    ok = ok && map_stream(&p.ma[0], (const bf16*)ptr[0], B, p.P, p.R) &&
+         map_stream(&p.ma[1], (const bf16*)ptr[1], B, p.P, p.C);
+    p.atoms = 2 * p.Ra + (p.C + 63) / 64;
+  } else {
+    ok = ok && map_stream(&p.ma[0], (const bf16*)ptr[2], B, p.P, ka);
+    p.atoms = (ka + 63) / 64;
+  }
+  if (!ok || splits < 1) return (int)cudaErrorInvalidValue;
+  p.part = (float*)ptr[4]; p.part_b = (float*)ptr[6];
+  p.nsb = (p.P - p.lo + 63) / 64;
+  p.total = B * p.nsb;
+  p.per = (p.total + splits - 1) / splits;
+  p.ntn = (p.N + 255) / 256;
+  const Layout lay = ring_layout(0, 0, DW_SLAB);
+  p.nst = lay.nst;
+  const dim3 grid(((p.atoms + 1) / 2) * p.ntn, splits);
+  int rc = wg_launch(wg_dw_kernel, p, grid, lay.bytes, stream);
   if (rc) return rc;
   if ((rc = reduce(p.part, (float*)ptr[5], splits, (long long)p.M * p.N, stream)))
     return rc;
-  const long long total = (long long)p.B * (p.P - p.lo);
-  dim3 gb((p.N + 255) / 256, splits_b);
-  gated_colsum_kernel<<<gb, 256, 0, stream>>>(p.g, p.P, p.lo, p.N, total, iv[13],
-                                              (float*)ptr[6]);
-  if ((rc = (int)cudaGetLastError())) return rc;
-  return reduce((const float*)ptr[6], (float*)ptr[7], splits_b, p.N, stream);
+  return reduce(p.part_b, (float*)ptr[7], splits, p.N, stream);
 }
 
 }  // extern "C"

@@ -53,12 +53,16 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     for name in ("awt_gated_fwd", "awt_gated_bwd"):
         getattr(lib, name).argtypes = [i, p, p, p]
         getattr(lib, name).restype = i
-    for name in ("awt_gated_dw", "awt_gated_stack", "awt_gated_group"):
+    for name in ("awt_gated_dw", "awt_gated_stack", "awt_gated_group",
+                 "awt_gated_bwd_recompute"):
         getattr(lib, name).argtypes = [p, p, p]
         getattr(lib, name).restype = i
-    for name in ("awt_gated_fwd_smem", "awt_gated_bwd_smem"):
+    for name in ("awt_gated_fwd_smem", "awt_gated_bwd_smem", "awt_gated_wg_fwd_smem",
+                 "awt_gated_wg_bwd_smem"):
         getattr(lib, name).argtypes = [p]
         getattr(lib, name).restype = i
+    lib.awt_gated_wg_blocks.argtypes = [i, p]
+    lib.awt_gated_wg_blocks.restype = i
     lib.awt_gated_max_fused_layers.argtypes = []
     lib.awt_gated_max_fused_layers.restype = i
     lib.awt_cuda_error_string.argtypes = [i]

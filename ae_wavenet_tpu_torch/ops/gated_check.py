@@ -277,12 +277,14 @@ def planted_faults(wn, cfg: WaveNetConfig):
 
 def planted_segment_faults() -> dict:
     """{name: (segment of ``segment_calls``, faulty plain version)}, which
-    that segment's check must reject.  The grouped backward with every
-    boundary between two layers of the group losing the prev-tap cotangent
-    of the rows whose source lies in another tile: what the kernel hands
-    over between blocks through global memory.  (It moves the whole stack's
-    gradients by under GRAD_REL_TOL of the largest, so it is held against
-    the kernel's own outputs.)"""
+    that segment's check must reject.  The pair forward and the pair
+    backward with layer 2's dilation one row off (the prev tap that the
+    kernels mask and carry across tiles and chunks themselves).  The grouped
+    backward with every boundary between two layers of the group losing the
+    prev-tap cotangent of the rows whose source lies in another tile: what
+    the kernel hands over between blocks through global memory.  (It moves
+    the whole stack's gradients by under GRAD_REL_TOL of the largest, so it
+    is held against the kernel's own outputs.)"""
     inner_upstream = gated._inner_upstream
 
     def no_carry(gxn, g_xin, n_res, dd_up):
@@ -297,5 +299,15 @@ def planted_segment_faults() -> dict:
         with mock.patch.object(gated, "_inner_upstream", no_carry):
             return gated.gated_group_bwd_reference(*args, **kw)
 
-    return {"grouped backward: prev-tap cotangents from another tile dropped":
+    def pair_fwd_off(*args, dd2, **kw):
+        return gated.gated_pair_fused_reference(*args, dd2=dd2 + 1, **kw)
+
+    def pair_bwd_off(*args, dd2, **kw):
+        return gated.gated_pair_bwd_reference(*args, dd2=dd2 + 1, **kw)
+
+    return {"pair forward: layer 2's prev tap one row off":
+            ("gated_pair_fused", pair_fwd_off),
+            "pair backward: layer 2's prev tap one row off":
+            ("gated_pair_bwd", pair_bwd_off),
+            "grouped backward: prev-tap cotangents from another tile dropped":
             ("gated_group_bwd", group_no_carry)}

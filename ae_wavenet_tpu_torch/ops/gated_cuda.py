@@ -15,13 +15,18 @@ cannot take or on a CUDA error), CPU tensors run the plain version.  Each
 counts its kernel runs in ``.launches``.
 
 The kernels choose their own tiles (64 rows per tile, chunks of rows per
-block sized to fill the card); the reference's ``gated_tile`` and
-``gated_bwd_tile`` are TPU schedule knobs and are not read.  Shape limits:
-``filter_sz == 2``; n_res, n_cond, n_dil and n_skp multiples of 8 (16-byte
-row loads); the widths' shared-memory footprint within one block's 227 KB;
-the grouped backward takes saved y only.  The whole-stack forward and the
-grouped backward are cooperative launches of as many blocks as the card
-holds at once, with a barrier across the grid between layers.
+block sized so that every block of a launch is resident at once); the
+reference's ``gated_tile`` and ``gated_bwd_tile`` are TPU schedule knobs and
+are not read.  K1, K1b, K2 and K2b with saved y run on the Hopper tile core
+(``wgmma`` fed by TMA) on the weights as they are; K7, K8's data-gradient
+tiles and K2b's recompute mode run on the first (WMMA) core on weights
+zero-padded to 16-column multiples; every weight gradient goes through the
+Hopper weight-gradient kernel.  Shape limits: ``filter_sz == 2``; n_res,
+n_cond, n_dil and n_skp multiples of 8 (16-byte rows); the widths'
+shared-memory footprint within one block's 227 KB (a width past it raises
+``ValueError``); the grouped backward takes saved y only.  The whole-stack
+forward and the grouped backward are cooperative launches of as many blocks
+as the card holds at once, with a barrier across the grid between layers.
 """
 
 from __future__ import annotations
@@ -85,6 +90,20 @@ def _pad_weights(dims, w_in, b_in, w_out, b_out):
     return win, binp, wout, bout
 
 
+def _cast_weights(w_in, b_in, w_out, b_out):
+    """Packed f32 weights -> what the Hopper kernels read: w_in [2R + C, 2D]
+    and w_out [D, R + S] bf16 as they are (TMA zero-fills past the edges),
+    biases f32 (zeros when absent)."""
+    def bias(v, n):
+        if v is None:
+            return torch.zeros(n, device=w_in.device)
+        return v.detach().float().contiguous()
+
+    cast = lambda w: w.detach().to(BF16, memory_format=torch.contiguous_format)  # noqa: E731
+    return (cast(w_in), bias(b_in, w_in.shape[1]), cast(w_out),
+            bias(b_out, w_out.shape[1]))
+
+
 def _check(dims, tensors: dict, smem: int) -> None:
     b, p, r, c, d, s = dims[:6]
     want = {"x": ((b, p, r), BF16), "cond": ((b, p, c), BF16),
@@ -115,14 +134,40 @@ def _check(dims, tensors: dict, smem: int) -> None:
                          f"block; the kernel has at most {SMEM_LIMIT}")
 
 
-def _chunk(dev, rows: int, batch: int, dd2: int = 0) -> tuple[int, int]:
-    """Rows per block (a multiple of the tile, at least the pair's dd2, so
-    a halo spans one neighbouring chunk) and the number of chunks, for
-    about two blocks per SM."""
-    target = 2 * torch.cuda.get_device_properties(dev).multi_processor_count
-    chunk = max(-(-rows * batch // target), dd2, TM)
+def _chunk(rows: int, batch: int, dd2: int, sms: int, per_sm: int) -> tuple[int, int]:
+    """Rows per block (a multiple of the tile, at least the pair's dd2, so a
+    halo spans one neighbouring chunk) and the number of chunks per batch
+    row, so that the batch's blocks fit the card at once (``sms`` SMs
+    holding ``per_sm`` blocks each): one wave, as far as the batch allows."""
+    per_row = max(1, sms * per_sm // batch)
+    chunk = max(-(-rows // per_row), dd2, TM)
     chunk = -(-chunk // TM) * TM
     return chunk, -(-rows // chunk)
+
+
+_BLOCKS: dict = {}
+
+
+def _plan(dev, kind: int, dims, rows: int, batch: int, dd2: int) -> tuple[int, int]:
+    """``_chunk`` from the card's SM count and the kernel's occupancy at
+    these widths (kind 0: the Hopper forward, 1: its backward; 2: the first
+    core's recompute backward, one block per SM)."""
+    from ae_wavenet_tpu_torch.ops import _build
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    key = (kind, tuple(dims[2:6]))
+    if key not in _BLOCKS:
+        n = 1 if kind == 2 else _build.load().awt_gated_wg_blocks(kind, _ints(*dims))
+        if n < 1:
+            raise RuntimeError(f"occupancy query failed: CUDA error {-n}")
+        _BLOCKS[key] = n
+    return _chunk(rows, batch, dd2, sms, _BLOCKS[key])
+
+
+def _head_zeroed(t: torch.Tensor, rows: int) -> torch.Tensor:
+    """``t`` with rows [0, rows) of its time axis set to zero."""
+    t[:, :rows] = 0
+    return t
 
 
 def _ptrs(*ts) -> ctypes.Array:
@@ -158,18 +203,20 @@ def _smem(fn_name: str, dims) -> int:
 def _fwd(nl, x, cond, skip, pks, dds, r0, save_y):
     dims = _dims(x, cond, pks[0][0], pks[0][2])
     _check(dims, {"x": x, "cond": cond, "skip": skip},
-           _smem("awt_gated_fwd_smem", dims))
+           _smem("awt_gated_wg_fwd_smem", dims))
     b, p, r = dims[:3]
     dev = x.device
-    chunk, n_chunks = _chunk(dev, p - r0, b, dds[-1] if nl == 2 else 0)
-    outs = [torch.zeros_like(x) for _ in range(nl)]  # (mid,) x'
-    ys = [x.new_zeros(b, p, 2 * dims[4]) for _ in range(nl)] if save_y else []
+    chunk, n_chunks = _plan(dev, 0, dims, p - r0, b, dds[-1] if nl == 2 else 0)
+    # the kernel writes rows [r0, P) of every output; rows below hold zeros
+    outs = [_head_zeroed(torch.empty_like(x), r0) for _ in range(nl)]  # (mid,) x'
+    ys = ([_head_zeroed(x.new_empty(b, p, 2 * dims[4]), r0) for _ in range(nl)]
+          if save_y else [])
     halo = (torch.empty(b * n_chunks, dds[1], r, dtype=BF16, device=dev)
             if nl == 2 else None)
     layers = []
     for l in range(2):
         if l < nl:
-            layers += [*_pad_weights(dims, *pks[l]), ys[l] if save_y else None]
+            layers += [*_cast_weights(*pks[l]), ys[l] if save_y else None]
         else:
             layers += [None] * 5
     _call("awt_gated_fwd", nl,
@@ -261,22 +308,22 @@ def gated_stack_fused(x, cond, skip, packed, *, dils, r0: int,
 def _dw(kind, lo, g, n, m, x=None, cond=None, dd=0, a=None):
     """(f32 [m, n] = A^T G, f32 [n] = column sums of G) over rows [lo, P)
     of every batch row, where A is xin (kind 0, gathered from x and cond)
-    or ``a`` (kind 1): a weight gradient and its bias gradient."""
+    or ``a`` (kind 1): a weight gradient and its bias gradient, in one
+    launch (and two fixed-order reductions of its split-K partials)."""
     b, p = g.shape[:2]
-    total = b * (p - lo)
-    tiles = -(-m // 128) * -(-n // 128)
-    sms = torch.cuda.get_device_properties(g.device).multi_processor_count
-    splits = max(1, min(-(-4 * sms // tiles), total // 1024 or 1))
-    splits_b = max(1, min(64, total // 1024 or 1))
-    f32 = dict(device=g.device, dtype=torch.float32)
-    part, out = torch.empty(splits, m, n, **f32), torch.empty(m, n, **f32)
-    part_b, out_b = torch.empty(splits_b, n, **f32), torch.empty(n, **f32)
     r = x.shape[2] if x is not None else 0
     c = cond.shape[2] if cond is not None else 0
     ka = a.shape[2] if a is not None else 0
+    # output tiles of 128 x 256 over A's columns, each part padded to 64
+    atoms = 2 * -(-r // 64) + -(-c // 64) if kind == 0 else -(-ka // 64)
+    tiles = -(-atoms // 2) * -(-n // 256)
+    sms = torch.cuda.get_device_properties(g.device).multi_processor_count
+    splits = max(1, min(sms // tiles, b * -(-(p - lo) // 64)))
+    f32 = dict(device=g.device, dtype=torch.float32)
+    part, out = torch.empty(splits, m, n, **f32), torch.empty(m, n, **f32)
+    part_b, out_b = torch.empty(splits, n, **f32), torch.empty(n, **f32)
     _call("awt_gated_dw", None, _ptrs(x, cond, a, g, part, out, part_b, out_b),
-          _ints(b, p, lo, kind, dd, r, c, ka, n, m, splits, -(-total // splits),
-                splits_b, -(-total // splits_b)), g.device)
+          _ints(b, p, lo, kind, dd, r, c, ka, n, m, splits), g.device)
     return out, out_b
 
 
@@ -307,11 +354,13 @@ def _weight_grads(dims, saved: list, xs, cond, dds, vls) -> list:
 def _bwd(nl, xs, cond, gxcur, gxprev, gskip, gcond, pks, ys, dds, vls,
          prev_dd, cur_valid_lo):
     dims = _dims(xs[0], cond, pks[0][0], pks[0][2])
+    recompute = ys[0] is None
     tensors = {"x1": xs[0], "cond": cond, "gxcur": gxcur, "gxprev": gxprev,
                "gskip": gskip, "gcond": gcond, "y1": ys[0]}
     if nl == 2:
         tensors.update(x2=xs[1], y2=ys[1])
-    _check(dims, tensors, _smem("awt_gated_bwd_smem", dims))
+    _check(dims, tensors, _smem("awt_gated_bwd_smem" if recompute
+                                else "awt_gated_wg_bwd_smem", dims))
     for v, name in ((gxcur, "gxcur"), (gxprev, "gxprev")):
         if tuple(v.shape) != tuple(xs[0].shape) or v.dtype != BF16:
             raise ValueError(f"{name}: {tuple(v.shape)} {v.dtype}, the kernel "
@@ -319,27 +368,34 @@ def _bwd(nl, xs, cond, gxcur, gxprev, gskip, gcond, pks, ys, dds, vls,
     (b, p, r), dp = dims[:3], dims[8]
     dev = xs[0].device
     r0 = vls[0]
-    chunk, n_chunks = _chunk(dev, p - r0, b, dds[-1] if nl == 2 else 0)
-    gxc, gxp = torch.zeros_like(xs[0]), torch.zeros_like(xs[0])
-    f32 = dict(device=dev, dtype=torch.float32)
-    gcur2 = torch.empty(b, p, r, **f32) if nl == 2 else None
-    gp2 = torch.empty(b, p, r, **f32) if nl == 2 else None
-    yf = torch.empty(b, p, 2 * dp, **f32) if ys[0] is None else None
-    layers, saved = [], []
-    for l in range(2):
-        if l >= nl:
-            layers += [None] * 8
-            continue
-        win, binp, wout, _ = _pad_weights(dims, pks[l][0], pks[l][1],
-                                          pks[l][2], None)
-        saved.append(_scratch(dims, dev))
-        layers += [xs[l], ys[l], win, binp, wout, *saved[-1]]
-    ints = [*dims, prev_dd, cur_valid_lo, r0, chunk, dds[0], vls[0],
-            dds[1] if nl == 2 else 0, vls[1] if nl == 2 else 0, n_chunks]
-    _call("awt_gated_bwd", nl,
-          _ptrs(cond, gxcur, gxprev, gskip, gcond, gxc, gxp, gcur2, gp2, yf,
-                *layers), _ints(*ints), dev)
-    del layers
+    chunk, n_chunks = _plan(dev, 2 if recompute else 1, dims, p - r0, b,
+                            dds[-1] if nl == 2 else 0)
+    gxc, gxp = (_head_zeroed(torch.empty_like(xs[0]), r0) for _ in range(2))
+    saved = [_scratch(dims, dev) for _ in range(nl)]
+    head = [cond, gxcur, gxprev, gskip, gcond, gxc, gxp]
+    if recompute:  # one layer, the first core
+        win, binp, wout, _ = _pad_weights(dims, pks[0][0], pks[0][1], pks[0][2], None)
+        yf = torch.empty(b, p, 2 * dp, device=dev, dtype=torch.float32)
+        _call("awt_gated_bwd_recompute", None,
+              _ptrs(*head, yf, xs[0], win, binp, wout, *saved[0]),
+              _ints(*dims, prev_dd, cur_valid_lo, r0, chunk, dds[0], vls[0],
+                    n_chunks), dev)
+    else:
+        f32 = dict(device=dev, dtype=torch.float32)
+        gcur2 = torch.empty(b, p, r, **f32) if nl == 2 else None
+        gp2 = torch.empty(b, p, r, **f32) if nl == 2 else None
+        layers = []
+        for l in range(2):
+            if l >= nl:
+                layers += [None] * 6
+                continue
+            win, _, wout, _ = _cast_weights(*pks[l])
+            layers += [ys[l], win, wout, *saved[l]]
+        ints = [*dims, prev_dd, cur_valid_lo, r0, chunk, dds[0], vls[0],
+                dds[1] if nl == 2 else 0, vls[1] if nl == 2 else 0, n_chunks]
+        _call("awt_gated_bwd", nl, _ptrs(*head, gcur2, gp2, *layers),
+              _ints(*ints), dev)
+        del layers
     return (gxc, gxp, gcond, *_weight_grads(dims, saved, xs, cond, dds, vls))
 
 

@@ -8,7 +8,9 @@ printing its own line(s), every measurement beside the card's name and
 power limit:
 
 1. environment: torch, CUDA, nvcc, triton, the card;
-2. build: compiles ae_wavenet_tpu_torch/csrc/*.cu from this checkout;
+2. build: compiles ae_wavenet_tpu_torch/csrc/*.cu from this checkout and
+   prints every kernel's registers, spills and stack from the ptxas report
+   (the Hopper kernels must not spill);
 3. the fused sampler kernels against their plain PyTorch versions at the
    full width of the ``chorowski`` preset (seeded random weights, rings primed
    on 2047 context ids, B = 8): greedy ids and logits (and two faults planted
@@ -31,14 +33,18 @@ power limit:
    before each run and show which kernels it went through;
 6. train-kernels: the six gated-stack kernels (``csrc/gated.cu``: one
    layer, a pair, the whole stack forward; one layer, a pair, a group of
-   layers backward) against their plain versions at the full ``chorowski``
+   layers backward; the pair and single-layer kernels on the Hopper core)
+   against their plain versions at the full ``chorowski``
    width (seeded random weights, every bias perturbed), each output, at
    B = 2 with 4,100 loss samples (a ragged last tile) and again at the
    training path's shape (B = 4, n_win = 48,000), where both are also
-   timed; the grouped backward's bits on a second launch; the whole stack
+   timed, each beside its bound and its share of it (the pair kernels also
+   beside their bytes bound and a cuBLAS yardstick of their products alone);
+   the pair and the grouped backward's bits on a second launch; the whole stack
    through ``GatedStack`` in seven schedules (logits and every gradient);
-   four faults planted in the plain versions, which the same checks must
-   reject; the stack's forward and backward timed under pairs, full fusion,
+   six faults planted in the plain versions, which the same checks must
+   reject (among them the pair forward's and the pair backward's layer 2
+   prev tap one row off, at both shapes); the stack's forward and backward timed under pairs, full fusion,
    and full fusion with groups of 5;
 7. train: the train CLI at B = 4, n_win = 48,000.  ``new --preset chorowski
    --pallas-stack`` for 4 steps and ``resume`` for 2 more (the main path:
@@ -50,8 +56,9 @@ power limit:
    --eval-every 2`` for 4 steps and ``resume`` for 2 (one forward launch per
    step and per eval batch, four grouped backward launches per step, the
    first step's loss beside the main path's, the checkpoints that retention
-   leaves), 2 steps of ``--gated-full-fusion`` alone (pair backward) and 2
-   steps under ``--profile-steps 2`` (device-busy share, top kernels).  The
+   leaves), 2 steps of ``--gated-full-fusion`` alone (pair backward), and 2
+   steps of the main path and 2 of the whole-stack path under
+   ``--profile-steps 2`` (device-busy share, device time by kernel name).  The
    launch counters are set to 0 before each run and read after it: every
    gated kernel must have launched exactly as its path says and no plain
    version at all.  Median step time, samples/s and peak memory of each
@@ -252,16 +259,48 @@ def phase_env(card: str) -> None:
           f"nvcc: {nvcc_line} | triton: {has_triton} | card: {card}")
 
 
+def ptxas_kernels(log: str) -> dict:
+    """{kernel: (registers, spill store bytes, spill load bytes, stack bytes)}
+    from an ``nvcc -Xptxas -v`` report, kernels named by their mangled
+    identifier's readable part."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = re.search(r"'([^']+)'", ln).group(1)
+            m = re.search(r"\d+(wg_\w+?|gated_\w+?|fastgen_\w+?|vq_\w+?)(ILi(\d)EE)?E", name)
+            cur = (m.group(1) + (f"<{m.group(3)}>" if m.group(3) else "")) if m else name
+            out[cur] = [0, 0, 0, 0]
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out[cur][1], out[cur][2], out[cur][3] = int(m[2]), int(m[3]), int(m[1])
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[cur][0] = int(m[1])
+    return {k: tuple(v) for k, v in out.items()}
+
+
 def phase_build(card: str) -> None:
     from ae_wavenet_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     _build.load()
     secs = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in _build.build_info.get("ptxas", "").splitlines()
-             if "registers" in ln or "spill" in ln or "smem" in ln]
     print(f"[build] {secs:.2f} s (nvcc {_build.build_info.get('seconds', 0.0):.2f} s)"
-          f" {_build.build_info['path']} | {' | '.join(ptxas)} | {card}")
+          f" {_build.build_info['path']} | {card}")
+    kernels = ptxas_kernels(_build.build_info.get("ptxas", ""))
+    for name, (regs, st, ld, stack) in sorted(kernels.items()):
+        note = (" (ptxas's cap at 384 threads a block; setmaxnreg moves the producer"
+                " warpgroup's share to the two consumer warpgroups at run time)"
+                if name.startswith("wg_") else "")
+        print(f"[build] ptxas {name}: {regs} registers{note}, spill stores {st} B, spill "
+              f"loads {ld} B, stack {stack} B | {card}")
+    hopper = [k for k in kernels if k.startswith("wg_")]
+    check(len(hopper) >= 5, f"ptxas report lists the Hopper kernels {hopper}")
+    check(all(kernels[k][1] == kernels[k][2] == 0 for k in hopper),
+          f"a Hopper kernel spills: {[(k, kernels[k]) for k in hopper]}")
 
 
 @contextlib.contextmanager
@@ -764,6 +803,35 @@ def cuda_s(fn) -> float:
     return a.elapsed_time(b) / 1e3
 
 
+def gemm_yardstick(rows: int, r: int, c: int, d: int, s: int, backward: bool,
+                   dev) -> float:
+    """Milliseconds of cuBLAS (``torch.matmul`` in bf16) running the products
+    of one gated layer pair alone, at the pair's shapes: per layer xin @ w_in
+    and h @ w_out forward; g_out @ w_out^T, g_y @ w_in^T and the weight
+    gradients xin^T g_y and h^T g_out backward.  A yardstick for the
+    products, not the same function (no gate, residual, masks or bias
+    sums); timed here only, the port never calls it."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    kp = 2 * r + c
+    xin, w_in, h, w_out = rnd(rows, kp), rnd(kp, 2 * d), rnd(rows, d), rnd(d, r + s)
+    prods = [(xin, w_in), (h, w_out)]
+    if backward:
+        g_out, g_y = rnd(rows, r + s), rnd(rows, 2 * d)
+        prods = [(g_out, w_out.t()), (g_y, w_in.t()), (xin.t(), g_y), (h.t(), g_out)]
+
+    def run():
+        for _ in range(2):  # the pair's two layers
+            for a, b in prods:
+                torch.matmul(a, b)
+    return cuda_ms(run, 3)
+
+
 def phase_train_kernels(card: str, dev) -> dict:
     with f32_numerics():
         return _phase_train_kernels(card, dev)
@@ -858,7 +926,7 @@ def _phase_train_kernels(card: str, dev) -> dict:
     dils, x0, cond_tm, packed, xs, ys, cot = chk.segment_inputs(wn, wcfg, ids, cond, spk)
     macs = (x0.shape[2] * 2 + cond_tm.shape[2]) * 2 * wcfg.n_dil + wcfg.n_dil * (
         wcfg.n_res + wcfg.n_skp)  # per row and layer
-    times = {}
+    times, yardsticks = {}, {}
     for name, (wrapper, call) in chk.segment_calls(dils, cond_tm, packed, xs, ys,
                                                    cot).items():
         kern, plain = getattr(gc, wrapper), getattr(gated, wrapper + "_reference")
@@ -866,16 +934,25 @@ def _phase_train_kernels(card: str, dev) -> dict:
         ab, rel, note = held(name, wrapper, call, got, x0, f"at B={TRAIN_B}")
         errs[wrapper] = max(errs[wrapper], ab)
         timing = ""
-        if name == "gated_group_bwd":  # fixed-order sums: the same bits again
+        if name in faults:  # the planted fault fails the same check at this shape too
+            fault, bad = faults[name]
+            _, rel_f = chk.compare_outputs(got, call(bad))
+            check(rel_f >= chk.SEGMENT_REL_TOL, f"planted fault '{fault}' passes at "
+                  f"B={TRAIN_B}")
+            timing += f"; planted fault '{fault}': {rel_f:.4g} of max|plain|, rejected"
+        if name in ("gated_group_bwd", "gated_pair_bwd"):  # fixed-order sums: the same bits
             again = call(kern)
             torch.cuda.synchronize()
             check(all(torch.equal(a, b) for a, b in zip(got, again)),
                   f"{name}: two launches gave different bits")
-            timing = "; same bits on a second launch"
+            timing += "; same bits on a second launch"
             del again
         del got
         if name == wrapper:  # the other cases are variants of these
-            k_ms = cuda_ms(lambda: call(kern), 3)
+            # the case as PR 4 timed it (with the copies of the inputs that it
+            # updates in place), the plain version likewise, then the wrapper
+            # alone on one set of inputs (those it updates just accumulate)
+            kc_ms = cuda_ms(lambda: call(kern), 3)
             p_ms = cuda_ms(lambda: call(plain), 1)
             moved = []
 
@@ -885,6 +962,7 @@ def _phase_train_kernels(card: str, dev) -> dict:
                 return res
 
             call(probe)
+            k_ms = cuda_ms(lambda: kern(*moved[0][0], **moved[0][1]), 3)
             # the least work: the n_win loss rows of every batch row through
             # each layer's two GEMMs, once forward, twice backward (inputs
             # and weights); every operand read once, every output written once
@@ -893,11 +971,23 @@ def _phase_train_kernels(card: str, dev) -> dict:
                         if "dds" in kw else 2 if "pair" in wrapper else 1)
             ops = (2 * TRAIN_B * TRAIN_WIN * macs * n_layers
                    * (2 if "bwd" in wrapper else 1))
-            b_ms, by = bound(tensor_bytes(moved), {"bf16": ops})
+            n_bytes = tensor_bytes(moved)
+            b_ms, by = bound(n_bytes, {"bf16": ops})
             del moved
             times[wrapper] = (k_ms, p_ms, b_ms, by)
-            timing += (f"; {n_layers} layer(s): kernel {k_ms:.3f} ms, plain "
-                       f"{p_ms:.3f} ms, bound {b_ms:.3f} ms by {by}")
+            timing += (f"; {n_layers} layer(s): kernel {k_ms:.3f} ms ({kc_ms:.3f} with the "
+                       f"case's input copies, as PR 4 timed it), plain {p_ms:.3f} ms, "
+                       f"bound {b_ms:.3f} ms by {by}, {100 * b_ms / k_ms:.1f}% of the bound")
+            if wrapper in ("gated_pair_fused", "gated_pair_bwd"):
+                lo = kw["r0"] if "r0" in kw else kw["valid_lo1"]
+                y_ms = gemm_yardstick(TRAIN_B * (x0.shape[1] - lo), x0.shape[2],
+                                      cond_tm.shape[2], wcfg.n_dil, wcfg.n_skp,
+                                      "bwd" in wrapper, dev)
+                yardsticks[wrapper] = y_ms
+                timing += (f"; operations bound {ops / PEAK['bf16'] * 1e3:.3f} ms, bytes "
+                           f"bound {n_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms ("
+                           f"{n_bytes / 1e9:.3f} GB); yardstick, the products alone in "
+                           f"cuBLAS (torch.matmul, not the same function): {y_ms:.3f} ms")
         print(f"[train-kernels] {name} B={TRAIN_B} t_in={x0.shape[1]}: every output "
               f"within {rel:.3g} of max|plain| {note}{timing} | {card}")
     del xs, ys, cot
@@ -919,7 +1009,7 @@ def _phase_train_kernels(card: str, dev) -> dict:
         print(f"[train-kernels] stack {label} (saved y) B={TRAIN_B} t_in="
               f"{x0.shape[1]}: forward {fwd * 1e3:.1f} ms, backward "
               f"{bwd * 1e3:.1f} ms | {card}")
-    return {"errs": errs, "times": times}
+    return {"errs": errs, "times": times, "yardsticks": yardsticks}
 
 
 def _run_cli(argv) -> list[dict]:
@@ -1207,31 +1297,39 @@ def phase_train(card: str, dev, tmp: str) -> dict:
           f"{TRAIN_B * TRAIN_WIN / step_ff:.0f} samples/s; peak memory {peak_ff:.2f} "
           f"GiB | {card}")
 
-    # two profiled steps of the whole-stack path
-    _, n_prof, _, all_prof = _path_run(
-        ["new", *shape, "--gated-full-fusion", "--gated-bwd-group", str(GROUP),
-         "--n-steps", "2", "--profile-steps", "2", "--profile-dir",
-         os.path.join(tmp, "prof")],
-        {"gated_stack_fused": 2, "gated_group_bwd": 2 * n_layers // GROUP}, card,
-        "whole-stack path under --profile-steps 2")
-    prof = [r["profile"] for r in all_prof if "profile" in r]
-    check(len(prof) == 1 and any("profile_trace" in r for r in all_prof),
-          f"profiled run printed {len(prof)} summaries")
-    prof = prof[0]
-    names = " ".join(k["name"] for k in prof["top_kernels"])
-    check(prof["device_busy_share"] is not None
-          and 0.0 < prof["device_busy_share"] <= 1.0,
-          f"profile: device-busy share {prof['device_busy_share']}")
-    check("gated_stack_kernel" in names and "gated_group_kernel" in names,
-          f"profile: the top kernels are {names}")
-    check(os.path.getsize(prof["trace_file"]) > 0, "profile: empty trace file")
-    tops = "; ".join(f"{k['name'][:60]} {k['ms'] / 2:.2f} ms/step x{k['calls'] // 2}"
-                     for k in prof["top_kernels"])
-    print(f"[train] profile of 2 steps of the whole-stack path (torch.profiler): "
-          f"device busy {prof['device_busy_share'] * 100:.2f}% of the "
-          f"{prof['window_ms']:.1f} ms window ({prof['device_busy_ms']:.1f} ms in "
-          f"{prof['n_kernels']} kernels and copies); top kernels by device time: "
-          f"{tops} | {card}")
+    # two profiled steps of the main path and of the whole-stack path:
+    # device time by kernel name
+    def profiled(argv, expect_n, label, kernels, prof_dir):
+        _, n, _, recs = _path_run(
+            ["new", *shape, *argv, "--n-steps", "2", "--profile-steps", "2",
+             "--profile-dir", os.path.join(tmp, prof_dir)], expect_n, card,
+            f"{label} under --profile-steps 2")
+        prof = [r["profile"] for r in recs if "profile" in r]
+        check(len(prof) == 1 and any("profile_trace" in r for r in recs),
+              f"profiled run printed {len(prof)} summaries")
+        prof = prof[0]
+        names = " ".join(k["name"] for k in prof["top_kernels"])
+        check(prof["device_busy_share"] is not None
+              and 0.0 < prof["device_busy_share"] <= 1.0,
+              f"profile: device-busy share {prof['device_busy_share']}")
+        check(all(k in names for k in kernels), f"profile: the top kernels are {names}")
+        check(os.path.getsize(prof["trace_file"]) > 0, "profile: empty trace file")
+        tops = "; ".join(f"{k['name'][:60]} {k['ms'] / 2:.2f} ms/step x{k['calls'] // 2}"
+                         for k in prof["top_kernels"])
+        print(f"[train] profile of 2 steps of the {label} (torch.profiler): "
+              f"device busy {prof['device_busy_share'] * 100:.2f}% of the "
+              f"{prof['window_ms']:.1f} ms window ({prof['device_busy_ms']:.1f} ms in "
+              f"{prof['n_kernels']} kernels and copies); top kernels by device time: "
+              f"{tops} | {card}")
+        return n
+
+    n_prof_pairs = profiled([], expect(n_layers // 2, 0, 2), "main path (pairs)",
+                            ("wg_fwd_kernel", "wg_bwd_kernel", "wg_dw_kernel"),
+                            "prof_pairs")
+    n_prof = profiled(["--gated-full-fusion", "--gated-bwd-group", str(GROUP)],
+                      {"gated_stack_fused": 2, "gated_group_bwd": 2 * n_layers // GROUP},
+                      "whole-stack path", ("gated_stack_kernel", "gated_group_kernel"),
+                      "prof")
 
     cfg = dataclasses.replace(
         cfg, train=dataclasses.replace(cfg.train, batch_sz=TRAIN_B, n_win=TRAIN_WIN),
@@ -1240,7 +1338,7 @@ def phase_train(card: str, dev, tmp: str) -> dict:
     _print_split(dataclasses.replace(cfg, wavenet=dataclasses.replace(
         cfg.wavenet, gated_full_fusion=True, gated_bwd_group=GROUP)), data, dev,
         f"whole-stack path (full fusion, groups of {GROUP})", card)
-    runs = (n_new, n_res, n_alt, n_vq, n_ws, n_ws_res, n_ff, n_prof)
+    runs = (n_new, n_res, n_alt, n_vq, n_ws, n_ws_res, n_ff, n_prof_pairs, n_prof)
     launches = {n: sum(r[n] for r in runs) for n in GATED}
     launches["vq_lookup_fused"] = n_vq["vq_lookup_fused"]
     return {"launches": launches, "data": data, "ckpt_vq": ckpt_vq}
@@ -1330,7 +1428,8 @@ def main() -> int:
             "source": "ae_wavenet_tpu_torch/csrc/gated.cu", "replaces": replaced,
             "launches": t["launches"][name], "max_abs_err": g["errs"][name],
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
-            "library_ms": None})
+            "library_ms": None,
+            **({"yardstick_ms": g["yardsticks"][name]} if name in g["yardsticks"] else {})})
     vq_train = {n: x for n, x in v["training step"].items() if n != "n"}
     vq_by_n = {x["n"]: {n: y for n, y in x.items() if n not in ("n", "max_abs_err")}
                for x in v.values()}

@@ -290,13 +290,11 @@ SEGMENTS = ["gated_pair_fused", "gated_layer_fused", "gated_pair_bwd",
             "gated_stack_fused_no_save", "gated_group_bwd", "gated_group_bwd_3"]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", SEGMENTS)
-def test_gated_kernel_matches_plain(cuda_device, name):
-    """Every output of each kernel within gchk.SEGMENT_REL_TOL of its plain
-    version's largest value, on the same inputs."""
-    wn, ids, cond, spk = gchk.random_stack(GCFG, 3, 150, 0, cuda_device)
-    dils, _, cond_tm, packed, xs, ys, cot = gchk.segment_inputs(wn, GCFG, ids,
+def _held_against_plain(cfg, batch, t_out, name, dev):
+    """Every output of kernel case ``name`` within gchk.SEGMENT_REL_TOL of
+    its plain version's largest value, on the same inputs."""
+    wn, ids, cond, spk = gchk.random_stack(cfg, batch, t_out, 0, dev)
+    dils, _, cond_tm, packed, xs, ys, cot = gchk.segment_inputs(wn, cfg, ids,
                                                                 cond, spk)
     wrapper, call = gchk.segment_calls(dils, cond_tm, packed, xs, ys, cot)[name]
     fn = getattr(tgc, wrapper)
@@ -315,6 +313,71 @@ def test_gated_kernel_matches_plain(cuda_device, name):
         _, rel = gchk.compare_outputs(
             got, gchk.stack_layerwise(got, dils, cond_tm, packed, xs[0]))
         assert rel < gchk.SEGMENT_REL_TOL, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SEGMENTS)
+def test_gated_kernel_matches_plain(cuda_device, name):
+    """Every output of each kernel within gchk.SEGMENT_REL_TOL of its plain
+    version's largest value, on the same inputs."""
+    _held_against_plain(GCFG, 3, 150, name, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gated_pair_fused", "gated_layer_fused",
+                                  "gated_pair_bwd", "gated_layer_bwd"])
+def test_gated_kernel_matches_plain_at_flagship_width(cuda_device, name):
+    """The Hopper kernels at the ``chorowski`` widths (n_res 384, cond 160,
+    n_dil 256, n_skp 256: the tile shapes of the main path) on a short ragged
+    T (4,100 = 64 x 64 + 4 loss samples), B = 2."""
+    from ae_wavenet_tpu_torch.utils.config import chorowski_config
+
+    _held_against_plain(chorowski_config().wavenet, 2, 4100, name, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gated_pair_bwd", "gated_layer_bwd",
+                                  "gated_layer_bwd_recompute"])
+def test_gated_backward_gives_the_same_bits_twice(cuda_device, name):
+    """Fixed-order split-K sums: a second launch on the same inputs gives
+    every output bit for bit."""
+    wn, ids, cond, spk = gchk.random_stack(GCFG, 3, 150, 0, cuda_device)
+    dils, _, cond_tm, packed, xs, ys, cot = gchk.segment_inputs(wn, GCFG, ids,
+                                                                cond, spk)
+    wrapper, call = gchk.segment_calls(dils, cond_tm, packed, xs, ys, cot)[name]
+    got = call(getattr(tgc, wrapper))
+    again = call(getattr(tgc, wrapper))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_gated_hopper_kernels_refuse_widths_they_cannot_take(cuda_device):
+    """A width whose tiles pass one block's shared memory (n_res 1536: xin
+    and g_out alone) and one off the 16-byte rows raise ValueError; nothing
+    falls back."""
+    bf, dev = torch.bfloat16, cuda_device
+
+    def operands(r, c=40, d=32, s=32, b=1, p=80):
+        pk = (torch.zeros(2 * r + c, 2 * d, device=dev), torch.zeros(2 * d, device=dev),
+              torch.zeros(d, r + s, device=dev), torch.zeros(r + s, device=dev))
+        x = torch.zeros(b, p, r, dtype=bf, device=dev)
+        return dict(x=x, cond=torch.zeros(b, p, c, dtype=bf, device=dev),
+                    skip=torch.zeros(b, p, s, device=dev), pk=pk,
+                    gskip=torch.zeros(b, p, s, dtype=bf, device=dev),
+                    gcond=torch.zeros(b, p, c, device=dev),
+                    y=torch.zeros(b, p, 2 * d, dtype=bf, device=dev))
+
+    for r, match in ((1536, "shared memory"), (36, "multiples of 8")):
+        o = operands(r)
+        with pytest.raises(ValueError, match=match):
+            tgc.gated_pair_fused(o["x"], o["cond"], o["skip"], o["pk"], o["pk"],
+                                 dd1=1, dd2=2, r0=3)
+        with pytest.raises(ValueError, match=match):
+            tgc.gated_pair_bwd(o["x"], o["x"], o["cond"], o["x"], o["x"], o["gskip"],
+                               o["gcond"], o["pk"], o["pk"], o["y"], o["y"], dd1=1,
+                               dd2=2, prev_dd=4, valid_lo1=1, valid_lo2=3,
+                               cur_valid_lo=7)
 
 
 @pytest.mark.cuda

@@ -427,3 +427,23 @@ def test_stack_forward_then_pair_backward_equals_the_pair_path():
     lg_b, g_b = gated_check.stack_run(*args, True, True)
     lg, rel = gated_check.stack_errors(lg_a, g_a, lg_b, g_b)
     assert lg < 1e-2 and rel < 1e-2, (lg, rel)
+
+
+@pytest.mark.parametrize("rows,batch,dd2,sms,per_sm", [
+    (49023, 4, 512, 132, 1),   # the top pair at the flagship training shape
+    (49535, 4, 2, 132, 1),     # the bottom pair
+    (4036, 2, 128, 132, 1),    # the smoke's B = 2 check
+    (147, 3, 128, 132, 2),     # short rows: one chunk per batch row
+    (50000, 5, 64, 132, 1),    # a batch that does not divide the card
+    (1000, 200, 0, 132, 1),    # more batch rows than blocks: one chunk each
+])
+def test_chunk_plan_is_one_wave_and_covers_every_row(rows, batch, dd2, sms, per_sm):
+    """The Hopper kernels' chunks: a multiple of the tile, at least the
+    pair's dd2, every row covered by exactly one chunk, and all blocks of the
+    launch resident at once (one wave) as far as the batch allows."""
+    from ae_wavenet_tpu_torch.ops import gated_cuda
+
+    chunk, n = gated_cuda._chunk(rows, batch, dd2, sms, per_sm)
+    assert chunk % gated_cuda.TM == 0 and chunk >= dd2
+    assert (n - 1) * chunk < rows <= n * chunk
+    assert batch * n <= max(sms * per_sm, batch)
