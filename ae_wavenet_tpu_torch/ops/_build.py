@@ -42,12 +42,10 @@ def _nvcc() -> str:
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ip = ctypes.POINTER(ctypes.c_int)
-    lib.awt_fastgen_bf16.argtypes = [p] * 15 + [ip, ip] + [i] * 11 + [f, i, p]
-    lib.awt_fastgen_bf16.restype = i
-    lib.awt_fastgen_q.argtypes = [i] + [p] * 18 + [ip, ip] + [i] * 11 + [f, i, p]
-    lib.awt_fastgen_q.restype = i
-    lib.awt_fastgen_q_max_batch.argtypes = [i] * 7 + [ip]
-    lib.awt_fastgen_q_max_batch.restype = i
+    lib.awt_fastgen.argtypes = [i, ctypes.POINTER(ctypes.c_uint64), ip, f, ip, p]
+    lib.awt_fastgen.restype = i
+    lib.awt_fastgen_device.argtypes = [ip, ip]
+    lib.awt_fastgen_device.restype = i
     lib.awt_vq_lookup.argtypes = [p, p, i, i, i, p, p, p, p, p]
     lib.awt_vq_lookup.restype = i
     for name in ("awt_gated_fwd", "awt_gated_bwd"):

@@ -2,20 +2,27 @@
 
 Replaces the TPU kernel ``ae_wavenet_tpu/ops/fastgen_pallas.py``
 ``generate_fused`` (its bf16, int8 and int4 branches) with
-``csrc/fastgen.cu``, kernels written by hand for Hopper (``sm_90a``).  Each
-step embeds the previous id,
-runs every gated layer with its ring-buffer queue, the post-net and
-Gumbel-max (or greedy) sampling; the contract, down to where bf16
-rounding happens, is spelled out at the top of the CUDA source and
-implemented in plain PyTorch by :func:`generate_fused_reference`.
+``csrc/fastgen.cu``, one kernel template written by hand for Hopper
+(``sm_90a``).  Each step embeds the previous id, runs every gated layer with
+its ring-buffer queue, the post-net and Gumbel-max (or greedy) sampling; the
+contract, down to where bf16 rounding happens, is spelled out at the top of
+the CUDA source and implemented in plain PyTorch by
+:func:`generate_fused_reference`.
 
-What bounds it on the card: every step reads all layer weights (about
-25.6 MB in bf16 at the flagship width), since the AR dependency allows no
-reuse across steps.  They fit the H100's 50 MB L2.  The kernel gives each
-cluster of 8 blocks 8 batch rows for the whole rollout (clusters never
-synchronise); the blocks of a cluster split every GEMM's output columns,
-so each SM reads 1/8 of the weights per step, and exchange activations
-through distributed shared memory.
+What bounds it on the card: the AR dependency allows no reuse of a weight
+within a step, and every step needs all layer weights (about 25.6 MB in
+bf16 at the flagship width).  So the weights must not move each step: one
+persistent cooperative grid of about one block per SM splits every matrix
+by output column (:func:`share_plan`), and each block keeps its column share
+of every layer (201,728 bytes at ``chorowski`` in bf16, 128 blocks) resident
+in shared memory for the whole launch.  Per step what remains is the
+dependency chain: two grid-wide exchanges of activations per layer and
+three for the post-net and the argmax, each a barrier with an L2 round
+trip, and the products (on the tensor cores, operands straight from L2).
+That chain bounds the time at small B; the activations' L2 reads, and for
+int8 / int4 their quantization, bound it at large B.  Layers whose shares
+do not fit stay in global memory and are read through L2 each step by the
+same code.
 
 :func:`generate_fused` dispatches on the device of the tensors it is
 given: CUDA tensors launch the kernel (or raise), CPU tensors take the
@@ -25,18 +32,19 @@ launches, ``.launches_int8`` and ``.launches_int4`` the quantized kernels';
 
 Quantized weights (``quantized="int8"`` or ``"int4"``): per-output-column
 int8 or nibble-packed int4 layer weights, activations quantized to int8 per
-layer and step with one scale over the whole batch tile, int32 sums; the
-embedding and the post-net stay bf16.  The layout is this card's: four
-consecutive input rows of one column share a 32-bit word (``__dp4a``), and
-the input rows are zero-padded to a multiple of 8.  The scale couples every
-batch row, so with more than 8 rows the kernel reduces across the whole grid
-and all its clusters must be resident at once: :func:`quantized_max_batch`
-gives the bound and :func:`generate_fused` raises ``ValueError`` above it.
+layer and step with one scale over the whole batch, int32 sums; the
+embedding and the post-net stay bf16.  The packed layout is this card's:
+four consecutive input rows of one column share a 32-bit word, and the
+input rows are zero-padded to a multiple of 8.  Every block reads the whole
+activation matrix for its own product, so it quantizes it itself, with the
+batch-wide scale taken from the blocks' published maxima: the quantized
+kernels have no batch bound, as the bf16 one has none.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 from typing import NamedTuple
@@ -396,6 +404,212 @@ def _r8(n: int) -> int:
     return -(-n // 8) * 8
 
 
+def _r16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _r64(n: int) -> int:
+    return -(-n // 64) * 64
+
+
+_PASS_ROWS = 64        # batch rows per pass of a GEMM (csrc/fastgen.cu PASS)
+_MISC_SMEM = 64        # csrc/fastgen.cu: block maxima and a broadcast
+_OWN_SMEM = 4096       # csrc/fastgen.cu OWN_BYTES: a block's x and skip columns
+#: the column shares, each in its own matrix's column index space:
+#: ``filter`` and ``gate`` of w_in, ``res`` and ``skip`` of w_out, ``post1``
+#: and ``post2`` of the post-net's two matrices
+SHARES = ("filter", "gate", "res", "skip", "post1", "post2")
+
+
+@dataclasses.dataclass(frozen=True)
+class SharePlan:
+    """How the sampler's grid splits the weights (:func:`share_plan`).
+
+    Block r owns the output columns ``cols(name, r)`` of each matrix; its
+    share of a matrix is K-major per owned column (each column's input rows
+    contiguous, zero-padded to ``col_bytes[name]``, a multiple of 64: the
+    kernel's tensor-core products take 64-byte chunks of a column, a lane 16
+    contiguous bytes of them).  In global memory block r's
+    share is ``stride`` bytes at ``r * stride``: post1, post2, then each
+    layer's filter, gate, res and skip columns.  The post-net and the first
+    ``resident_layers`` layers (``resident_bytes`` at most, over the blocks)
+    are copied into the block's shared memory at the start of a launch; the
+    rest stay in global memory and are read through L2 each step."""
+
+    n_blocks: int
+    n_layers: int
+    widths: tuple          # n_res, n_dil, n_skp, n_post, n_quant, xin
+    col_bytes: dict        # SHARES name -> bytes of one owned column
+    resident_layers: int
+    resident_bytes: int
+    stride: int
+    aux_bytes: int         # own biases, scales and embedding columns
+    part_units: int        # partial sums per row: most owned columns + 1
+    smem_bytes: int        # dynamic shared memory of one block
+
+    def _width(self, name: str) -> int:
+        n_res, n_dil, n_skp, n_post, n_quant, _ = self.widths
+        return {"filter": n_dil, "gate": n_dil, "res": n_res, "skip": n_skp,
+                "post1": n_post, "post2": n_quant}[name]
+
+    def cols(self, name: str, r):
+        """Block r's columns [lo, hi) of matrix ``name`` (r an int, or a
+        tensor of block indices)."""
+        n, g = self._width(name), self.n_blocks
+        base = {"gate": self.widths[1], "skip": self.widths[0]}.get(name, 0)
+        return base + n * r // g, base + n * (r + 1) // g
+
+    def n_cols(self, name: str, r: int) -> int:
+        lo, hi = self.cols(name, r)
+        return hi - lo
+
+    def post_bytes(self, r: int) -> int:
+        return sum(self.n_cols(n, r) * self.col_bytes[n] for n in ("post1", "post2"))
+
+    def layer_bytes(self, r: int) -> int:
+        return sum(self.n_cols(n, r) * self.col_bytes[n]
+                   for n in ("filter", "gate", "res", "skip"))
+
+
+@functools.lru_cache(maxsize=64)
+def share_plan(n_res: int, n_dil: int, n_skp: int, n_post: int, n_quant: int,
+               n_cond: int, n_layers: int, mode: str | None, n_sms: int,
+               smem_capacity: int) -> SharePlan:
+    """The sampler grid's split of the weights on a card with ``n_sms`` SMs
+    and ``smem_capacity`` bytes of shared memory per block (232,448 on an
+    H100).  The block count is the largest count up to ``n_sms`` that
+    divides every output width, when that is at least half the SMs;
+    otherwise ``n_sms`` blocks split each width as evenly as integers allow
+    (some may own no column of a matrix).  Raises ``ValueError`` where no
+    block can hold the post-net's share, the biases and the partial sums.
+    A pure function of its arguments, kept for the next call with them."""
+    mode = _norm_wq(mode)
+    widths = (n_res, n_dil, n_skp, n_post, n_quant)
+    if min(widths + (n_cond + 1, n_layers, n_sms)) < 1:
+        raise ValueError(f"share_plan: widths {widths}, n_cond {n_cond}, "
+                         f"{n_layers} layers, {n_sms} SMs")
+    even = next(g for g in range(n_sms, 0, -1) if all(w % g == 0 for w in widths))
+    n_blocks = even if 2 * even >= n_sms else n_sms
+    xin = 2 * n_res + n_cond
+    k_in, k_dil = _r8(xin), _r8(n_dil)
+    if mode is None:
+        c_in, c_out = 2 * k_in, 2 * k_dil
+    elif mode == "int8":
+        c_in, c_out = k_in, k_dil
+    else:  # int4: a byte holds input rows k and k + Kp/2
+        c_in, c_out = k_in // 2, k_dil // 2
+    # whole 64-byte chunks per column (two tensor-core products each)
+    col_bytes = {"filter": _r64(c_in), "gate": _r64(c_in), "res": _r64(c_out),
+                 "skip": _r64(c_out), "post1": _r64(2 * n_skp),
+                 "post2": _r64(2 * n_post)}
+    plan = SharePlan(n_blocks, n_layers, widths + (xin,), col_bytes, 0, 0, 0, 0, 0, 0)
+    rs = range(n_blocks)
+    widest = max(max(2 * plan.n_cols("filter", r), plan.n_cols("res", r)
+                     + plan.n_cols("skip", r), plan.n_cols("post1", r),
+                     plan.n_cols("post2", r)) for r in rs)
+    part_units = widest + 1  # and the int4 zero-point correction
+    # the own columns' biases and scales of every layer (f32), the
+    # post-net's biases, the embedding's own columns (bf16)
+    aux_bytes = max(_r16(4 * (2 * n_layers * (2 * plan.n_cols("filter", r)
+                                              + plan.n_cols("res", r)
+                                              + plan.n_cols("skip", r))
+                              + plan.n_cols("post1", r) + plan.n_cols("post2", r))
+                         + 2 * n_quant * plan.n_cols("res", r)) for r in rs)
+    # those, partial sums and scores ([64 rows, part_units] f32 each), misc,
+    # and the block's own columns of x and skip (when B rows of them fit)
+    act = aux_bytes + 2 * _PASS_ROWS * part_units * 4 + _MISC_SMEM + _OWN_SMEM
+    post = max(plan.post_bytes(r) for r in rs)
+    layer = max(plan.layer_bytes(r) for r in rs)
+    room = smem_capacity - act - post
+    if room < 0:
+        raise ValueError(
+            f"no block layout takes these widths: the post-net's share, the "
+            f"biases and the partial sums need {act + post} bytes of shared "
+            f"memory per block, the card has {smem_capacity}")
+    resident = min(n_layers, room // layer) if layer else n_layers
+    resident_bytes = max(plan.post_bytes(r) + resident * plan.layer_bytes(r)
+                         for r in rs)
+    stride = _r16(max(plan.post_bytes(r) + n_layers * plan.layer_bytes(r)
+                      for r in rs))
+    return dataclasses.replace(
+        plan, resident_layers=resident, resident_bytes=resident_bytes,
+        stride=stride, part_units=part_units, aux_bytes=aux_bytes,
+        smem_bytes=resident_bytes + act)
+
+
+def plan_for(cfg: WaveNetConfig, mode, n_sms: int, smem_capacity: int) -> SharePlan:
+    return share_plan(cfg.n_res, cfg.n_dil, cfg.n_skp, cfg.n_post, cfg.n_quant,
+                      cfg.n_lc_out + cfg.n_global_embed, len(cfg.dilations), mode,
+                      n_sms, smem_capacity)
+
+
+def _columns(w: torch.Tensor, col_bytes: int) -> torch.Tensor:
+    """[..., K, N] -> [..., N, col_bytes] uint8: each column's K values
+    contiguous, zero-padded."""
+    cols = w.transpose(-1, -2).contiguous()
+    k_bytes = cols.shape[-1] * cols.element_size()
+    cols = cols.view(torch.uint8).reshape(*cols.shape[:-1], k_bytes)
+    return torch.nn.functional.pad(cols, (0, col_bytes - k_bytes))
+
+
+@torch.no_grad()
+def pack_shares(packed, plan: SharePlan) -> torch.Tensor:
+    """The layer and post-net weights as the blocks' shares: [n_blocks,
+    stride] uint8, block r's row laid out as :class:`SharePlan` says.
+
+    One gather of 64-byte units (every column's bytes are whole units):
+    each row is a run of segments, each a block's columns of one matrix
+    (contiguous in the source), then zeros to the stride."""
+    if isinstance(packed, KernelParams):
+        w_in, w_out = packed.w_in, packed.w_out
+    elif isinstance(packed, Int8KernelParams):
+        w_in, w_out = unpack_int8(packed.w_in_q), unpack_int8(packed.w_out_q)
+    else:  # the raw nibble-pair bytes: byte k holds rows k and k + Kp/2
+        w_in, w_out = unpack_int8(packed.w_in_p), unpack_int8(packed.w_out_p)
+    cb, g, n_l = plan.col_bytes, plan.n_blocks, plan.n_layers
+    # the source: the columns of post1, post2, every layer's w_in and w_out,
+    # then one zero unit
+    mats = [_columns(packed.post1_w, cb["post1"]), _columns(packed.post2_w, cb["post2"]),
+            _columns(w_in, cb["filter"]), _columns(w_out, cb["res"])]
+    src = torch.cat([m.flatten() for m in mats] + [w_in.new_zeros(64, dtype=torch.uint8)])
+    base = [0]
+    for m in mats:
+        base.append(base[-1] + m.numel() // 64)
+    dev = src.device
+
+    def seg(name, mat, layer=None):
+        # each block's first unit of its columns of mats[mat] (per layer:
+        # [g, L]) and their count of units
+        lo, hi = plan.cols(name, torch.arange(g, device=dev))
+        units = cb[name] // 64
+        n = (hi - lo) * units
+        if layer is None:
+            return base[mat] + lo * units, n
+        return base[mat] + (layer * mats[mat].shape[-2] + lo[:, None]) * units, n[:, None]
+
+    layer = torch.arange(n_l, device=dev)[None]
+    parts = [seg("post1", 0), seg("post2", 1)]
+    lay = [seg(name, 2 if name in ("filter", "gate") else 3, layer)
+           for name in ("filter", "gate", "res", "skip")]
+    # per layer filter, gate, res, skip: [g, L, 4] -> [g, 4 L]
+    starts = torch.cat([torch.stack([s for s, _ in parts], 1),
+                        torch.stack([s for s, _ in lay], 2).reshape(g, -1)], 1)
+    lens = torch.cat([torch.stack([n for _, n in parts], 1),
+                      torch.stack([n.expand(g, n_l) for _, n in lay], 2).reshape(g, -1)], 1)
+    n_units = plan.stride // 64
+    pad = n_units - lens.sum(1, keepdim=True)
+    starts = torch.cat([starts, torch.full_like(pad, base[-1])], 1)
+    lens = torch.cat([lens, pad], 1)
+    step = torch.ones_like(lens)
+    step[:, -1] = 0  # the zero unit, repeated
+    end = lens.cumsum(1)
+    pos = torch.arange(n_units, device=dev).expand(g, -1).contiguous()
+    which = torch.searchsorted(end, pos, right=True)
+    index = (starts.gather(1, which)
+             + (pos - (end - lens).gather(1, which)) * step.gather(1, which))
+    return src.view(-1, 64)[index].reshape(g, plan.stride)
+
+
 def _check_cuda_args(packed, mode: str | None, cfg: WaveNetConfig,
                      flat: torch.Tensor, prev_id: torch.Tensor,
                      cond: torch.Tensor) -> None:
@@ -453,36 +667,31 @@ def _cuda_error(lib, rc: int, what: str) -> RuntimeError:
 
 
 @functools.lru_cache(maxsize=None)
-def _max_batch(int4: bool, widths: tuple, device_index: int) -> int:
+def _device_caps(device_index: int) -> tuple[int, int]:
+    """(SM count, shared memory a block may opt in to) of the card."""
     from ae_wavenet_tpu_torch.ops import _build
 
     lib = _build.load()
-    out = ctypes.c_int(0)
+    n_sms, smem = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        rc = lib.awt_fastgen_q_max_batch(int(int4), *widths, ctypes.byref(out))
+        rc = lib.awt_fastgen_device(ctypes.byref(n_sms), ctypes.byref(smem))
     if rc != 0:
-        raise _cuda_error(lib, rc, "the quantized sampler's occupancy query")
-    return out.value
+        raise _cuda_error(lib, rc, "the sampler's device query")
+    return n_sms.value, smem.value
 
 
-def quantized_max_batch(cfg: WaveNetConfig, quantized, device) -> int:
-    """The most batch rows the quantized sampler takes on ``device`` at these
-    widths: its batch-wide activation scale is a reduction over the whole
-    grid, so every cluster (8 rows each) must be resident at once."""
-    mode = _norm_wq(quantized)
-    if mode is None:
-        raise ValueError("the bf16 sampler has no batch bound")
+def device_plan(cfg: WaveNetConfig, quantized, device) -> SharePlan:
+    """:func:`share_plan` for ``cfg`` on the CUDA ``device``."""
     device = torch.device(device)
     index = torch.cuda.current_device() if device.index is None else device.index
-    widths = (cfg.n_res, cfg.n_dil, cfg.n_skp, cfg.n_post, cfg.n_quant,
-              cfg.n_lc_out + cfg.n_global_embed)
-    return _max_batch(mode == "int4", widths, index)
+    return plan_for(cfg, _norm_wq(quantized), *_device_caps(index))
 
 
 def generate_fused(packed, cfg: WaveNetConfig,
                    flat: torch.Tensor, prev_id: torch.Tensor, t0: int,
                    cond: torch.Tensor, seed: int, temperature: float = 1.0,
-                   debug_logits: bool = False, quantized=False):
+                   debug_logits: bool = False, quantized=False,
+                   clocks: torch.Tensor | None = None):
     """T autoregressive steps -> (ids [B, T] int32, flat, last_id [B] int32
     [, logits [T, B, n_quant] f32]).
 
@@ -490,8 +699,12 @@ def generate_fused(packed, cfg: WaveNetConfig,
     updated in place; t0 is its phase; cond [B, n_cond, T] already carries
     the speaker embedding (``fastgen.with_gc``).  ``quantized`` (False,
     True/'int8' or 'int4') selects the kernel and the type of ``packed``.
-    On CUDA tensors this launches ``csrc/fastgen.cu`` on the current stream;
-    on CPU tensors it runs :func:`generate_fused_reference`."""
+    On CUDA tensors this launches ``csrc/fastgen.cu`` on the current stream
+    (one cooperative grid: it raises when the card cannot hold every block
+    at once); on CPU tensors it runs :func:`generate_fused_reference`.
+    Instrumentation: ``clocks``, an int64 CUDA tensor of 3, gets block 0's
+    clock cycles over the launch, inside the grid barriers and in the
+    layers' GEMMs."""
     if t0 < 0 or cond.shape[-1] < 1:
         raise ValueError(f"need t0 >= 0 and at least one step, got t0={t0}, "
                          f"{cond.shape[-1]} steps")
@@ -506,47 +719,61 @@ def generate_fused(packed, cfg: WaveNetConfig,
     if flat.device.type != "cuda":
         raise ValueError(f"no sampler for device {flat.device}")
     _check_cuda_args(packed, mode, cfg, flat, prev_id, cond)
-    batch, n_cond, t_len = cond.shape
-    dev = flat.device
-    if mode is not None:
-        bound = quantized_max_batch(cfg, mode, dev)
-        if batch > bound:
-            raise ValueError(
-                f"batch {batch}: the {mode} sampler takes at most {bound} rows "
-                "at these widths on this card (its activation scale spans the "
-                "batch, so all its clusters must be resident at once)")
     from ae_wavenet_tpu_torch.ops import _build
 
     lib = _build.load()
-    cond_tm = cond.permute(2, 0, 1).to(torch.bfloat16).contiguous()
-    prev = prev_id.to(torch.int32).contiguous()
-    ids = torch.empty(batch, t_len, dtype=torch.int32, device=dev)
-    last = torch.empty(batch, dtype=torch.int32, device=dev)
+    batch, n_cond, t_len = cond.shape
+    dev = flat.device
+    plan = device_plan(cfg, mode, dev)
+    share = pack_shares(packed, plan)
+    g, f32, bf16, i32 = plan.n_blocks, torch.float32, torch.bfloat16, torch.int32
+    cond_tm = cond.permute(2, 0, 1).to(bf16).contiguous()
+    prev = prev_id.to(i32).contiguous()
+    ids = torch.empty(batch, t_len, dtype=i32, device=dev)
+    last = torch.empty(batch, dtype=i32, device=dev)
     logits = (torch.empty(t_len, batch, cfg.n_quant, device=dev)
               if debug_logits else None)
+    # scratch: the barrier's arrival count (zeroed), the exchanged
+    # activations, the argmax candidates, each block's x and skip columns
+    # and its published maxima (quantized)
+    scratch = [torch.zeros(2, dtype=torch.int64, device=dev),
+               torch.empty(batch, 2 * cfg.n_res, dtype=bf16, device=dev),
+               torch.empty(batch, cfg.n_dil, dtype=bf16 if mode is None else f32,
+                           device=dev),
+               torch.empty(batch, cfg.n_skp, dtype=bf16, device=dev),
+               torch.empty(batch, cfg.n_post, dtype=bf16, device=dev),
+               torch.empty(batch, g, dtype=f32, device=dev),
+               torch.empty(batch, g, dtype=i32, device=dev),
+               torch.empty(batch, cfg.n_res, dtype=f32, device=dev),
+               torch.empty(batch, cfg.n_skp, dtype=f32, device=dev),
+               torch.empty(g, dtype=f32, device=dev),
+               torch.empty(g, dtype=f32, device=dev)]
+    scales = ((packed.w_in_s, packed.w_out_s) if mode is not None else (None, None))
+    ptrs = [share, scales[0], packed.b_in, scales[1], packed.b_out, packed.embed,
+            packed.post1_b, packed.post2_b, cond_tm, prev, flat, ids, last, logits,
+            *scratch, clocks]
+    ptrs_c = (ctypes.c_uint64 * len(ptrs))(
+        *(0 if v is None else v.data_ptr() for v in ptrs))
     offs, _ = flat_buffers(cfg)
-    n_layers = len(offs)
-    offs_c = (ctypes.c_int * n_layers)(*offs)
-    dils_c = (ctypes.c_int * n_layers)(*cfg.dilations)
+    cb = plan.col_bytes
     greedy = temperature == 0.0
-    state = (cond_tm.data_ptr(), prev.data_ptr(), flat.data_ptr(), ids.data_ptr(),
-             last.data_ptr(), logits.data_ptr() if debug_logits else None)
-    dims = (batch, t_len, n_layers, cfg.n_res, cfg.n_dil, cfg.n_skp, cfg.n_post,
-            cfg.n_quant, n_cond, int(t0), seed, 0.0 if greedy else 1.0 / temperature,
-            int(greedy))
+    ints = [batch, t_len, len(offs), cfg.n_res, cfg.n_dil, cfg.n_skp, cfg.n_post,
+            cfg.n_quant, n_cond, int(t0), seed, int(greedy), g,
+            plan.resident_layers, plan.stride, plan.part_units, plan.smem_bytes, cb["filter"], cb["res"], cb["post1"], cb["post2"],
+            plan.resident_bytes, plan.aux_bytes, *offs, *cfg.dilations]
+    ints_c = (ctypes.c_int * len(ints))(*ints)
+    max_blocks = ctypes.c_int(-1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if mode is None:
-            rc = lib.awt_fastgen_bf16(*(v.data_ptr() for v in packed), *state,
-                                      offs_c, dils_c, *dims, stream)
-        else:
-            # the grid-wide reduction's arrival count and rotating slots
-            scratch = torch.zeros(4, dtype=torch.int64, device=dev)
-            rc = lib.awt_fastgen_q(int(mode == "int4"),
-                                   *(v.data_ptr() for v in packed), *state,
-                                   scratch.data_ptr(), offs_c, dils_c, *dims,
-                                   stream)
+        rc = lib.awt_fastgen(_MODES[mode], ptrs_c, ints_c,
+                             0.0 if greedy else 1.0 / temperature,
+                             ctypes.byref(max_blocks), stream)
     if rc != 0:
+        if 0 <= max_blocks.value < g:
+            raise RuntimeError(
+                f"fastgen {mode or 'bf16'}: the cooperative grid needs {g} blocks "
+                f"of {plan.smem_bytes} bytes of shared memory resident at once; "
+                f"the card holds {max_blocks.value} (is another kernel running?)")
         raise _cuda_error(lib, rc, f"fastgen {mode or 'bf16'} kernel launch")
     if mode is None:
         generate_fused.launches += 1
@@ -558,6 +785,7 @@ def generate_fused(packed, cfg: WaveNetConfig,
     return out + (logits,) if debug_logits else out
 
 
+_MODES = {None: 0, "int8": 1, "int4": 2}  # csrc/fastgen.cu Mode
 generate_fused.launches = 0
 generate_fused.launches_int8 = 0
 generate_fused.launches_int4 = 0

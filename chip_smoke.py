@@ -10,18 +10,28 @@ power limit:
 1. environment: torch, CUDA, nvcc, triton, the card;
 2. build: compiles ae_wavenet_tpu_torch/csrc/*.cu from this checkout and
    prints every kernel's registers, spills and stack from the ptxas report
-   (the Hopper kernels must not spill);
-3. the fused sampler kernels against their plain PyTorch versions at the
-   full width of the ``chorowski`` preset (seeded random weights, rings primed
-   on 2047 context ids, B = 8): greedy ids and logits (and two faults planted
-   in the plain version, which the same check must reject), rings and last
-   ids, chunk carry, the sampling distribution; the same for the int8 and
-   int4 kernels at B = 1 (the CLI's request: one real row in a cluster),
-   B = 8 (one cluster) and B = 64 (eight clusters, the grid-wide activation
-   scale; 64 more primed rows), their first-step logits against the bf16
-   kernel's at every batch, and two more planted faults (the int4
-   zero-point correction dropped, at B = 1 and 8; the scale taken per 8
-   rows, at B = 64); every version's time per step at B = 1, 8, 64;
+   (the Hopper kernels and the sampler's must not spill);
+3. the fused sampler kernels (one cooperative grid, each block's column
+   share of the weights resident in shared memory; the plan's block count
+   and resident bytes printed) against their plain PyTorch versions at the
+   full width of the ``chorowski`` preset (seeded random weights, rings
+   primed on 2047 context ids, B = 8): greedy ids and logits (each row held
+   to the better of the plain version's runs alone and in the batch, which
+   sum in different orders), each row alone giving the kernel's bits in the
+   batch (and three faults planted in
+   the plain version, which the same check must reject:
+   a layer's skip dropped, the ring slot off by one, and one block's share
+   of one layer shifted by a column), rings and last ids, chunk carry, the
+   sampling distribution; the same for the int8 and int4 kernels at B = 1
+   (the CLI's request), B = 8 (one tile), B = 64 and B = 136 (past the
+   120 rows the earlier cluster design could take; 136 more primed rows),
+   their first-step logits against the bf16 kernel's at every batch, and
+   more planted faults (the int4 zero-point correction dropped, at B = 1, 8
+   and 64; the scale taken per 8 rows, at B = 136); every version's time
+   per step at B = 1, 8, 64 beside its bound and PR 5's time (at B = 1 also
+   in one launch of the CLI request's 4,000 steps), and the kernel's own
+   clock split of a step into grid barriers, GEMMs and the rest, with the SM
+   clock it ran at;
 4. the fused VQ lookup kernel against its plain version at the N of the
    serving request and of the training step: codes (differing rows must be
    near-ties), the looked-up rows bit for bit, exact counts, sums, the same
@@ -98,6 +108,11 @@ SAMPLE_T = 2048         # steps of the sampling test at B = 8
 MIN_DRAWS = 8 * SAMPLE_T  # draws of a sampling test, at any batch
 CLI_SAMPLES = 4000      # B = 1 request
 BATCH = 64              # batched request
+Q_BIG_BATCH = 136       # past the earlier cluster design's 120-row bound
+# ms per generated step of the earlier (cluster) design at B = 1 / 8 / 64,
+# PERF.md (NVIDIA H100 80GB HBM3, 700 W)
+PR5_MS = {"bf16": (0.3205, 0.3342, 0.3760), "int8": (0.2698, 0.2831, 0.3562),
+          "int4": (0.2532, 0.2640, 0.3353)}
 BATCH_SAMPLES = 2000
 BATCH_WAV_LEN = 10200   # chorowski: cond frames for 2000 samples after rf
 STACK_B, STACK_T = 2, 4100       # phase 5 checks: 4100 = 64 * 64 + 4 (ragged)
@@ -116,6 +131,9 @@ EVAL_SAMPLES, EVAL_BATCHES = 1000, 2
 # NVIDIA H100 SXM data sheet: dense peaks and the memory rate
 PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
+# and its shared memory: 132 SMs, each reading 128 bytes a clock at the
+# 1.98 GHz boost clock
+SMEM_BYTES_PER_S = 132 * 128 * 1.98e9
 GATED = {  # wrapper -> the Pallas kernel it replaces
     "gated_pair_fused": "ae_wavenet_tpu/ops/gated_pallas.py:217",
     "gated_layer_fused": "ae_wavenet_tpu/ops/gated_pallas.py:105",
@@ -186,21 +204,38 @@ def bound(n_bytes: float, ops: dict) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def sampler_bound(packed, wcfg, batch: int, mode) -> tuple[float, str]:
-    """Bound of one generated step: every weight but the embedding read once
-    (the AR dependency allows no reuse across steps), one embedding row,
-    one ring slot per layer read and written and one cond column per batch
-    row, the id written; the layer GEMMs at the peak of their type."""
+def sampler_bound(packed, wcfg, plan, batch: int, mode) -> tuple[float, str]:
+    """Bound of one generated step, the largest of three times.  Shared
+    memory: every step needs every layer and post-net weight at the SMs (the
+    AR dependency allows no reuse across steps), and the fastest place they
+    can come from is shared memory, where the plan keeps the post-net, the
+    biases and scales and its resident layers: those bytes, with one
+    embedding row per batch row, at the card's aggregate shared-memory rate.
+    Memory: the layers the plan leaves in global memory, and per batch row
+    one ring slot per layer read and written, one cond column, the id
+    written and the activations the blocks exchange (x_prev | x and h per
+    layer, relu(skip), the P1 output), each written once and read once, at
+    the memory rate.  Operations: the layer and post-net products at the
+    peak of their type."""
     n_cond = wcfg.n_lc_out + wcfg.n_global_embed
     n_layers = len(wcfg.dilations)
-    weights = sum(v.numel() * v.element_size()
-                  for name, v in packed._asdict().items() if name != "embed")
-    per_row = 2 * wcfg.n_res + 2 * n_layers * 2 * wcfg.n_res + 2 * n_cond + 4
+    size = {n: v.numel() * v.element_size() for n, v in packed._asdict().items()}
+    layers = sum(v for n, v in size.items() if n.startswith(("w_in", "w_out")))
+    streamed = layers * (n_layers - plan.resident_layers) // n_layers
+    resident = sum(v for n, v in size.items() if n != "embed") - streamed
+    h_bytes = 2 if mode is None else 4
+    exchanged = 2 * (n_layers * (4 * wcfg.n_res + h_bytes * wcfg.n_dil)
+                     + 2 * wcfg.n_skp + 2 * wcfg.n_post)
+    per_row = 2 * n_layers * 2 * wcfg.n_res + 2 * n_cond + 4 + exchanged
+    t_smem = (resident + batch * 2 * wcfg.n_res) / SMEM_BYTES_PER_S
+    t_mem = (streamed + batch * per_row) / HBM_BYTES_PER_S
     layer_ops = 2 * batch * n_layers * ((2 * wcfg.n_res + n_cond) * 2 * wcfg.n_dil
                                         + wcfg.n_dil * (wcfg.n_res + wcfg.n_skp))
     post_ops = 2 * batch * (wcfg.n_skp * wcfg.n_post + wcfg.n_post * wcfg.n_quant)
     ops = {"bf16": post_ops, "int8": layer_ops} if mode else {"bf16": layer_ops + post_ops}
-    return bound(weights + batch * per_row, ops)
+    t_ops = sum(n / PEAK[kind] for kind, n in ops.items())
+    t_bytes = max(t_smem, t_mem)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def tensor_bytes(*trees) -> int:
@@ -299,8 +334,11 @@ def phase_build(card: str) -> None:
               f"loads {ld} B, stack {stack} B | {card}")
     hopper = [k for k in kernels if k.startswith("wg_")]
     check(len(hopper) >= 5, f"ptxas report lists the Hopper kernels {hopper}")
-    check(all(kernels[k][1] == kernels[k][2] == 0 for k in hopper),
-          f"a Hopper kernel spills: {[(k, kernels[k]) for k in hopper]}")
+    sampler = [k for k in kernels if k.startswith("fastgen_kernel")]
+    check(len(sampler) == 3, f"ptxas report lists the sampler kernels {sampler}")
+    check(all(kernels[k][1] == kernels[k][2] == 0 for k in hopper + sampler),
+          f"a Hopper or sampler kernel spills: "
+          f"{[(k, kernels[k]) for k in hopper + sampler]}")
 
 
 @contextlib.contextmanager
@@ -339,6 +377,13 @@ def _phase_kernel(card: str, dev) -> dict:
     packed = fc.pack_for_kernel(model.wavenet, wcfg)
     rf, b = sum(wcfg.dilations), 8
     n_cond = wcfg.n_lc_out + wcfg.n_global_embed
+    plans = {m: fc.device_plan(wcfg, m, dev) for m in (None, "int8", "int4")}
+    for m, pl in plans.items():
+        print(f"[kernel] share plan {m or 'bf16'}: {pl.n_blocks} blocks, columns "
+              f"{[pl.n_cols(n, 0) for n in fc.SHARES]} ({'/'.join(fc.SHARES)}) of "
+              f"block 0, {pl.resident_bytes} B of weights resident per block "
+              f"({pl.resident_layers} of {len(wcfg.dilations)} layers + post-net), "
+              f"{pl.smem_bytes} B of shared memory | {card}")
 
     def primed(n_rows):
         ctx = torch.randint(0, wcfg.n_quant, (n_rows, rf + 1), generator=gen).to(dev)
@@ -366,23 +411,61 @@ def _phase_kernel(card: str, dev) -> dict:
     ids_r, _, _, lg_r = run(fc.generate_fused_reference, GREEDY_T, 0, 0.0)
     torch.cuda.synchronize()
     scale = float(lg_r.abs().max())
-    agree, max_abs = compare(ids_k, lg_k, ids_r, lg_r)
+    agree_b, _ = compare(ids_k, lg_k, ids_r, lg_r)
     check(bool(torch.isfinite(lg_k).all()), "non-finite kernel logits")
+    # each row alone (B = 1): the kernel gives the same bits as in the batch;
+    # the plain version does not (cuBLAS sums in another order at 1 row than
+    # at 8), so each row is held to the better of the plain version's two
+    # runs, alone and in the batch
+    agree, agree_a, max_abs = [], [], 0.0
+    for r in range(b):
+        ring1, prev1 = flat[:, r:r + 1].contiguous(), prev[r:r + 1].contiguous()
+        cond1 = gcond[r:r + 1, :, :GREEDY_T].contiguous()
+        k1 = fc.generate_fused(packed, wcfg, ring1.clone(), prev1, state.t, cond1, 0,
+                               0.0, True)
+        check(torch.equal(k1[0][0], ids_k[r]) and torch.equal(k1[3][:, 0], lg_k[:, r]),
+              f"kernel row {r} alone differs from the same row in the batch")
+        r1 = fc.generate_fused_reference(packed, wcfg, ring1.clone(), prev1, state.t,
+                                         cond1, 0, 0.0, True)
+        runs = [compare(ids_k[r:r + 1], lg_k[:, r:r + 1], ids, lg)
+                for ids, lg in ((ids_r[r:r + 1], lg_r[:, r:r + 1]), (r1[0], r1[3]))]
+        agree_a.append(runs[1][0][0])
+        (a_best,), m_best = max(runs, key=lambda c: c[0][0])
+        agree.append(a_best)
+        max_abs = max(max_abs, m_best)
     check(passes(agree, max_abs / scale),
-          f"greedy kernel vs plain: prefixes {agree}, logits {max_abs / scale:.4g} "
-          f"of max|logits| (need every prefix >= {MIN_PREFIX}, < {LOGIT_REL_TOL})")
-    print(f"[kernel] greedy T={GREEDY_T} B={b}: ids agree for {agree} steps (each "
-          f">= {MIN_PREFIX}), logits max|d| {max_abs:.4g} = {max_abs / scale:.4g} of "
-          f"max|logits| {scale:.4g} (tol {LOGIT_REL_TOL}) | {card}")
+          f"greedy kernel vs plain: prefixes {agree} (in the batch {agree_b}, alone "
+          f"{agree_a}), logits {max_abs / scale:.4g} of max|logits| (need prefixes >= "
+          f"{MIN_PREFIX}, < {LOGIT_REL_TOL})")
+    print(f"[kernel] greedy T={GREEDY_T} B={b}: each row alone gives the kernel's "
+          f"bits in the batch | {card}")
+    print(f"[kernel] greedy T={GREEDY_T} B={b}: ids agree with the plain version in "
+          f"the batch for {agree_b} steps, alone for {agree_a}; the better of the two "
+          f"{agree} (each >= {MIN_PREFIX}), logits max|d| {max_abs:.4g} = "
+          f"{max_abs / scale:.4g} of max|logits| {scale:.4g} (tol {LOGIT_REL_TOL}) "
+          f"| {card}")
 
     # the same check on planted faults of the plain version must fail
     l_bad = len(wcfg.dilations) // 2
     w_out, b_out = packed.w_out.clone(), packed.b_out.clone()
     w_out[l_bad, :, wcfg.n_res:] = 0
     b_out[l_bad, wcfg.n_res:] = 0
+    # one block's share of one layer shifted by a column: block r_bad reads
+    # each of its columns of layer 0 one column to the right (the shares
+    # differ in its row only)
+    plan, r_bad = plans[None], plans[None].n_blocks // 3
+    s_in, s_out = packed.w_in.clone(), packed.w_out.clone()
+    for name, w in (("filter", s_in), ("gate", s_in), ("res", s_out), ("skip", s_out)):
+        lo, hi = plan.cols(name, r_bad)
+        w[0, :, lo:hi] = w[0, :, lo + 1:hi + 1].clone()
+    shifted = packed._replace(w_in=s_in, w_out=s_out)
+    rows_differ = (fc.pack_shares(shifted, plan) != fc.pack_shares(packed, plan)).any(1)
+    check(rows_differ.nonzero().flatten().tolist() == [r_bad],
+          f"the shifted share differs in blocks {rows_differ.nonzero().flatten().tolist()}")
     faults = {f"layer {l_bad} skip dropped": (packed._replace(w_out=w_out, b_out=b_out),
                                               state.t),
-              "ring slot off by one": (packed, state.t + 1)}
+              "ring slot off by one": (packed, state.t + 1),
+              f"block {r_bad}'s layer 0 share shifted by a column": (shifted, state.t)}
     for name, (pk, t_f) in faults.items():
         ids_f, _, _, lg_f = fc.generate_fused_reference(
             pk, wcfg, flat.clone(), prev, t_f, gcond[..., :GREEDY_T], 0,
@@ -434,39 +517,75 @@ def _phase_kernel(card: str, dev) -> dict:
     packs = {"bf16": packed, **{m: fc.PACKERS[m](model.wavenet, wcfg)
                                 for m in ("int8", "int4")}}
     # the quantized kernels on primed states at the batch of the CLI's
-    # request (row 0: one real row among a cluster's eight), of one cluster
-    # and of eight clusters; each with cond for MIN_DRAWS sampled draws
-    state_all = primed(BATCH)
-    q_inputs = {1: (flat[:, :1].contiguous(), prev[:1].contiguous(), state.t,
-                    (torch.randn(1, n_cond, MIN_DRAWS, generator=gen) * 0.3).to(dev)),
+    # request (one real row), of one 8-row tile, of the batched request and
+    # past the earlier design's 120-row bound; each with cond for at least
+    # MIN_DRAWS sampled draws
+    state_all = primed(Q_BIG_BATCH)
+    flat_all = fc.state_to_flat(state_all, wcfg)
+
+    def draws(n_rows):
+        return (torch.randn(n_rows, n_cond, -(-MIN_DRAWS // n_rows), generator=gen)
+                * 0.3).to(dev)
+
+    q_inputs = {1: (flat[:, :1].contiguous(), prev[:1].contiguous(), state.t, draws(1)),
                 b: (flat, prev, state.t, gcond),
-                BATCH: (fc.state_to_flat(state_all, wcfg), state_all.prev_id,
-                        state_all.t,
-                        (torch.randn(BATCH, n_cond, MIN_DRAWS // BATCH, generator=gen)
-                         * 0.3).to(dev))}
+                BATCH: (flat_all[:, :BATCH].contiguous(),
+                        state_all.prev_id[:BATCH].contiguous(), state_all.t,
+                        draws(BATCH)),
+                Q_BIG_BATCH: (flat_all, state_all.prev_id, state_all.t,
+                              draws(Q_BIG_BATCH))}
     for mode in ("int8", "int4"):
         out[mode] = {"max_abs_err": _check_quantized(card, dev, fc, wcfg, mode,
                                                      packs, q_inputs)}
 
     # time per generated step, every kernel and every plain version, on a
-    # random ring; all from this one call
-    for bb in (1, 8, BATCH):
+    # random ring; all from this one call.  At B = 1 also one launch as long
+    # as the CLI request's.  The SM clock is block 0's clock cycles over the
+    # instrumented launch's time.
+    for k, bb in enumerate((1, 8, BATCH)):
+        t_len = max(GREEDY_T, CLI_SAMPLES if bb == 1 else 0)
         ring = torch.randn(rf, bb, wcfg.n_res, generator=gen).to(dev, torch.bfloat16)
         prev = torch.randint(0, wcfg.n_quant, (bb,), generator=gen).to(dev)
-        cnd = (torch.randn(bb, n_cond, GREEDY_T, generator=gen) * 0.3).to(dev)
+        cnd = (torch.randn(bb, n_cond, t_len, generator=gen) * 0.3).to(dev)
         for name, pk in packs.items():
             mode = None if name == "bf16" else name
-            k_ms = cuda_ms(lambda: fc.generate_fused(
-                pk, wcfg, ring, prev, 0, cnd, 5, 1.0, quantized=mode), 3) / GREEDY_T
+
+            def gen_ms(steps, reps, clk=None):
+                return cuda_ms(lambda: fc.generate_fused(
+                    pk, wcfg, ring, prev, 0, cnd[..., :steps], 5, 1.0, quantized=mode,
+                    clocks=clk), reps) / steps
+
+            k_ms = gen_ms(GREEDY_T, 3)
             p_ms = cuda_ms(lambda: fc.generate_fused_reference(
                 pk, wcfg, ring, prev, 0, cnd[..., :PLAIN_T], 5, 1.0, quantized=mode),
                 1) / PLAIN_T
-            b_ms, by = sampler_bound(pk, wcfg, bb, mode)
-            print(f"[kernel] {name} B={bb}: kernel {k_ms:.4f} ms/step, plain {p_ms:.4f} "
-                  f"ms/step ({bb / k_ms * 1e3:.0f} vs {bb / p_ms * 1e3:.0f} samples/s); "
-                  f"bound {b_ms:.5f} ms/step by {by} | {card}")
+            b_ms, by = sampler_bound(pk, wcfg, plans[mode], bb, mode)
+            print(f"[kernel] {name} B={bb}: kernel {k_ms:.4f} ms/step at T={GREEDY_T} "
+                  f"a launch (PR 5's cluster design: {PR5_MS[name][k]}), plain "
+                  f"{p_ms:.4f} ms/step ({bb / k_ms * 1e3:.0f} vs {bb / p_ms * 1e3:.0f} "
+                  f"samples/s); bound {b_ms:.5f} ms/step by {by}, "
+                  f"{100 * b_ms / k_ms:.2f}% of it | {card}")
             out[name].setdefault("by_batch", {})[bb] = {
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by}
+            # where a step's time goes: block 0's clock cycles in all, in the
+            # grid barriers (arrival to release) and in the layers' GEMMs
+            for steps in sorted({GREEDY_T, t_len}):
+                clk = torch.zeros(3, dtype=torch.int64, device=dev)
+                c_ms = gen_ms(steps, 1, clk)
+                total, bars, gemms = (v / steps for v in clk.tolist())
+                check(0 < bars < total and 0 < gemms < total, f"{name} B={bb}: clock "
+                      f"split {clk.tolist()}")
+                print(f"[kernel] {name} B={bb} T={steps}: instrumented launch "
+                      f"{c_ms:.4f} ms/step, SM clock {total / c_ms / 1e6:.3f} GHz; one "
+                      f"step (block 0, clock cycles): {total:.0f} in all, {bars:.0f} "
+                      f"({100 * bars / total:.1f}%) in {2 * len(wcfg.dilations) + 3} "
+                      f"grid barriers, {gemms:.0f} ({100 * gemms / total:.1f}%) in the "
+                      f"layers' GEMMs, {total - bars - gemms:.0f} in the rest | {card}")
+            if t_len > GREEDY_T:
+                l_ms = gen_ms(t_len, 1)
+                out[name]["by_batch"][bb]["ms_cli_launch"] = l_ms
+                print(f"[kernel] {name} B={bb}: kernel {l_ms:.4f} ms/step at T={t_len} "
+                      f"a launch (the CLI request's) | {card}")
     return out
 
 

@@ -9,6 +9,8 @@ without the JAX suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -17,9 +19,9 @@ from ae_wavenet_tpu_torch.ops import fastgen as tfg
 from ae_wavenet_tpu_torch.ops import fastgen_cuda as tfc
 from ae_wavenet_tpu_torch.utils.config import WaveNetConfig
 
-# "scalar": widths that are not multiples of 8 columns per block slice
-# (the kernel's scalar-load path); "vector": multiples of 64 (its 16-byte
-# load path, as at the flagship width)
+# "scalar": widths with no common divisor near the SM count, so the grid's
+# blocks split them unevenly and many own no column of a matrix; "vector":
+# multiples of 64 (an even split, as at the flagship width)
 CFGS = {
     "scalar": WaveNetConfig(n_blocks=2, n_block_layers=4, n_res=48, n_dil=40,
                             n_skp=24, n_post=32, n_lc_out=12, n_global_embed=4,
@@ -122,6 +124,10 @@ def test_kernel_rejects_what_it_cannot_take(cuda_device):
 # integer sums are exact on both sides; only tanhf/expf and the post-net's
 # sums differ, and an f32 ulp may flip one activation code by one unit
 Q_LOGIT_TOL = 1e-2
+# at the ``chorowski`` widths (chip_smoke.py LOGIT_REL_TOL and
+# Q_LOGIT_REL_TOL; tests_tpu/test_pallas_tpu.py:236 for bf16): f32 sums of
+# 928-wide products in another order, through 20 layers or more
+FLAGSHIP_TOL = {None: 0.05, "int8": 0.01, "int4": 0.01}
 
 
 @pytest.mark.cuda
@@ -129,10 +135,10 @@ Q_LOGIT_TOL = 1e-2
 @pytest.mark.parametrize("batch", [1, 11, 16])
 @pytest.mark.parametrize("mode", ["int8", "int4"])
 def test_quantized_kernel_matches_plain_version(cuda_device, name, batch, mode):
-    """int8 and int4 kernels against the plain version: one cluster (B = 1),
-    two clusters with a ragged one (B = 11: the scale spans both, dummy rows
-    stay out of it) and B = 16; ids over each row's inclusive agreeing
-    prefix, logits there within Q_LOGIT_TOL of max |logits|."""
+    """int8 and int4 kernels against the plain version: one row (B = 1),
+    two 8-row tiles with a ragged one (B = 11: the scale spans both, rows
+    past B stay out of it) and B = 16; ids over each row's inclusive
+    agreeing prefix, logits there within Q_LOGIT_TOL of max |logits|."""
     n, cfg = 24, CFGS[name]
     packed, flat, state, cond = _setup(cuda_device, batch, n, cfg=cfg,
                                        pack=tfc.PACKERS[mode])
@@ -176,17 +182,79 @@ def test_quantized_kernel_chunk_carry_and_batch_bound(cuda_device, mode):
     a, ring, last = run(flat.clone(), state.prev_id, state.t, cond[..., :10])
     b = run(ring, last, state.t + 10, cond[..., 10:])[0]
     assert torch.equal(whole, torch.cat([a, b], 1))
-    # above the co-residency bound the wrapper raises, naming the bound
-    bound = tfc.quantized_max_batch(CFG, mode, cuda_device)
-    assert bound >= 8 and bound % 8 == 0
-    big = bound + 1
-    with pytest.raises(ValueError, match=f"at most {bound} rows"):
-        tfc.generate_fused(
-            packed, CFG, torch.zeros(sum(CFG.dilations), big, CFG.n_res,
-                                     dtype=torch.bfloat16, device=cuda_device),
-            torch.zeros(big, dtype=torch.long, device=cuda_device), 0,
-            torch.zeros(big, cond.shape[1], 2, device=cuda_device), 0, 0.0,
-            quantized=mode)
+    # no batch bound (the old cluster design refused more than 120 rows at
+    # the flagship width): 17 tiles of 8 rows against the plain version
+    _held_to_plain(cuda_device, CFG, mode, 136, 8, seed=5)
+
+
+def _held_to_plain(dev, cfg, mode, batch, n, seed, primed=True, tol=None):
+    """The kernel against the plain version on one input: ids over each
+    row's inclusive agreeing prefix, logits there within the tolerance of
+    max |logits|, and every row agreeing at least half the steps."""
+    pack = tfc.PACKERS[mode]
+    if primed:
+        packed, flat, state, cond = _setup(dev, batch, n, seed=seed, cfg=cfg, pack=pack)
+        prev, t0 = state.prev_id, state.t
+    else:  # a random ring: priming a deep stack takes thousands of eager steps
+        gen = torch.Generator().manual_seed(seed)
+        wn = twn.WaveNet(cfg, gen)
+        with torch.no_grad():
+            wn.post2["w"].mul_(50.0)
+        packed = pack(wn.to(dev), cfg)
+        n_cond = cfg.n_lc_out + cfg.n_global_embed
+        flat = (torch.randn(sum(cfg.dilations), batch, cfg.n_res, generator=gen)
+                * 0.5).to(dev, torch.bfloat16)
+        prev = torch.randint(0, cfg.n_quant, (batch,), generator=gen).to(dev)
+        cond = (torch.randn(batch, n_cond, n, generator=gen) * 0.3).to(dev)
+        t0 = 3
+    got = tfc.generate_fused(packed, cfg, flat.clone(), prev, t0, cond, 9, 1.0,
+                             debug_logits=True, quantized=mode)
+    want = tfc.generate_fused_reference(packed, cfg, flat.clone(), prev, t0, cond,
+                                        9, 1.0, debug_logits=True, quantized=mode)
+    torch.cuda.synchronize()
+    tol = tol or (LOGIT_TOL if mode is None else Q_LOGIT_TOL)
+    scale = float(want[3].abs().max())
+    assert bool(torch.isfinite(got[3]).all())
+    agree = 0
+    for r in range(batch):
+        diff = torch.nonzero(got[0][r] != want[0][r])
+        t_div = n if len(diff) == 0 else int(diff[0])
+        agree += t_div
+        hi = min(t_div + 1, n)
+        rel = float((got[3][:hi, r] - want[3][:hi, r]).abs().max()) / scale
+        assert rel < tol, (r, t_div, rel)
+    assert agree >= n * batch // 2
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,n_blocks", [(None, 4), ("int8", 6)])
+def test_kernel_partly_resident_matches_plain(cuda_device, mode, n_blocks):
+    """40 layers (bf16, about 51 MB of weights) and 60 (int8) at the
+    ``chorowski`` widths: the first layers' shares live in shared memory,
+    the rest are read from global memory by the same kernel; B = 2 against
+    the plain version, at the flagship's tolerances (chip_smoke.py)."""
+    from ae_wavenet_tpu_torch.utils.config import chorowski_config
+
+    cfg = dataclasses.replace(chorowski_config().wavenet, n_blocks=n_blocks)
+    plan = tfc.device_plan(cfg, mode, cuda_device)
+    assert 0 < plan.resident_layers < len(cfg.dilations)
+    _held_to_plain(cuda_device, cfg, mode, 2, 12, seed=6, primed=False,
+                   tol=FLAGSHIP_TOL[mode])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [None, "int8", "int4"])
+def test_kernel_gives_the_same_bits_twice(cuda_device, mode):
+    """Fixed-order sums: a second launch on the same inputs gives the same
+    ids, rings, last ids and logits."""
+    packed, flat, state, cond = _setup(cuda_device, 11, 16, seed=7,
+                                       pack=tfc.PACKERS[mode])
+    runs = [tfc.generate_fused(packed, CFG, flat.clone(), state.prev_id, state.t,
+                               cond, 9, 1.0, debug_logits=True, quantized=mode)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 # ------------------------------------------------ the fused VQ lookup
@@ -391,6 +459,39 @@ def test_gated_kernel_rejects_planted_fault(cuda_device, name):
     wrapper, call = gchk.segment_calls(dils, cond_tm, packed, xs, ys, cot)[segment]
     _, rel = gchk.compare_outputs(call(getattr(tgc, wrapper)), call(bad))
     assert rel >= gchk.SEGMENT_REL_TOL, rel
+
+
+@pytest.mark.cuda
+def test_gated_kernel_gate_near_zero_matches_plain(cuda_device):
+    """Filter pre-activations planted at |v| <= 1e-5 (w_in zero, so y is the
+    bias; gate 0, so sigmoid is 1/2) through K1b, and w_out routing h alone
+    into skip: h = bf16(tanh(v) / 2) equals the plain version's bit for bit.
+    The gate's fast tanh, 1 - 2 / (e^{2v} + 1), cancels there (relative
+    error 1e-3 at 1e-5, 5e-2 at 1e-6: above bf16's half-ulp)."""
+    cfg, dev, batch, p_len = GCFG, cuda_device, 2, 150
+    n_res, n_dil, n_skp = cfg.n_res, cfg.n_dil, cfg.n_skp
+    n_cond = cfg.n_lc_out + cfg.n_global_embed
+    assert n_dil == n_skp
+    gen = torch.Generator().manual_seed(4)
+    mag = 10.0 ** (-7.0 + 2.0 * torch.rand(n_dil, generator=gen))
+    sign = torch.where(torch.rand(n_dil, generator=gen) < 0.5, -1.0, 1.0)
+    w_in = torch.zeros(2 * n_res + n_cond, 2 * n_dil)
+    b_in = torch.cat([sign * mag, torch.zeros(n_dil)])
+    w_out = torch.cat([torch.zeros(n_dil, n_res), torch.eye(n_dil)], 1)
+    b_out = torch.zeros(n_res + n_skp)
+    x = torch.randn(batch, p_len, n_res, generator=gen).to(torch.bfloat16)
+    cond = torch.randn(batch, p_len, n_cond, generator=gen).to(torch.bfloat16)
+    args = [t.to(dev) for t in (x, cond)]
+    weights = [t.to(dev) for t in (w_in, b_in, w_out, b_out)]
+    skips = []
+    for fn in (tgc.gated_layer_fused, tgt.gated_layer_fused_reference):
+        skip = torch.zeros(batch, p_len, n_skp, device=dev)
+        fn(*args, skip, *weights, dd=1, r0=1)
+        skips.append(skip[:, 1:])
+    torch.cuda.synchronize()
+    want = (torch.tanh(b_in[:n_dil].double()) * 0.5).to(torch.bfloat16).float()
+    assert torch.equal(skips[1][0, 0].cpu(), want)
+    assert torch.equal(skips[0], skips[1])
 
 
 @pytest.mark.cuda
