@@ -8,8 +8,8 @@
 //   gated_layer_bwd (K2b) and gated_pair_bwd (K2)      -> wg_bwd_kernel<1|2>
 //                                                         + wg_dw_kernel
 //     (K2b's recompute mode, no saved y: gated_bwd_recompute_kernel)
-//   gated_stack_fused (K7, every layer in one launch)  -> gated_stack_kernel
-//   gated_group_bwd (K8, G >= 3 layers in one launch)  -> gated_group_kernel
+//   gated_stack_fused (K7, every layer in one launch)  -> wg_stack_kernel
+//   gated_group_bwd (K8, G >= 3 layers in one launch)  -> wg_group_kernel
 //                                                         + wg_dw_kernel
 // The contract (rounding points and masks) is written out at the top of
 // ops/gated.py, which also holds the plain PyTorch version of each.
@@ -18,9 +18,8 @@
 // rows, layer i valid from row vl_i.
 //
 // Two tile cores.  The Hopper core (wgmma fed by TMA, "Hopper core" below)
-// runs K1, K1b, K2, K2b with saved y and every weight-gradient product; it
-// reads the weights unpadded.  The first core (WMMA fragments from L2, one
-// 8-warp block per SM) still runs K7, K8's data-gradient tiles and K2b's
+// runs every kernel but one, on the weights as they are.  The first core
+// (WMMA fragments from L2, one 8-warp block per SM) runs only K2b's
 // recompute mode, on weights zero-padded to 16-column multiples (Rp, Cp,
 // Dp, Sp):
 //   win  [2Rp + Cp][2Dp]  rows prev | cur | cond, cols f | g
@@ -61,8 +60,10 @@
 //     inter-layer streams the backward needs anyway (or two buffers used
 //     in turn when nothing is saved), and for the backward one f32 buffer
 //     of same-row cotangents updated in place plus two f32 buffers of
-//     prev-tap cotangents, written at row g - dd, used in turn.  A barrier
-//     that is not met within seconds traps.
+//     prev-tap cotangents, written at row g - dd, used in turn.  Rows that
+//     another block wrote in the launch are read through L2 (cp.async.cg,
+//     ld.global.cg), never from a stale L1 line.  A barrier that is not met
+//     within seconds traps.
 
 #include <cuda.h>  // CUtensorMap; the encoder comes from the runtime's driver entry point
 #include <cuda_bf16.h>
@@ -151,126 +152,10 @@ __device__ void load_xin(bf16* xs, const Dims& d, int b, int t0, int nr,
   }
 }
 
-// ------------------------------------------------------------- forward
-
-struct FwdLayer {
-  const bf16* win; const float* bin; const bf16* wout; const float* bout;
-  bf16* y;  // [B, P, 2D] or null
-  int dd;
-};
-
-struct FwdP {
-  Dims d;
-  float* skip;
-};
-
-// One layer on the tile whose xin is in shared memory.  The new residual
-// row g goes to out + (g - out_row0) * R (nowhere when out is null); halo
-// tiles write neither skip nor y.
-__device__ void fwd_layer_tile(const FwdP& p, const FwdLayer& L, int b, int t0,
-                               int nr, bf16* out, int out_row0, bool halo,
-                               bf16* xs, bf16* hs, float* stage) {
-  const Dims& d = p.d;
-  const int ldx = d.kp() + SKEW, ldh = d.Dp + SKEW, ldw = 2 * d.Dp, lo = d.rsp();
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* st = stage + warp * STAGE;
-  const int rr = lane >> 1, cc = (lane & 1) * 8;
-
-  // y = xin @ w_in + b_in, gate, h -> shared memory (bf16)
-  for (int ni = warp; ni < d.Dp / 16; ni += NWARP) {
-    FragC af[4], ag[4];
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-      wmma::fill_fragment(af[mi], 0.f);
-      wmma::fill_fragment(ag[mi], 0.f);
-    }
-    for (int k = 0; k < d.kp(); k += 16) {
-      FragB bf, bg;
-      wmma::load_matrix_sync(bf, L.win + (size_t)k * ldw + ni * 16, ldw);
-      wmma::load_matrix_sync(bg, L.win + (size_t)k * ldw + d.Dp + ni * 16, ldw);
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        FragA a;
-        wmma::load_matrix_sync(a, xs + mi * 16 * ldx + k, ldx);
-        wmma::mma_sync(af[mi], a, bf, af[mi]);
-        wmma::mma_sync(ag[mi], a, bg, ag[mi]);
-      }
-    }
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-      wmma::store_matrix_sync(st, af[mi], 16, wmma::mem_row_major);
-      wmma::store_matrix_sync(st + 256, ag[mi], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int row = mi * 16 + rr, n0 = ni * 16 + cc, g = t0 + row;
-      float yf[8], yg[8], hv[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        yf[e] = st[rr * 16 + cc + e] + L.bin[n0 + e];
-        yg[e] = st[256 + rr * 16 + cc + e] + L.bin[d.Dp + n0 + e];
-        hv[e] = tanhf(yf[e]) * sigm(yg[e]);
-      }
-      if (!halo && L.y && row < nr && n0 < d.D) {
-        bf16* yp = L.y + ((size_t)b * d.P + g) * 2 * d.D;
-        st8(yp + n0, yf);
-        st8(yp + d.D + n0, yg);
-      }
-      st8(hs + row * ldh + n0, hv);
-      __syncwarp();
-    }
-  }
-  __syncthreads();
-
-  // out = h @ w_out + b_out; x' = bf16(x + bf16(res)); skip += skip term
-  for (int nj = warp; nj < lo / 16; nj += NWARP) {
-    FragC acc[4];
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi) wmma::fill_fragment(acc[mi], 0.f);
-    for (int k = 0; k < d.Dp; k += 16) {
-      FragB bw;
-      wmma::load_matrix_sync(bw, L.wout + (size_t)k * lo + nj * 16, lo);
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        FragA a;
-        wmma::load_matrix_sync(a, hs + mi * 16 * ldh + k, ldh);
-        wmma::mma_sync(acc[mi], a, bw, acc[mi]);
-      }
-    }
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-      wmma::store_matrix_sync(st, acc[mi], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int row = mi * 16 + rr, n0 = nj * 16 + cc, g = t0 + row;
-      if (row < nr) {
-        float o[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) o[e] = st[rr * 16 + cc + e] + L.bout[n0 + e];
-        if (n0 < d.Rp) {
-          if (n0 < d.R && out) {
-            float xc[8];
-            ld8(xc, xs + row * ldx + d.Rp + n0);
-#pragma unroll
-            for (int e = 0; e < 8; ++e) o[e] = xc[e] + rbf(o[e]);
-            st8(out + (size_t)(g - out_row0) * d.R + n0, o);
-          }
-        } else if (!halo && n0 - d.Rp < d.S) {
-          float* sk = p.skip + ((size_t)b * d.P + g) * d.S + (n0 - d.Rp);
-          float s[8];
-          ldf8(s, sk);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) s[e] += o[e];
-          stf8(sk, s);
-        }
-      }
-      __syncwarp();
-    }
-  }
-  __syncthreads();
-}
-
-// ------------------------------------------------------------ backward
+// ------------------------------------ K2b's recompute mode (first core)
 
 struct BwdLayer {
-  const bf16* x; const bf16* y;  // y null: recompute mode
+  const bf16* x;
   const bf16* win; const float* bin; const bf16* wout;
   bf16* gy; bf16* h; bf16* gout;  // [B, P, 2D], [B, P, D], [B, P, R + S]
   int dd, vl;
@@ -280,34 +165,16 @@ struct BwdP {
   Dims d;
   const bf16* cond; const bf16* gxcur; const bf16* gxprev; const bf16* gskip;
   float* gcond; bf16* gxc; bf16* gxp;
-  float* gcur2; float* gp2;  // the layer above -> this layer cotangent (f32)
-  float* gp2w;               // where this layer writes its own prev-tap part
-  float* yf;                 // recompute: f32 y [B, P, 2Dp]
-  BwdLayer L[2];
+  float* yf;  // the recomputed f32 y [B, P, 2Dp]
+  BwdLayer L;
   int prev_dd, cur_vl, r0, chunk;
 };
 
-// Where a layer's upstream comes from and where its cotangents go: bf16
-// streams both ways (SINGLE), bf16 in and f32 out (UPPER; HALO writes only
-// the prev-tap part), f32 in and bf16 out (LOWER), f32 both ways (INNER).
-enum Mode { SINGLE = 0, UPPER = 1, LOWER = 2, HALO = 3, INNER = 4 };
-
 // Upstream cotangent of the layer's output rows g, channels r..r+7 (before
 // the layer's own valid mask).
-__device__ __forceinline__ void gxn8(const BwdP& p, int mode, int b, int g,
-                                     int r, float* o) {
+__device__ __forceinline__ void gxn8(const BwdP& p, int b, int g, int r, float* o) {
   const Dims& d = p.d;
   const size_t off = ((size_t)b * d.P + g) * d.R + r;
-  if (mode == LOWER || mode == INNER) {
-    ldf8(o, p.gcur2 + off);
-    if (g + p.L[1].dd < d.P) {
-      float q[8];
-      ldf8(q, p.gp2 + off);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) o[e] += q[e];
-    }
-    return;
-  }
 #pragma unroll
   for (int e = 0; e < 8; ++e) o[e] = 0.f;
   if (g >= p.cur_vl) ld8(o, p.gxcur + off);
@@ -319,31 +186,25 @@ __device__ __forceinline__ void gxn8(const BwdP& p, int mode, int b, int g,
   }
 }
 
-// The layer's f32 gate pre-activations at row g, gate channels n..n+7
-// (f and g halves), zero on rows outside its lattice.
-__device__ __forceinline__ void y8(const BwdP& p, const BwdLayer& L, int b,
-                                   int g, bool ok, int n, float* yf, float* yg) {
+// The layer's recomputed f32 gate pre-activations at row g, gate channels
+// n..n+7 (f and g halves), zero on rows outside its lattice.
+__device__ __forceinline__ void y8(const BwdP& p, int b, int g, bool ok, int n,
+                                   float* yf, float* yg) {
   const Dims& d = p.d;
-  if (!ok || g < L.vl || (L.y && n >= d.D)) {
+  if (!ok || g < p.L.vl) {
 #pragma unroll
     for (int e = 0; e < 8; ++e) yf[e] = yg[e] = 0.f;
     return;
   }
-  if (L.y) {
-    const bf16* yp = L.y + ((size_t)b * d.P + g) * 2 * d.D;
-    ld8(yf, yp + n);
-    ld8(yg, yp + d.D + n);
-  } else {
-    const float* yp = p.yf + ((size_t)b * d.P + g) * 2 * d.Dp;
-    ldf8(yf, yp + n);
-    ldf8(yg, yp + d.Dp + n);
-  }
+  const float* yp = p.yf + ((size_t)b * d.P + g) * 2 * d.Dp;
+  ldf8(yf, yp + n);
+  ldf8(yg, yp + d.Dp + n);
 }
 
-__device__ void bwd_layer_tile(const BwdP& p, int mode, int b, int t0, int nr,
-                               int c0, unsigned char* U, float* stage) {
+__device__ void bwd_layer_tile(const BwdP& p, int b, int t0, int nr, unsigned char* U,
+                               float* stage) {
   const Dims& d = p.d;
-  const BwdLayer& L = (mode == UPPER || mode == HALO) ? p.L[1] : p.L[0];
+  const BwdLayer& L = p.L;
   const int lo = d.rsp(), ldo = lo + SKEW, ldy = 2 * d.Dp + SKEW;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float* st = stage + warp * STAGE;
@@ -352,8 +213,8 @@ __device__ void bwd_layer_tile(const BwdP& p, int mode, int b, int t0, int nr,
   bf16* gys = gos + TM * ldo;
   const size_t rowb = (size_t)b * d.P;
 
-  if (!L.y) {
-    // recompute mode: y = where(valid, xin @ w_in + b_in, 0) -> f32 scratch
+  {
+    // y = where(valid, xin @ w_in + b_in, 0) -> f32 scratch
     bf16* xs = reinterpret_cast<bf16*>(U);
     const int ldx = d.kp() + SKEW, ldw = 2 * d.Dp;
     const bf16* xb = L.x + rowb * d.R;
@@ -399,9 +260,9 @@ __device__ void bwd_layer_tile(const BwdP& p, int mode, int b, int t0, int nr,
   // h (for dW_out) and g_out = bf16([gxn | gskip]) masked to valid rows
   for (int i = threadIdx.x; i < TM * (d.Dp / 8); i += NTHR) {
     const int row = i / (d.Dp / 8), n = (i % (d.Dp / 8)) * 8, g = t0 + row;
-    if (mode == HALO || row >= nr || g < L.vl || n >= d.D) continue;
+    if (row >= nr || g < L.vl || n >= d.D) continue;
     float yf[8], yg[8], hv[8];
-    y8(p, L, b, g, true, n, yf, yg);
+    y8(p, b, g, true, n, yf, yg);
 #pragma unroll
     for (int e = 0; e < 8; ++e) hv[e] = tanhf(yf[e]) * sigm(yg[e]);
     st8(L.h + (rowb + g) * d.D + n, hv);
@@ -414,13 +275,13 @@ __device__ void bwd_layer_tile(const BwdP& p, int mode, int b, int t0, int nr,
     for (int e = 0; e < 8; ++e) v[e] = 0.f;
     bool real = false;
     if (col < d.Rp) {
-      if (ok && col < d.R) { gxn8(p, mode, b, g, col, v); real = true; }
+      if (ok && col < d.R) { gxn8(p, b, g, col, v); real = true; }
     } else if (ok && col - d.Rp < d.S) {
       ld8(v, p.gskip + (rowb + g) * d.S + (col - d.Rp));
       real = true;
     }
     st8(gos + row * ldo + col, v);
-    if (real && mode != HALO) {
+    if (real) {
       const int n = col < d.Rp ? col : col - d.Rp + d.R;
       st8(L.gout + (rowb + g) * (d.R + d.S) + n, v);
     }
@@ -448,7 +309,7 @@ __device__ void bwd_layer_tile(const BwdP& p, int mode, int b, int t0, int nr,
       __syncwarp();
       const int row = mi * 16 + rr, n0 = ni * 16 + cc, g = t0 + row;
       float yf[8], yg[8], gf[8], gg[8];
-      y8(p, L, b, g, row < nr, n0, yf, yg);
+      y8(p, b, g, row < nr, n0, yf, yg);
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
         const float gh = st[rr * 16 + cc + e];
@@ -458,7 +319,7 @@ __device__ void bwd_layer_tile(const BwdP& p, int mode, int b, int t0, int nr,
       }
       st8(gys + row * ldy + n0, gf);
       st8(gys + row * ldy + d.Dp + n0, gg);
-      if (mode != HALO && row < nr && g >= L.vl && n0 < d.D) {
+      if (row < nr && g >= L.vl && n0 < d.D) {
         bf16* gp = L.gy + (rowb + g) * 2 * d.D;
         st8(gp + n0, gf);
         st8(gp + d.D + n0, gg);
@@ -469,8 +330,8 @@ __device__ void bwd_layer_tile(const BwdP& p, int mode, int b, int t0, int nr,
   __syncthreads();
 
   // g_xin = g_y @ w_in^T (f32) -> the input cotangents
-  const int ncol = (mode == HALO ? d.Rp : d.kp()) / 16, ldw = 2 * d.Dp;
-  for (int nj = warp; nj < ncol; nj += NWARP) {
+  const int ldw = 2 * d.Dp;
+  for (int nj = warp; nj < d.kp() / 16; nj += NWARP) {
     FragC acc[4];
 #pragma unroll
     for (int mi = 0; mi < 4; ++mi) wmma::fill_fragment(acc[mi], 0.f);
@@ -494,29 +355,20 @@ __device__ void bwd_layer_tile(const BwdP& p, int mode, int b, int t0, int nr,
 #pragma unroll
         for (int e = 0; e < 8; ++e) v[e] = st[rr * 16 + cc + e];
         if (n0 < d.Rp) {
-          if (n0 < d.R) {
-            if (mode == SINGLE || mode == LOWER) {
-              st8(p.gxp + (rowb + g) * d.R + n0, v);
-            } else {
-              const int q = g - L.dd;
-              if (q >= c0) stf8(p.gp2w + (rowb + q) * d.R + n0, v);
-            }
-          }
+          if (n0 < d.R) st8(p.gxp + (rowb + g) * d.R + n0, v);
         } else if (n0 < 2 * d.Rp) {
           const int r = n0 - d.Rp;
           if (r < d.R) {
             float gx[8];
             if (g >= L.vl) {
-              gxn8(p, mode, b, g, r, gx);
+              gxn8(p, b, g, r, gx);
             } else {
 #pragma unroll
               for (int e = 0; e < 8; ++e) gx[e] = 0.f;
             }
 #pragma unroll
             for (int e = 0; e < 8; ++e) gx[e] += v[e];
-            if (mode == UPPER || mode == INNER)
-              stf8(p.gcur2 + (rowb + g) * d.R + r, gx);
-            else st8(p.gxc + (rowb + g) * d.R + r, gx);
+            st8(p.gxc + (rowb + g) * d.R + r, gx);
           }
         } else if (n0 - 2 * d.Rp < d.C) {
           float* gc = p.gcond + (rowb + g) * d.C + (n0 - 2 * d.Rp);
@@ -533,8 +385,7 @@ __device__ void bwd_layer_tile(const BwdP& p, int mode, int b, int t0, int nr,
   __syncthreads();
 }
 
-// K2b's recompute mode (no saved y) on the first core: one layer,
-// descending tiles over the block's chunk.
+// One layer, descending tiles over the block's chunk.
 __global__ void __launch_bounds__(NTHR) gated_bwd_recompute_kernel(BwdP p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Dims& d = p.d;
@@ -547,181 +398,16 @@ __global__ void __launch_bounds__(NTHR) gated_bwd_recompute_kernel(BwdP p) {
   if (c0 >= c1) return;
   for (int k = (c1 - c0 + TM - 1) / TM - 1; k >= 0; --k) {  // descending tiles
     const int t0 = c0 + k * TM;
-    bwd_layer_tile(p, SINGLE, b, t0, min(TM, c1 - t0), c0, smem, stage);
+    bwd_layer_tile(p, b, t0, min(TM, c1 - t0), smem, stage);
   }
-}
-
-// ------------------------------------- whole stack / group, one launch
-
-constexpr long long SPIN_LIMIT = 1LL << 34;  // clock cycles (several seconds)
-
-// Barrier n (counted from 0) across a cooperative grid: every block's
-// writes before it are visible to every block after it.  `count` starts
-// at zero and only grows.
-__device__ __forceinline__ void grid_barrier(unsigned long long* count, int n) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(count, 1ULL);
-    const unsigned long long want = (unsigned long long)(n + 1) * gridDim.x;
-    const long long t_start = clock64();
-    while (*(volatile unsigned long long*)count < want)
-      if (clock64() - t_start > SPIN_LIMIT) __trap();
-    __threadfence();
-  }
-  __syncthreads();
-}
-
-// The most layers one launch takes: the per-layer tables travel by value in
-// the kernel's parameters (4 KB in all), so no launch waits on a copy.
-constexpr int MAX_FUSED = 40;
-
-struct StackLayer {
-  const bf16* win; const float* bin; const bf16* wout; const float* bout;
-  bf16* y;          // [B, P, 2D] or null
-  const bf16* xin;  // the layer's input stream [B, P, R]
-  bf16* xout;       // its output stream, or null (the last layer's is unused)
-  int dd;
-};
-
-struct StackP {
-  Dims d;
-  const bf16* cond; float* skip;
-  unsigned long long* bar;
-  int n_layers, r0, n_tiles;  // tiles of TM rows from r0, per batch row
-  StackLayer layers[MAX_FUSED];
-};
-
-// Every layer on rows [r0, P), layer-major: tile k of every layer goes to
-// block k mod gridDim.x, so a block adds its skip terms to rows that only
-// it touches, and reads from other blocks only the previous layer's rows
-// below its tile, complete since the barrier.
-__global__ void __launch_bounds__(NTHR)
-gated_stack_kernel(const __grid_constant__ StackP p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Dims& d = p.d;
-  bf16* xs = reinterpret_cast<bf16*>(smem);
-  bf16* hs = xs + TM * (d.kp() + SKEW);
-  float* stage = reinterpret_cast<float*>(hs + TM * (d.Dp + SKEW));
-  FwdP fp;
-  fp.d = d;
-  fp.skip = p.skip;
-  const int total = d.B * p.n_tiles;
-  for (int l = 0; l < p.n_layers; ++l) {
-    const StackLayer sl = p.layers[l];
-    const FwdLayer fl{sl.win, sl.bin, sl.wout, sl.bout, sl.y, sl.dd};
-    const int lo = l == 0 ? 0 : p.r0;  // x0 is valid from row 0
-    for (int tile = blockIdx.x; tile < total; tile += gridDim.x) {
-      const int b = tile / p.n_tiles;
-      const int t0 = p.r0 + (tile % p.n_tiles) * TM;
-      const int nr = min(TM, d.P - t0);
-      const bf16* xb = sl.xin + (size_t)b * d.P * d.R;
-      load_xin(xs, d, b, t0, nr, p.cond, true,
-               [&](int g) -> const bf16* {
-                 const int s = g - fl.dd;
-                 return s >= lo ? xb + (size_t)s * d.R : nullptr;
-               },
-               [&](int g) -> const bf16* { return xb + (size_t)g * d.R; }, 0);
-      __syncthreads();
-      fwd_layer_tile(fp, fl, b, t0, nr,
-                     sl.xout ? sl.xout + (size_t)b * d.P * d.R : nullptr, 0,
-                     false, xs, hs, stage);
-    }
-    if (l + 1 < p.n_layers) grid_barrier(p.bar, l);
-  }
-}
-
-// The group's layers, lower layer first, are BwdLayer rows.
-
-struct GroupP {
-  Dims d;
-  const bf16* cond; const bf16* gxcur; const bf16* gxprev; const bf16* gskip;
-  float* gcond; bf16* gxc; bf16* gxp;
-  float* gcur;    // f32 same-row cotangent between layers, updated in place
-  float* gp[2];   // f32 prev-tap cotangents at row g - dd, used in turn
-  unsigned long long* bar;
-  int n_layers, prev_dd, cur_vl, r0, n_tiles;
-  BwdLayer layers[MAX_FUSED];
-};
-
-// The group's layers from the top down, each on rows [r0, P) masked to its
-// own lattice, layer-major with the forward's tile-to-block map: gcond rows
-// belong to one block, and the cotangents a tile reads from other blocks
-// (the layer above's prev-tap part for rows up to dd above it) are complete
-// since the barrier.
-__global__ void __launch_bounds__(NTHR)
-gated_group_kernel(const __grid_constant__ GroupP p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Dims& d = p.d;
-  const int ldx = d.kp() + SKEW, ldo = d.rsp() + SKEW, ldy = 2 * d.Dp + SKEW;
-  const int ubytes = 2 * TM * max(ldx, ldo + ldy);
-  float* stage = reinterpret_cast<float*>(smem + ubytes);
-  BwdP q;
-  q.d = d;
-  q.cond = p.cond; q.gxcur = p.gxcur; q.gxprev = p.gxprev; q.gskip = p.gskip;
-  q.gcond = p.gcond; q.gxc = p.gxc; q.gxp = p.gxp;
-  q.gcur2 = p.gcur; q.yf = nullptr;
-  q.prev_dd = p.prev_dd; q.cur_vl = p.cur_vl; q.r0 = p.r0; q.chunk = 0;
-  const int total = d.B * p.n_tiles, top = p.n_layers - 1;
-  for (int j = top; j >= 0; --j) {
-    const BwdLayer bl = p.layers[j];
-    const int mode = j == top ? UPPER : (j == 0 ? LOWER : INNER);
-    // UPPER takes its layer from slot 1; LOWER and INNER take theirs from
-    // slot 0 and the dilation of the layer above from slot 1
-    if (j == top) {
-      q.L[1] = bl;
-    } else {
-      q.L[0] = bl;
-      q.L[1].dd = p.layers[j + 1].dd;
-    }
-    q.gp2 = p.gp[(top - j + 1) & 1];
-    q.gp2w = p.gp[(top - j) & 1];
-    for (int tile = blockIdx.x; tile < total; tile += gridDim.x) {
-      const int b = tile / p.n_tiles;
-      const int t0 = p.r0 + (tile % p.n_tiles) * TM;
-      bwd_layer_tile(q, mode, b, t0, min(TM, d.P - t0), p.r0, smem, stage);
-    }
-    if (j > 0) grid_barrier(p.bar, top - j);
-  }
-}
-
-// Launch `kernel` with as many blocks as fit on the card at once (at most
-// n_tiles), cooperatively: the grid barrier needs them all resident.
-template <typename P>
-int launch_resident(void (*kernel)(P), P& p, int n_tiles, int smem,
-                    cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
-      cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NTHR,
-                                                           smem)) != cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
-  const int blocks = n_tiles < per_sm * sms ? n_tiles : per_sm * sms;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeCooperative;
-  attr.val.cooperative = 1;
-  cudaLaunchConfig_t cfg{};
-  cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(NTHR);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, p);
-  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // ============================================================ Hopper core
 //
-// K1 (pair forward), K1b (one layer forward), K2 and K2b with saved y (pair
-// and one layer backward) and the weight-gradient products of K2, K2b and
-// K8 run here: wgmma fed by TMA, in blocks of three warpgroups.
+// K1 (pair forward), K1b (one layer forward), K7 (the whole stack forward),
+// K2, K2b with saved y and K8 (pair, one layer and group backward) and every
+// weight-gradient product run here: wgmma fed by TMA, in blocks of three
+// warpgroups.
 //
 // What bounds it.  A 64-row tile of one layer is 64 x 1.28 MFLOP against
 // 1.28 MB of weights (chorowski), so the weights are re-read from L2 once
@@ -765,6 +451,12 @@ int launch_resident(void (*kernel)(P), P& p, int n_tiles, int smem,
 // from the same shared-memory slabs (the bias gradients), so no second pass
 // reads G.  The split partials are reduced in a fixed order
 // (gated_reduce_kernel): two launches give the same bits.
+// Whole stack and group (K7, K8): the same tiles, one cooperative launch
+// that walks the layers in order (see the top of the file); the producer
+// thread streams the weights of every tile of every layer in the order the
+// consumers take them and never waits at the grid barrier, which the 256
+// consumer threads alone meet: weights are read-only, so it may run a layer
+// ahead, as far as the ring's empty barriers let it.
 
 constexpr int WG_THREADS = 384;  // two consumer warpgroups, one producer warpgroup
 constexpr int CONSUMERS = 256;
@@ -775,6 +467,18 @@ constexpr int MAX_STAGES = 4;
 constexpr int SMEM_CAP = 232448;
 constexpr int DW_SLAB = 49152;   // A 2 x 8 KB + G 4 x 8 KB
 constexpr int BAR_BYTES = 2 * MAX_STAGES * 8;
+constexpr long long SPIN_LIMIT = 1LL << 34;  // clock cycles (several seconds)
+// The most layers one whole-stack or group launch takes: the per-layer
+// tables (tensor maps and pointers) travel by value in the kernel's
+// parameters, so no launch waits on a copy; CUDA >= 12.1 allows 32,764
+// bytes of them.
+constexpr int MAX_FUSED = 40;
+constexpr int MAX_PARAM_BYTES = 32764;
+
+// Where a layer's upstream comes from and where its cotangents go: bf16
+// streams both ways (SINGLE), bf16 in and f32 out (UPPER; HALO writes only
+// the prev-tap part), f32 in and bf16 out (LOWER), f32 both ways (INNER).
+enum Mode { SINGLE = 0, UPPER = 1, LOWER = 2, HALO = 3, INNER = 4 };
 
 struct WgDims {
   int B, P, R, C, D, S;
@@ -1056,11 +760,21 @@ __device__ void wg_load_xin(unsigned char* xs, const WgDims& d, int b, int t0, i
 
 // ------------------------------------------------------------- forward
 
+// v, opaque to the compiler: values derived from it inside a loop are not
+// hoisted out of that loop (and held in registers across it)
+__device__ __forceinline__ int opaque(int v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
+
 struct WgFwdLayer {
   CUtensorMap win[3];  // prev, cur, cond rows of w_in as [rows][f | g][n_dil]
   CUtensorMap wout;    // w_out [n_dil][n_res + n_skp]
   const float* bin; const float* bout;
   bf16* y;  // [B, P, 2D] or null
+  // whole stack only: the layer's input stream [B, P, R] and its output
+  // stream (null for the last layer, whose output nothing reads)
+  const bf16* xin; bf16* xout;
   int dd;
 };
 
@@ -1114,13 +828,20 @@ __device__ void wg_fwd_produce(const WgFwdLayer& L, const WgDims& d, Pipe& pp,
 
 // One layer on the tile whose xin is in shared memory (consumer threads).
 // The new residual row g goes to out + (g - out_row0) * R (nowhere when out
-// is null); halo tiles write neither skip nor y.
-__device__ void wg_fwd_tile(const WgFwdP& p, const WgFwdLayer& L, int b, int t0, int nr,
+// is null); halo tiles write neither skip nor y.  P: WgFwdP or WgStackArgs
+// (d, skip and the byte offsets of h and the ring).  The epilogue of out
+// loads the f32 skip rows of NCB of its 16 column blocks at a time, before
+// it adds to any of them.  With NCB < 16 (the whole stack's tile) each
+// epilogue also derives this thread's rows and columns anew, so that the
+// compiler does not keep their swizzled offsets in registers across the
+// products.
+template <typename P, int NCB = 16>
+__device__ void wg_fwd_tile(const P& p, const WgFwdLayer& L, int b, int t0, int nr,
                             bf16* out, int out_row0, bool halo, unsigned char* sm,
                             Pipe& pp, uint64_t* full, uint64_t* empty) {
   const WgDims& d = p.d;
   const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
-  const int r_lo = (tid >> 5) * 16 + ((tid & 31) >> 2), c_lo = (tid & 3) * 2;
+  const int r_lo0 = (tid >> 5) * 16 + ((tid & 31) >> 2), c_lo0 = (tid & 3) * 2;
   unsigned char* ring = sm + p.roff;
   unsigned char* hs = sm + p.hoff;
   const uint32_t xa = smem_u32(sm), ha = smem_u32(hs);
@@ -1147,6 +868,8 @@ __device__ void wg_fwd_tile(const WgFwdP& p, const WgFwdLayer& L, int b, int t0,
     acc_fence<128>(acc);
     consumers_sync();  // xin's prev part is read by both warpgroups before h lands on it
     if (act) {
+      const int r_lo = NCB < 16 ? opaque(r_lo0) : r_lo0;
+      const int c_lo = NCB < 16 ? opaque(c_lo0) : c_lo0;
 #pragma unroll
       for (int i = 0; i < 16; ++i) {
         const int n = ch * 128 + c_lo + i * 8;
@@ -1195,38 +918,43 @@ __device__ void wg_fwd_tile(const WgFwdP& p, const WgFwdLayer& L, int b, int t0,
     });
     acc_fence<64>(acc);
     if (!act) continue;
-    float2 sk[16][2];  // the skip rows this thread adds to, loaded first
+    const int r_lo = NCB < 16 ? opaque(r_lo0) : r_lo0;
+    const int c_lo = NCB < 16 ? opaque(c_lo0) : c_lo0;
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const int n = ch * 128 + c_lo + i * 8;
+    for (int i0 = 0; i0 < 16; i0 += NCB) {
+      float2 sk[NCB][2];  // the skip rows this thread adds to, loaded first
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int row = r_lo + hf * 8;
-        sk[i][hf] = !halo && n >= d.R && n < lo && row < nr
-                        ? *reinterpret_cast<const float2*>(
-                              p.skip + (rowb + t0 + row) * d.S + (n - d.R))
-                        : make_float2(0.f, 0.f);
+      for (int ii = 0; ii < NCB; ++ii) {
+        const int n = ch * 128 + c_lo + (i0 + ii) * 8;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int row = r_lo + hf * 8;
+          sk[ii][hf] = !halo && n >= d.R && n < lo && row < nr
+                           ? *reinterpret_cast<const float2*>(
+                                 p.skip + (rowb + t0 + row) * d.S + (n - d.R))
+                           : make_float2(0.f, 0.f);
+        }
       }
-    }
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const int n = ch * 128 + c_lo + i * 8;
-      if (n >= lo) continue;
-      const float b0 = __ldg(L.bout + n), b1 = __ldg(L.bout + n + 1);
+      for (int ii = 0; ii < NCB; ++ii) {
+        const int i = i0 + ii, n = ch * 128 + c_lo + i * 8;
+        if (n >= lo) continue;
+        const float b0 = __ldg(L.bout + n), b1 = __ldg(L.bout + n + 1);
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int row = r_lo + hf * 8, g = t0 + row;
-        if (row >= nr) continue;
-        const float o0 = acc[i * 4 + hf * 2] + b0, o1 = acc[i * 4 + hf * 2 + 1] + b1;
-        if (n < d.R) {
-          if (out) {
-            float x0, x1;
-            ld2(reinterpret_cast<const bf16*>(xc + swz(row, n)), x0, x1);
-            st2(out + (size_t)(g - out_row0) * d.R + n, x0 + rbf(o0), x1 + rbf(o1));
+        for (int hf = 0; hf < 2; ++hf) {
+          const int row = r_lo + hf * 8, g = t0 + row;
+          if (row >= nr) continue;
+          const float o0 = acc[i * 4 + hf * 2] + b0, o1 = acc[i * 4 + hf * 2 + 1] + b1;
+          if (n < d.R) {
+            if (out) {
+              float x0, x1;
+              ld2(reinterpret_cast<const bf16*>(xc + swz(row, n)), x0, x1);
+              st2(out + (size_t)(g - out_row0) * d.R + n, x0 + rbf(o0), x1 + rbf(o1));
+            }
+          } else if (!halo) {
+            *reinterpret_cast<float2*>(p.skip + (rowb + g) * d.S + (n - d.R)) =
+                make_float2(sk[ii][hf].x + o0, sk[ii][hf].y + o1);
           }
-        } else if (!halo) {
-          *reinterpret_cast<float2*>(p.skip + (rowb + g) * d.S + (n - d.R)) =
-              make_float2(sk[i][hf].x + o0, sk[i][hf].y + o1);
         }
       }
     }
@@ -1302,6 +1030,101 @@ wg_fwd_kernel(const __grid_constant__ WgFwdP p) {
   }
 }
 
+// ------------------------------------------------ whole stack, one launch
+
+// The whole-stack forward's tile loads its skip rows 8 column blocks at a
+// time and derives its rows and columns in each epilogue (wg_fwd_tile):
+// with the layer's pointers read from a table by index (not constants, as in
+// K1), the layer loop's state and K1's register use together would spill.
+constexpr int STACK_NCB = 8;
+
+// Barrier n (counted from 0) across a cooperative grid of Hopper blocks,
+// met by the consumer threads alone: every consumer's writes before it are
+// visible to every block after it.  One thread arrives (red.release) after
+// the consumers' own barrier and spins (ld.acquire) on a count that starts
+// at zero and only grows; the rest wait at the consumers' barrier.  A
+// barrier not met within seconds traps: a schedule fault, not a wait.
+__device__ __forceinline__ void wg_grid_sync(unsigned long long* count, int n) {
+  consumers_sync();
+  if (threadIdx.x == 0) {
+    const unsigned long long want = (unsigned long long)(n + 1) * gridDim.x;
+    asm volatile("red.release.gpu.global.add.u64 [%0], %1;" ::"l"(count), "l"(1ULL)
+                 : "memory");
+    const long long t_start = clock64();
+    unsigned long long seen;
+    while (true) {
+      asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(seen) : "l"(count)
+                   : "memory");
+      if (seen >= want) break;
+      if (clock64() - t_start > SPIN_LIMIT) __trap();
+    }
+  }
+  consumers_sync();
+}
+
+struct WgStackArgs {
+  WgDims d;
+  const bf16* cond; float* skip;
+  unsigned long long* bar;
+  int n_layers, r0, n_tiles, nst, hoff, roff, boff;  // tiles of TM rows from r0, per batch row
+  WgFwdLayer L[MAX_FUSED];
+};
+static_assert(sizeof(WgStackArgs) <= MAX_PARAM_BYTES, "the whole-stack table passes the "
+              "kernel parameter limit: lower MAX_FUSED");
+
+// K7: every layer on rows [r0, P), layer-major: tile k of every layer goes
+// to block k mod gridDim.x, so a block adds its skip terms to rows that
+// only it touches, and reads from other blocks only the previous layer's
+// rows at and below its tile (through L2: cp.async.cg), complete since the
+// barrier.  With two mid buffers used in turn, the barrier also orders a
+// layer's reads of a buffer before the next-but-one layer's writes to it.
+__global__ void __launch_bounds__(WG_THREADS, 1)
+wg_stack_kernel(const __grid_constant__ WgStackArgs p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  const WgDims& d = p.d;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + p.boff);
+  uint64_t* empty = full + MAX_STAGES;
+  init_ring(full, empty, p.nst);
+  const int total = d.B * p.n_tiles;
+  if (threadIdx.x >= CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (threadIdx.x == CONSUMERS) {
+      Pipe pp{0, p.nst, 0};
+      unsigned char* ring = sm + p.roff;
+      for (int l = 0; l < p.n_layers; ++l)
+        for (int tile = blockIdx.x; tile < total; tile += gridDim.x)
+          wg_fwd_produce(p.L[l], d, pp, full, empty, ring);
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    Pipe pp{0, p.nst, 0};
+    for (int l = 0; l < p.n_layers; ++l) {
+      const WgFwdLayer& L = p.L[l];
+      const int lo = l == 0 ? 0 : p.r0;  // x0 is valid from row 0
+      const int dd = L.dd;
+      for (int tile = blockIdx.x; tile < total; tile += gridDim.x) {
+        const int b = tile / p.n_tiles;
+        const int t0 = p.r0 + (tile % p.n_tiles) * TM;
+        const int nr = min(TM, d.P - t0);
+        const bf16* xb = L.xin + (size_t)b * d.P * d.R;
+        consumers_sync();
+        wg_load_xin(sm, d, b, t0, nr, p.cond, true,
+                    [&](int g) -> const bf16* {
+                      return g - dd >= lo ? xb + (size_t)(g - dd) * d.R : nullptr;
+                    },
+                    [&](int g) -> const bf16* { return xb + (size_t)g * d.R; }, 0);
+        fence_async();
+        consumers_sync();
+        wg_fwd_tile<WgStackArgs, STACK_NCB>(
+            p, L, b, t0, nr, L.xout ? L.xout + (size_t)b * d.P * d.R : nullptr, 0, false, sm,
+            pp, full, empty);
+      }
+      if (l + 1 < p.n_layers) wg_grid_sync(p.bar, l);
+    }
+  }
+}
+
 // ------------------------------------------------------------ backward
 
 struct WgBwdLayer {
@@ -1317,21 +1140,46 @@ struct WgBwdP {
   WgDims d;
   const bf16* cond; const bf16* gxcur; const bf16* gxprev; const bf16* gskip;
   float* gcond; bf16* gxc; bf16* gxp;
-  float* gcur2; float* gp2;  // the pair's layer 2 -> layer 1 cotangent (f32)
+  float* gcur; float* gp2;  // the pair's layer 2 -> layer 1 cotangent (f32)
   int prev_dd, cur_vl, r0, chunk, nst, yoff, roff, boff;  // g_out at 0, g_y at yoff
 };
 
+// A layer's place in the launch: its mode, and for LOWER and INNER the
+// dilation of the layer above and that layer's f32 prev-tap cotangent
+// (read at row g when g + dd_above < P); for UPPER, INNER and HALO where
+// this layer's own prev-tap cotangent goes (written at row g - dd).  The
+// same-row f32 cotangent between two layers is p.gcur, updated in place.
+struct Link {
+  int mode, dd_above;
+  const float* gin;
+  float* gpo;
+};
+
+// f32 rows that other blocks of the launch (or this one, a layer earlier)
+// wrote: read through L2 (ld.global.cg), never from a stale L1 line
+__device__ __forceinline__ float2 ldcg2(const float* p) {
+  return __ldcg(reinterpret_cast<const float2*>(p));
+}
+__device__ __forceinline__ void ldcg8(float* o, const float* p) {
+  const float4 a = __ldcg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldcg(reinterpret_cast<const float4*>(p) + 1);
+  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+  o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
+}
+
 // Upstream cotangent of the layer's output row g, channels r and r + 1
-// (r..r+7 for wg_gxn8), before the layer's own valid mask.
-__device__ __forceinline__ void wg_gxn2(const WgBwdP& p, int mode, int b, int g, int r,
+// (r..r+7 for wg_gxn8), before the layer's own valid mask.  P: WgBwdP or
+// WgGroupArgs.
+template <typename P>
+__device__ __forceinline__ void wg_gxn2(const P& p, const Link& k, int b, int g, int r,
                                         float& o0, float& o1) {
   const WgDims& d = p.d;
   const size_t off = ((size_t)b * d.P + g) * d.R + r;
-  if (mode == LOWER) {
-    const float2 a = *reinterpret_cast<const float2*>(p.gcur2 + off);
+  if (k.mode == LOWER || k.mode == INNER) {
+    const float2 a = ldcg2(p.gcur + off);
     o0 = a.x; o1 = a.y;
-    if (g + p.L[1].dd < d.P) {
-      const float2 q = *reinterpret_cast<const float2*>(p.gp2 + off);
+    if (g + k.dd_above < d.P) {
+      const float2 q = ldcg2(k.gin + off);
       o0 += q.x; o1 += q.y;
     }
     return;
@@ -1344,15 +1192,16 @@ __device__ __forceinline__ void wg_gxn2(const WgBwdP& p, int mode, int b, int g,
     o0 += q0; o1 += q1;
   }
 }
-__device__ __forceinline__ void wg_gxn8(const WgBwdP& p, int mode, int b, int g, int r,
+template <typename P>
+__device__ __forceinline__ void wg_gxn8(const P& p, const Link& k, int b, int g, int r,
                                         float* o) {
   const WgDims& d = p.d;
   const size_t off = ((size_t)b * d.P + g) * d.R + r;
-  if (mode == LOWER) {
-    ldf8(o, p.gcur2 + off);
-    if (g + p.L[1].dd < d.P) {
+  if (k.mode == LOWER || k.mode == INNER) {
+    ldcg8(o, p.gcur + off);
+    if (g + k.dd_above < d.P) {
       float q[8];
-      ldf8(q, p.gp2 + off);
+      ldcg8(q, k.gin + off);
 #pragma unroll
       for (int e = 0; e < 8; ++e) o[e] += q[e];
     }
@@ -1391,10 +1240,14 @@ __device__ void wg_bwd_produce(const WgBwdLayer& L, const WgDims& d, int mode, P
   }
 }
 
-__device__ void wg_bwd_tile(const WgBwdP& p, int mode, int b, int t0, int nr, int c0,
-                            unsigned char* sm, Pipe& pp, uint64_t* full, uint64_t* empty) {
+// One layer's backward on one tile (consumer threads); rows below c0 take
+// no prev-tap cotangent.  P: WgBwdP or WgGroupArgs.
+template <typename P>
+__device__ void wg_bwd_tile(const P& p, const WgBwdLayer& L, const Link& k, int b, int t0,
+                            int nr, int c0, unsigned char* sm, Pipe& pp, uint64_t* full,
+                            uint64_t* empty) {
   const WgDims& d = p.d;
-  const WgBwdLayer& L = (mode == UPPER || mode == HALO) ? p.L[1] : p.L[0];
+  const int mode = k.mode;
   const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
   const int r_lo = (tid >> 5) * 16 + ((tid & 31) >> 2), c_lo = (tid & 3) * 2;
   unsigned char* ring = sm + p.roff;
@@ -1420,7 +1273,7 @@ __device__ void wg_bwd_tile(const WgBwdP& p, int mode, int b, int t0, int nr, in
       for (int e = 0; e < 8; ++e) v[u][e] = 0.f;
       real[u] = false;
       if (col < d.R) {
-        if (ok) { wg_gxn8(p, mode, b, g, col, v[u]); real[u] = true; }
+        if (ok) { wg_gxn8(p, k, b, g, col, v[u]); real[u] = true; }
       } else if (ok && col < lo) {
         ld8(v[u], p.gskip + (rowb + g) * d.S + (col - d.R));
         real[u] = true;
@@ -1533,7 +1386,7 @@ __device__ void wg_bwd_tile(const WgBwdP& p, int mode, int b, int t0, int nr, in
           pre[ii][hf] = make_float2(0.f, 0.f);
           if (n >= ncols || row >= nr || n < d.R) continue;
           if (n < 2 * d.R) {
-            if (g >= L.vl) wg_gxn2(p, mode, b, g, n - d.R, pre[ii][hf].x, pre[ii][hf].y);
+            if (g >= L.vl) wg_gxn2(p, k, b, g, n - d.R, pre[ii][hf].x, pre[ii][hf].y);
           } else {
             pre[ii][hf] = *reinterpret_cast<const float2*>(p.gcond + (rowb + g) * d.C +
                                                              (n - 2 * d.R));
@@ -1556,12 +1409,12 @@ __device__ void wg_bwd_tile(const WgBwdP& p, int mode, int b, int t0, int nr, in
             } else {
               const int s = g - L.dd;
               if (s >= c0)
-                *reinterpret_cast<float2*>(p.gp2 + (rowb + s) * d.R + n) = make_float2(v0, v1);
+                *reinterpret_cast<float2*>(k.gpo + (rowb + s) * d.R + n) = make_float2(v0, v1);
             }
           } else if (n < 2 * d.R) {
             const int r = n - d.R;
-            if (mode == UPPER)
-              *reinterpret_cast<float2*>(p.gcur2 + (rowb + g) * d.R + r) =
+            if (mode == UPPER || mode == INNER)
+              *reinterpret_cast<float2*>(p.gcur + (rowb + g) * d.R + r) =
                   make_float2(q.x + v0, q.y + v1);
             else
               st2(p.gxc + (rowb + g) * d.R + r, q.x + v0, q.y + v1);
@@ -1610,16 +1463,80 @@ wg_bwd_kernel(const __grid_constant__ WgBwdP p) {
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
     Pipe pp{0, p.nst, 0};
+    const Link halo{HALO, 0, nullptr, p.gp2}, upper{UPPER, 0, nullptr, p.gp2};
+    const Link lower{LOWER, p.L[1].dd, p.gp2, nullptr}, single{SINGLE, 0, nullptr, nullptr};
     for (int t0 = c1; t0 < hi; t0 += TM)
-      wg_bwd_tile(p, HALO, b, t0, min(TM, hi - t0), c0, sm, pp, full, empty);
+      wg_bwd_tile(p, p.L[1], halo, b, t0, min(TM, hi - t0), c0, sm, pp, full, empty);
     for (int k = nt - 1; k >= 0; --k) {  // descending tiles
       const int t0 = c0 + k * TM, nr = min(TM, c1 - t0);
       if (NL == 2) {
-        wg_bwd_tile(p, UPPER, b, t0, nr, c0, sm, pp, full, empty);
-        wg_bwd_tile(p, LOWER, b, t0, nr, c0, sm, pp, full, empty);
+        wg_bwd_tile(p, p.L[1], upper, b, t0, nr, c0, sm, pp, full, empty);
+        wg_bwd_tile(p, p.L[0], lower, b, t0, nr, c0, sm, pp, full, empty);
       } else {
-        wg_bwd_tile(p, SINGLE, b, t0, nr, c0, sm, pp, full, empty);
+        wg_bwd_tile(p, p.L[0], single, b, t0, nr, c0, sm, pp, full, empty);
       }
+    }
+  }
+}
+
+// ------------------------------------------------------ group, one launch
+
+struct WgGroupArgs {
+  WgDims d;
+  const bf16* cond; const bf16* gxcur; const bf16* gxprev; const bf16* gskip;
+  float* gcond; bf16* gxc; bf16* gxp;
+  float* gcur;    // f32 same-row cotangent between layers, updated in place
+  float* gp[2];   // f32 prev-tap cotangents at row g - dd, used in turn
+  unsigned long long* bar;
+  int n_layers, prev_dd, cur_vl, r0, n_tiles, nst, yoff, roff, boff;
+  WgBwdLayer L[MAX_FUSED];  // lower layer first
+};
+static_assert(sizeof(WgGroupArgs) <= MAX_PARAM_BYTES, "the group table passes the kernel "
+              "parameter limit: lower MAX_FUSED");
+
+// K8's data gradients: the group's layers from the top down (UPPER, INNER
+// ..., LOWER), each on rows [r0, P) masked to its own lattice, layer-major
+// with the forward's tile-to-block map: gcur and gcond rows belong to one
+// block, and the prev-tap cotangents a tile reads from other blocks (the
+// layer above's, for rows up to dd above it, in the gp buffer it wrote) are
+// complete since the barrier, which also orders a layer's reads of one gp
+// buffer before the next-but-one layer's writes to it.
+__global__ void __launch_bounds__(WG_THREADS, 1)
+wg_group_kernel(const __grid_constant__ WgGroupArgs p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  const WgDims& d = p.d;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + p.boff);
+  uint64_t* empty = full + MAX_STAGES;
+  init_ring(full, empty, p.nst);
+  const int total = d.B * p.n_tiles, top = p.n_layers - 1;
+  if (threadIdx.x >= CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (threadIdx.x == CONSUMERS) {
+      Pipe pp{0, p.nst, 0};
+      unsigned char* ring = sm + p.roff;
+      for (int j = top; j >= 0; --j) {
+        const int mode = j == top ? UPPER : (j == 0 ? LOWER : INNER);
+        for (int tile = blockIdx.x; tile < total; tile += gridDim.x)
+          wg_bwd_produce(p.L[j], d, mode, pp, full, empty, ring);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    Pipe pp{0, p.nst, 0};
+    for (int j = top; j >= 0; --j) {
+      const Link k{j == top ? UPPER : (j == 0 ? LOWER : INNER),
+                   j < top ? p.L[j + 1].dd : 0, p.gp[(top - j + 1) & 1],
+                   p.gp[(top - j) & 1]};
+      for (int tile = blockIdx.x; tile < total; tile += gridDim.x) {
+        const int b = tile / p.n_tiles;
+        const int t0 = p.r0 + (tile % p.n_tiles) * TM;
+        // the layer's table row by a fresh index each tile: its pointers are
+        // not held in registers across the tile loop (which would spill)
+        wg_bwd_tile(p, p.L[opaque(j)], k, b, t0, min(TM, d.P - t0), p.r0, sm, pp, full,
+                    empty);
+      }
+      if (j > 0) wg_grid_sync(p.bar, top - j);
     }
   }
 }
@@ -1889,16 +1806,52 @@ bool map_win_part(CUtensorMap* m, const bf16* win, int row0, int rows, int D) {
   return tensor_map(m, win + (size_t)row0 * 2 * D, 3, dims, strides, box);
 }
 
+// A forward layer's tensor maps: w_in [2R + C][2D] by parts, w_out [D][R + S]
+bool map_fwd_layer(WgFwdLayer& L, const WgDims& d, const bf16* win, const bf16* wout) {
+  return map_win_part(&L.win[0], win, 0, d.R, d.D) &&
+         map_win_part(&L.win[1], win, d.R, d.R, d.D) &&
+         map_win_part(&L.win[2], win, 2 * d.R, d.C, d.D) &&
+         map2(&L.wout, wout, d.R + d.S, d.D, 64, 64);
+}
+
+// A backward layer's: the same tensors read as B = w_out^T and B = w_in^T
+bool map_bwd_layer(WgBwdLayer& L, const WgDims& d, const bf16* win, const bf16* wout) {
+  return map2(&L.woutT, wout, d.R + d.S, d.D, 64, 128) &&
+         map2(&L.winT, win, 2 * d.D, 2 * d.R + d.C, 64, 128);
+}
+
+// Launch `kernel` cooperatively on `grid` blocks: its grid barrier needs
+// them all resident at once, so a grid the card cannot hold at these widths
+// is refused (cudaErrorCooperativeLaunchTooLarge), never run.
+template <typename P>
+int launch_coop(void (*kernel)(P), const P& p, int grid, int smem, cudaStream_t stream) {
+  const int per_sm = wg_blocks_per_sm(kernel, smem);
+  if (per_sm < 0) return -per_sm;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (grid < 1 || grid > per_sm * sms) return (int)cudaErrorCooperativeLaunchTooLarge;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeCooperative;
+  attr.val.cooperative = 1;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(WG_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, p);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
-// the first core's shared memory (K7; K8 and K2b's recompute mode)
-int awt_gated_fwd_smem(const int* iv) {
-  Dims d = dims_from(iv);
-  return 2 * TM * (d.kp() + SKEW) + 2 * TM * (d.Dp + SKEW) + 4 * NWARP * STAGE;
-}
-
+// the first core's shared memory (K2b's recompute mode)
 int awt_gated_bwd_smem(const int* iv) {
   Dims d = dims_from(iv);
   const int a = d.kp() + SKEW, c = d.rsp() + SKEW + 2 * d.Dp + SKEW;
@@ -1910,12 +1863,18 @@ int awt_gated_bwd_smem(const int* iv) {
 int awt_gated_wg_fwd_smem(const int* iv) { return fwd_layout(wg_dims(iv)).bytes; }
 int awt_gated_wg_bwd_smem(const int* iv) { return bwd_layout(wg_dims(iv)).bytes; }
 
-// Blocks of the Hopper forward (kind 0) or backward (kind 1) kernel that
-// one SM holds at these widths (negative: a CUDA error)
+// Blocks of a Hopper kernel that one SM holds at these widths (negative: a
+// CUDA error).  kind 0: the forward, 1: the backward, 2: the whole stack,
+// 3: the group.
 int awt_gated_wg_blocks(int kind, const int* iv) {
   const WgDims d = wg_dims(iv);
-  if (kind == 0) return wg_blocks_per_sm(wg_fwd_kernel<2>, fwd_layout(d).bytes);
-  return wg_blocks_per_sm(wg_bwd_kernel<2>, bwd_layout(d).bytes);
+  switch (kind) {
+    case 0: return wg_blocks_per_sm(wg_fwd_kernel<2>, fwd_layout(d).bytes);
+    case 1: return wg_blocks_per_sm(wg_bwd_kernel<2>, bwd_layout(d).bytes);
+    case 2: return wg_blocks_per_sm(wg_stack_kernel, fwd_layout(d).bytes);
+    case 3: return wg_blocks_per_sm(wg_group_kernel, bwd_layout(d).bytes);
+  }
+  return -(int)cudaErrorInvalidValue;
 }
 
 // ptr: x, cond, skip, mid, xout, halo, then per layer win, bin, wout, bout, y
@@ -1930,13 +1889,10 @@ int awt_gated_fwd(int nl, void* const* ptr, const int* iv, cudaStream_t stream) 
   for (int l = 0; l < nl; ++l) {
     void* const* q = ptr + 6 + 5 * l;
     WgFwdLayer& L = p.L[l];
-    const bf16* win = (const bf16*)q[0];
-    if (!map_win_part(&L.win[0], win, 0, d.R, d.D) ||
-        !map_win_part(&L.win[1], win, d.R, d.R, d.D) ||
-        !map_win_part(&L.win[2], win, 2 * d.R, d.C, d.D) ||
-        !map2(&L.wout, (const bf16*)q[2], d.R + d.S, d.D, 64, 64))
+    if (!map_fwd_layer(L, d, (const bf16*)q[0], (const bf16*)q[2]))
       return (int)cudaErrorInvalidValue;
     L.bin = (const float*)q[1]; L.bout = (const float*)q[3]; L.y = (bf16*)q[4];
+    L.xin = nullptr; L.xout = nullptr;
     L.dd = iv[12 + l];
   }
   p.r0 = iv[10]; p.chunk = iv[11];
@@ -1949,7 +1905,7 @@ int awt_gated_fwd(int nl, void* const* ptr, const int* iv, cudaStream_t stream) 
                  : wg_launch(wg_fwd_kernel<1>, p, grid, lay.bytes, stream);
 }
 
-// Saved y.  ptr: cond, gxcur, gxprev, gskip, gcond, gxc, gxp, gcur2, gp2,
+// Saved y.  ptr: cond, gxcur, gxprev, gskip, gcond, gxc, gxp, gcur, gp2,
 //      then per layer y, win, wout, gy, h, gout (weights unpadded)
 // iv: 10 dims, prev_dd, cur_vl, r0, chunk, dd1, vl1, dd2, vl2, n_chunks
 int awt_gated_bwd(int nl, void* const* ptr, const int* iv, cudaStream_t stream) {
@@ -1958,12 +1914,11 @@ int awt_gated_bwd(int nl, void* const* ptr, const int* iv, cudaStream_t stream) 
   p.cond = (const bf16*)ptr[0]; p.gxcur = (const bf16*)ptr[1];
   p.gxprev = (const bf16*)ptr[2]; p.gskip = (const bf16*)ptr[3];
   p.gcond = (float*)ptr[4]; p.gxc = (bf16*)ptr[5]; p.gxp = (bf16*)ptr[6];
-  p.gcur2 = (float*)ptr[7]; p.gp2 = (float*)ptr[8];
+  p.gcur = (float*)ptr[7]; p.gp2 = (float*)ptr[8];
   for (int l = 0; l < nl; ++l) {
     void* const* q = ptr + 9 + 6 * l;
     WgBwdLayer& L = p.L[l];
-    if (!map2(&L.woutT, (const bf16*)q[2], d.R + d.S, d.D, 64, 128) ||
-        !map2(&L.winT, (const bf16*)q[1], 2 * d.D, 2 * d.R + d.C, 64, 128))
+    if (!map_bwd_layer(L, d, (const bf16*)q[1], (const bf16*)q[2]))
       return (int)cudaErrorInvalidValue;
     L.y = (const bf16*)q[0]; L.gy = (bf16*)q[3]; L.h = (bf16*)q[4]; L.gout = (bf16*)q[5];
     L.dd = iv[14 + 2 * l]; L.vl = iv[15 + 2 * l];
@@ -1987,12 +1942,10 @@ int awt_gated_bwd_recompute(void* const* ptr, const int* iv, cudaStream_t stream
   p.cond = (const bf16*)ptr[0]; p.gxcur = (const bf16*)ptr[1];
   p.gxprev = (const bf16*)ptr[2]; p.gskip = (const bf16*)ptr[3];
   p.gcond = (float*)ptr[4]; p.gxc = (bf16*)ptr[5]; p.gxp = (bf16*)ptr[6];
-  p.gcur2 = p.gp2 = p.gp2w = nullptr;
   p.yf = (float*)ptr[7];
   void* const* q = ptr + 8;
-  p.L[0] = BwdLayer{(const bf16*)q[0], nullptr, (const bf16*)q[1], (const float*)q[2],
-                    (const bf16*)q[3], (bf16*)q[4], (bf16*)q[5], (bf16*)q[6], iv[14],
-                    iv[15]};
+  p.L = BwdLayer{(const bf16*)q[0], (const bf16*)q[1], (const float*)q[2],
+                 (const bf16*)q[3], (bf16*)q[4], (bf16*)q[5], (bf16*)q[6], iv[14], iv[15]};
   p.prev_dd = iv[10]; p.cur_vl = iv[11]; p.r0 = iv[12]; p.chunk = iv[13];
   const int smem = awt_gated_bwd_smem(iv);
   cudaFuncSetAttribute(gated_bwd_recompute_kernel,
@@ -2004,51 +1957,62 @@ int awt_gated_bwd_recompute(void* const* ptr, const int* iv, cudaStream_t stream
 int awt_gated_max_fused_layers() { return MAX_FUSED; }
 
 // The whole-stack forward.  ptr: cond, skip, bar (one zeroed 64-bit count),
-// then per layer win, bin, wout, bout, y, xin, xout
-// iv: 10 dims, n_layers, r0, then dd per layer
+// then per layer win, bin, wout, bout, y, xin, xout (weights unpadded)
+// iv: 10 dims, n_layers, r0, grid, then dd per layer
 int awt_gated_stack(void* const* ptr, const int* iv, cudaStream_t stream) {
-  StackP p;
-  p.d = dims_from(iv);
+  WgStackArgs p;
+  const WgDims d = p.d = wg_dims(iv);
   p.cond = (const bf16*)ptr[0]; p.skip = (float*)ptr[1];
   p.bar = (unsigned long long*)ptr[2];
   p.n_layers = iv[10]; p.r0 = iv[11];
-  p.n_tiles = (p.d.P - p.r0 + TM - 1) / TM;
+  p.n_tiles = (d.P - p.r0 + TM - 1) / TM;
   if (p.n_layers < 1 || p.n_layers > MAX_FUSED || p.n_tiles < 1)
     return (int)cudaErrorInvalidValue;
   for (int l = 0; l < p.n_layers; ++l) {
     void* const* q = ptr + 3 + 7 * l;
-    p.layers[l] = StackLayer{(const bf16*)q[0], (const float*)q[1],
-                             (const bf16*)q[2], (const float*)q[3], (bf16*)q[4],
-                             (const bf16*)q[5], (bf16*)q[6], iv[12 + l]};
+    WgFwdLayer& L = p.L[l];
+    if (!map_fwd_layer(L, d, (const bf16*)q[0], (const bf16*)q[2]))
+      return (int)cudaErrorInvalidValue;
+    L.bin = (const float*)q[1]; L.bout = (const float*)q[3]; L.y = (bf16*)q[4];
+    L.xin = (const bf16*)q[5]; L.xout = (bf16*)q[6];
+    L.dd = iv[13 + l];
   }
-  return launch_resident(gated_stack_kernel, p, p.d.B * p.n_tiles,
-                         awt_gated_fwd_smem(iv), stream);
+  const Layout lay = fwd_layout(d);
+  if (lay.nst < 2) return (int)cudaErrorInvalidValue;
+  p.nst = lay.nst; p.hoff = lay.aux; p.roff = lay.tiles;
+  p.boff = lay.tiles + lay.nst * SLAB;
+  return launch_coop(wg_stack_kernel, p, iv[12], lay.bytes, stream);
 }
 
 // The grouped backward (saved y).  ptr: cond, gxcur, gxprev, gskip, gcond,
 // gxc, gxp, gcur, gp0, gp1, bar (one zeroed 64-bit count), then per layer
-// (lower layer first) x, y, win, bin, wout, gy, h, gout
-// iv: 10 dims, n_layers, prev_dd, cur_vl, r0, then dd, vl per layer
+// (lower layer first) y, win, wout, gy, h, gout (weights unpadded)
+// iv: 10 dims, n_layers, prev_dd, cur_vl, r0, grid, then dd, vl per layer
 int awt_gated_group(void* const* ptr, const int* iv, cudaStream_t stream) {
-  GroupP p;
-  p.d = dims_from(iv);
+  WgGroupArgs p;
+  const WgDims d = p.d = wg_dims(iv);
   p.cond = (const bf16*)ptr[0]; p.gxcur = (const bf16*)ptr[1];
   p.gxprev = (const bf16*)ptr[2]; p.gskip = (const bf16*)ptr[3];
   p.gcond = (float*)ptr[4]; p.gxc = (bf16*)ptr[5]; p.gxp = (bf16*)ptr[6];
   p.gcur = (float*)ptr[7]; p.gp[0] = (float*)ptr[8]; p.gp[1] = (float*)ptr[9];
   p.bar = (unsigned long long*)ptr[10];
   p.n_layers = iv[10]; p.prev_dd = iv[11]; p.cur_vl = iv[12]; p.r0 = iv[13];
-  p.n_tiles = (p.d.P - p.r0 + TM - 1) / TM;
+  p.n_tiles = (d.P - p.r0 + TM - 1) / TM;
   if (p.n_layers < 2 || p.n_layers > MAX_FUSED || p.n_tiles < 1)
     return (int)cudaErrorInvalidValue;
   for (int l = 0; l < p.n_layers; ++l) {
-    void* const* q = ptr + 11 + 8 * l;
-    p.layers[l] = BwdLayer{(const bf16*)q[0], (const bf16*)q[1], (const bf16*)q[2],
-                           (const float*)q[3], (const bf16*)q[4], (bf16*)q[5],
-                           (bf16*)q[6], (bf16*)q[7], iv[14 + 2 * l], iv[15 + 2 * l]};
+    void* const* q = ptr + 11 + 6 * l;
+    WgBwdLayer& L = p.L[l];
+    if (!map_bwd_layer(L, d, (const bf16*)q[1], (const bf16*)q[2]))
+      return (int)cudaErrorInvalidValue;
+    L.y = (const bf16*)q[0]; L.gy = (bf16*)q[3]; L.h = (bf16*)q[4]; L.gout = (bf16*)q[5];
+    L.dd = iv[15 + 2 * l]; L.vl = iv[16 + 2 * l];
   }
-  return launch_resident(gated_group_kernel, p, p.d.B * p.n_tiles,
-                         awt_gated_bwd_smem(iv), stream);
+  const Layout lay = bwd_layout(d);
+  if (lay.nst < 2) return (int)cudaErrorInvalidValue;
+  p.nst = lay.nst; p.yoff = lay.aux; p.roff = lay.tiles;
+  p.boff = lay.tiles + lay.nst * SLAB;
+  return launch_coop(wg_group_kernel, p, iv[14], lay.bytes, stream);
 }
 
 // dW = A^T G and db = the column sums of G over rows [lo, P) of every batch

@@ -55,8 +55,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                  "awt_gated_bwd_recompute"):
         getattr(lib, name).argtypes = [p, p, p]
         getattr(lib, name).restype = i
-    for name in ("awt_gated_fwd_smem", "awt_gated_bwd_smem", "awt_gated_wg_fwd_smem",
-                 "awt_gated_wg_bwd_smem"):
+    for name in ("awt_gated_bwd_smem", "awt_gated_wg_fwd_smem", "awt_gated_wg_bwd_smem"):
         getattr(lib, name).argtypes = [p]
         getattr(lib, name).restype = i
     lib.awt_gated_wg_blocks.argtypes = [i, p]

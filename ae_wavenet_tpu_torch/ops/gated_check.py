@@ -16,7 +16,7 @@ LOGIT_ABS_TOL and every gradient within GRAD_REL_TOL of the largest, as
 The whole-stack forward is many layers deep in one kernel: a one-ulp flip
 of x' stays on the residual stream and the flips of later layers add to it,
 so against the plain version run from x0 its deepest outputs drift by a few
-ulps of their largest value (0.018 of it at 20 layers of the flagship
+ulps of their largest value (about 0.02 of it at 20 layers of the flagship
 width on an H100, against 0.004-0.006 for one layer).  It is therefore held
 twice: every layer of it against the plain layer on the kernel's own input
 stream at SEGMENT_REL_TOL (:func:`stack_layerwise`), and every output

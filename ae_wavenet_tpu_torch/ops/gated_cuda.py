@@ -17,16 +17,17 @@ counts its kernel runs in ``.launches``.
 The kernels choose their own tiles (64 rows per tile, chunks of rows per
 block sized so that every block of a launch is resident at once); the
 reference's ``gated_tile`` and ``gated_bwd_tile`` are TPU schedule knobs and
-are not read.  K1, K1b, K2 and K2b with saved y run on the Hopper tile core
-(``wgmma`` fed by TMA) on the weights as they are; K7, K8's data-gradient
-tiles and K2b's recompute mode run on the first (WMMA) core on weights
-zero-padded to 16-column multiples; every weight gradient goes through the
-Hopper weight-gradient kernel.  Shape limits: ``filter_sz == 2``; n_res,
-n_cond, n_dil and n_skp multiples of 8 (16-byte rows); the widths'
-shared-memory footprint within one block's 227 KB (a width past it raises
-``ValueError``); the grouped backward takes saved y only.  The whole-stack
-forward and the grouped backward are cooperative launches of as many blocks
-as the card holds at once, with a barrier across the grid between layers.
+are not read.  Every kernel but one runs on the Hopper tile core (``wgmma``
+fed by TMA) on the weights as they are: K1, K1b, K7, K2, K2b with saved y,
+K8's data-gradient tiles and every weight gradient.  Only K2b's recompute
+mode runs on the first (WMMA) core, on weights zero-padded to 16-column
+multiples.  Shape limits: ``filter_sz == 2``; n_res, n_cond, n_dil and
+n_skp multiples of 8 (16-byte rows); the widths' shared-memory footprint
+within one block's 227 KB (a width past it raises ``ValueError``); the
+grouped backward takes saved y only.  The whole-stack forward and the
+grouped backward are cooperative launches of as many blocks as the card
+holds at once (:func:`coop_plan`), with a barrier across the grid between
+layers; a grid the card cannot hold raises.
 """
 
 from __future__ import annotations
@@ -62,8 +63,7 @@ def _pad_weights(dims, w_in, b_in, w_out, b_out):
     _, _, r, c, d, s, rp, cp, dp, sp = dims
     dev = w_in.device
     if (rp, cp, dp, sp) == (r, c, d, s):
-        # nothing to pad (as at the flagship widths): one cast each, so a
-        # launch of many layers does not wait on a dozen small kernels a layer
+        # nothing to pad (as at the flagship widths): one cast each
         def cast(w):
             return w.detach().to(BF16, memory_format=torch.contiguous_format)
 
@@ -145,23 +145,54 @@ def _chunk(rows: int, batch: int, dd2: int, sms: int, per_sm: int) -> tuple[int,
     return chunk, -(-rows // chunk)
 
 
+def coop_plan(rows: int, batch: int, sms: int, per_sm: int) -> tuple[int, int, int]:
+    """The whole-stack forward's and the grouped backward's grid: every layer
+    has ``batch`` x ceil(``rows`` / TM) tiles, and tile t goes to block t mod
+    grid in every layer (``csrc/gated.cu``: ``tile = blockIdx.x; tile +=
+    gridDim.x``); the grid is as many blocks as the card holds at once
+    (``sms`` SMs holding ``per_sm`` each), or one per tile.  -> (grid, tiles
+    per batch row, the most tiles a block takes in a layer)."""
+    n_tiles = -(-rows // TM)
+    total = batch * n_tiles
+    grid = max(1, min(sms * per_sm, total))
+    return grid, n_tiles, -(-total // grid)
+
+
 _BLOCKS: dict = {}
+_KINDS = {"fwd": 0, "bwd": 1, "stack": 2, "group": 3}  # awt_gated_wg_blocks
 
 
-def _plan(dev, kind: int, dims, rows: int, batch: int, dd2: int) -> tuple[int, int]:
-    """``_chunk`` from the card's SM count and the kernel's occupancy at
-    these widths (kind 0: the Hopper forward, 1: its backward; 2: the first
-    core's recompute backward, one block per SM)."""
+def _per_sm(kind: str, dims) -> int:
+    """Blocks of the Hopper kernel ``kind`` one SM holds at these widths
+    (memoised); the first core's recompute backward runs one per SM."""
     from ae_wavenet_tpu_torch.ops import _build
 
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     key = (kind, tuple(dims[2:6]))
     if key not in _BLOCKS:
-        n = 1 if kind == 2 else _build.load().awt_gated_wg_blocks(kind, _ints(*dims))
+        n = 1 if kind == "recompute" else _build.load().awt_gated_wg_blocks(
+            _KINDS[kind], _ints(*dims))
         if n < 1:
-            raise RuntimeError(f"occupancy query failed: CUDA error {-n}")
+            raise RuntimeError(f"occupancy query failed: CUDA error {-n}"
+                               if n < 0 else f"no {kind} block fits on an SM at "
+                               f"widths {dims[2:6]}")
         _BLOCKS[key] = n
-    return _chunk(rows, batch, dd2, sms, _BLOCKS[key])
+    return _BLOCKS[key]
+
+
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _plan(dev, kind: str, dims, rows: int, batch: int, dd2: int) -> tuple[int, int]:
+    """``_chunk`` from the card's SM count and the kernel's occupancy at
+    these widths (kind "fwd", "bwd" or "recompute")."""
+    return _chunk(rows, batch, dd2, _sms(dev), _per_sm(kind, dims))
+
+
+def _coop_grid(dev, kind: str, dims, rows: int, batch: int) -> int:
+    """:func:`coop_plan`'s grid for the Hopper kernel ``kind`` ("stack" or
+    "group") on this card."""
+    return coop_plan(rows, batch, _sms(dev), _per_sm(kind, dims))[0]
 
 
 def _head_zeroed(t: torch.Tensor, rows: int) -> torch.Tensor:
@@ -206,7 +237,7 @@ def _fwd(nl, x, cond, skip, pks, dds, r0, save_y):
            _smem("awt_gated_wg_fwd_smem", dims))
     b, p, r = dims[:3]
     dev = x.device
-    chunk, n_chunks = _plan(dev, 0, dims, p - r0, b, dds[-1] if nl == 2 else 0)
+    chunk, n_chunks = _plan(dev, "fwd", dims, p - r0, b, dds[-1] if nl == 2 else 0)
     # the kernel writes rows [r0, P) of every output; rows below hold zeros
     outs = [_head_zeroed(torch.empty_like(x), r0) for _ in range(nl)]  # (mid,) x'
     ys = ([_head_zeroed(x.new_empty(b, p, 2 * dims[4]), r0) for _ in range(nl)]
@@ -250,8 +281,9 @@ def gated_pair_fused(x, cond, skip, pk1, pk2, *, dd1: int, dd2: int, r0: int,
 
 
 def _check_depth(n: int, what: str) -> None:
-    """The fused kernels take their per-layer tables by value in the launch's
-    parameters, which bounds the layers of one launch."""
+    """The fused kernels take their per-layer tables (tensor maps and
+    pointers) by value in the launch's parameters, which bounds the layers of
+    one launch (``awt_gated_max_fused_layers``)."""
     from ae_wavenet_tpu_torch.ops import _build
 
     most = _build.load().awt_gated_max_fused_layers()
@@ -276,7 +308,7 @@ def gated_stack_fused(x, cond, skip, packed, *, dils, r0: int,
     _check_depth(n, "the whole-stack forward")
     dims = _dims(x, cond, packed[0][0], packed[0][2])
     _check(dims, {"x": x, "cond": cond, "skip": skip},
-           _smem("awt_gated_fwd_smem", dims))
+           _smem("awt_gated_wg_fwd_smem", dims))
     b, p, _, _, d = dims[:5]
     if not 0 <= r0 < p:
         raise ValueError(f"r0={r0} leaves no rows of {p}")
@@ -294,11 +326,11 @@ def gated_stack_fused(x, cond, skip, packed, *, dils, r0: int,
     for l in range(n):
         src = x if l == 0 else mids[(l - 1) % len(mids)]
         dst = None if l == n - 1 else mids[l % len(mids)]
-        layers += [*_pad_weights(dims, *packed[l]), ys[l] if save_y else None,
-                   src, dst]
+        layers += [*_cast_weights(*packed[l]), ys[l] if save_y else None, src, dst]
     bar = torch.zeros(1, dtype=torch.int64, device=dev)
+    grid = _coop_grid(dev, "stack", dims, p - r0, b)
     _call("awt_gated_stack", None, _ptrs(cond, skip, bar, *layers),
-          _ints(*dims, n, r0, *dils), dev)
+          _ints(*dims, n, r0, grid, *dils), dev)
     gated_stack_fused.launches += 1
     return skip, tuple(mids) if save_mids else (), tuple(ys)
 
@@ -368,8 +400,8 @@ def _bwd(nl, xs, cond, gxcur, gxprev, gskip, gcond, pks, ys, dds, vls,
     (b, p, r), dp = dims[:3], dims[8]
     dev = xs[0].device
     r0 = vls[0]
-    chunk, n_chunks = _plan(dev, 2 if recompute else 1, dims, p - r0, b,
-                            dds[-1] if nl == 2 else 0)
+    chunk, n_chunks = _plan(dev, "recompute" if recompute else "bwd", dims, p - r0,
+                            b, dds[-1] if nl == 2 else 0)
     gxc, gxp = (_head_zeroed(torch.empty_like(xs[0]), r0) for _ in range(2))
     saved = [_scratch(dims, dev) for _ in range(nl)]
     head = [cond, gxcur, gxprev, gskip, gcond, gxc, gxp]
@@ -403,7 +435,8 @@ def gated_layer_bwd(x, cond, gxcur, gxprev, gskip, gcond, w_in, w_out, b_in, *,
                     dd: int, prev_dd: int, valid_lo: int, cur_valid_lo: int,
                     y_saved=None):
     """K2b: one gated layer backward, saved-y or recompute mode; see
-    ``gated.gated_layer_bwd_reference``."""
+    ``gated.gated_layer_bwd_reference``.  ``.launches`` counts both modes,
+    ``.launches_recompute`` the recompute mode's kernel alone."""
     if x.device.type == "cpu":
         return gated.gated_layer_bwd_reference(
             x, cond, gxcur, gxprev, gskip, gcond, w_in, w_out, b_in, dd=dd,
@@ -413,6 +446,7 @@ def gated_layer_bwd(x, cond, gxcur, gxprev, gskip, gcond, w_in, w_out, b_in, *,
                [(w_in, b_in, w_out, None)], (y_saved,), (dd,), (valid_lo,),
                prev_dd, cur_valid_lo)
     gated_layer_bwd.launches += 1
+    gated_layer_bwd.launches_recompute += int(y_saved is None)
     return out
 
 
@@ -457,7 +491,7 @@ def gated_group_bwd(xs_g, cond, gxcur, gxprev, gskip, gcond, pks, ys_g, *, dds,
                "gcond": gcond}
     for l in range(n):
         tensors[f"x{l + 1}"], tensors[f"y{l + 1}"] = xs_g[l], ys_g[l]
-    _check(dims, tensors, _smem("awt_gated_bwd_smem", dims))
+    _check(dims, tensors, _smem("awt_gated_wg_bwd_smem", dims))
     for v, name in ((gxcur, "gxcur"), (gxprev, "gxprev")):
         if tuple(v.shape) != tuple(xs_g[0].shape) or v.dtype != BF16:
             raise ValueError(f"{name}: {tuple(v.shape)} {v.dtype}, the kernel "
@@ -468,14 +502,14 @@ def gated_group_bwd(xs_g, cond, gxcur, gxprev, gskip, gcond, pks, ys_g, *, dds,
     inner = [torch.empty(b, p, r, device=dev) for _ in range(3)]  # gcur, gp0, gp1
     layers, saved = [], []
     for l in range(n):
-        win, binp, wout, _ = _pad_weights(dims, pks[l][0], pks[l][1], pks[l][2],
-                                          None)
+        win, _, wout, _ = _cast_weights(*pks[l])
         saved.append(_scratch(dims, dev))
-        layers += [xs_g[l], ys_g[l], win, binp, wout, *saved[-1]]
+        layers += [ys_g[l], win, wout, *saved[-1]]
     bar = torch.zeros(1, dtype=torch.int64, device=dev)
+    grid = _coop_grid(dev, "group", dims, p - valid_los[0], b)
     _call("awt_gated_group", None,
           _ptrs(cond, gxcur, gxprev, gskip, gcond, gxc, gxp, *inner, bar, *layers),
-          _ints(*dims, n, prev_dd, cur_valid_lo, valid_los[0],
+          _ints(*dims, n, prev_dd, cur_valid_lo, valid_los[0], grid,
                 *(v for l in range(n) for v in (dds[l], valid_los[l]))), dev)
     del inner, layers
     grads = _weight_grads(dims, saved, xs_g, cond, dds, valid_los)
@@ -486,3 +520,4 @@ def gated_group_bwd(xs_g, cond, gxcur, gxprev, gskip, gcond, pks, ys_g, *, dds,
 for _f in (gated_layer_fused, gated_pair_fused, gated_layer_bwd, gated_pair_bwd,
            gated_stack_fused, gated_group_bwd):
     _f.launches = 0
+gated_layer_bwd.launches_recompute = 0

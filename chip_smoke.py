@@ -10,7 +10,9 @@ power limit:
 1. environment: torch, CUDA, nvcc, triton, the card;
 2. build: compiles ae_wavenet_tpu_torch/csrc/*.cu from this checkout and
    prints every kernel's registers, spills and stack from the ptxas report
-   (the Hopper kernels and the sampler's must not spill);
+   (every kernel of the Hopper tile core, the whole-stack and group kernels
+   among them, must be listed, and none of them nor the sampler's may
+   spill);
 3. the fused sampler kernels (one cooperative grid, each block's column
    share of the weights resident in shared memory; the plan's block count
    and resident bytes printed) against their plain PyTorch versions at the
@@ -43,14 +45,16 @@ power limit:
    before each run and show which kernels it went through;
 6. train-kernels: the six gated-stack kernels (``csrc/gated.cu``: one
    layer, a pair, the whole stack forward; one layer, a pair, a group of
-   layers backward; the pair and single-layer kernels on the Hopper core)
-   against their plain versions at the full ``chorowski``
+   layers backward; all on the Hopper core but the single-layer backward's
+   recompute mode) against their plain versions at the full ``chorowski``
    width (seeded random weights, every bias perturbed), each output, at
    B = 2 with 4,100 loss samples (a ragged last tile) and again at the
    training path's shape (B = 4, n_win = 48,000), where both are also
    timed, each beside its bound and its share of it (the pair kernels also
-   beside their bytes bound and a cuBLAS yardstick of their products alone);
-   the pair and the grouped backward's bits on a second launch; the whole stack
+   beside their bytes bound and a cuBLAS yardstick of their products alone;
+   the single-layer backward in both modes, saved y and recompute); the
+   pair backward's, the whole-stack forward's and the grouped backward's
+   bits on a second launch; the whole stack
    through ``GatedStack`` in seven schedules (logits and every gradient);
    six faults planted in the plain versions, which the same checks must
    reject (among them the pair forward's and the pair backward's layer 2
@@ -70,15 +74,19 @@ power limit:
    steps of the main path and 2 of the whole-stack path under
    ``--profile-steps 2`` (device-busy share, device time by kernel name).  The
    launch counters are set to 0 before each run and read after it: every
-   gated kernel must have launched exactly as its path says and no plain
-   version at all.  Median step time, samples/s and peak memory of each
-   path, and the step's time split from CUDA events around its parts in 3
-   steps of one ``Chassis`` run, for the main and the whole-stack path;
+   gated kernel (the single-layer backward's recompute mode counted apart)
+   must have launched exactly as its path says and no plain version at all.
+   Median step time, samples/s and peak memory of each path, each
+   whole-stack schedule's step beside the pairs step of the same run, and
+   the step's time split from CUDA events around its parts in 3 steps of
+   one ``Chassis`` run, for the main and the whole-stack path;
 8. eval: ``cli/eval.py --quality`` on the checkpoint that run wrote.
 
 Then one JSON line describing the ten kernels (each with its launches on
 its path, its error against the plain version, its time beside the plain
-version's and the card's bound for the same work), and as the last line
+version's and the card's bound for the same work; the single-layer
+backward's row carries its recompute mode's numbers beside it), and as the
+last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
 """
 
@@ -134,6 +142,10 @@ HBM_BYTES_PER_S = 3.35e12
 # and its shared memory: 132 SMs, each reading 128 bytes a clock at the
 # 1.98 GHz boost clock
 SMEM_BYTES_PER_S = 132 * 128 * 1.98e9
+# every kernel of the Hopper tile core, as the ptxas report names them
+HOPPER_KERNELS = ("wg_fwd_kernel<1>", "wg_fwd_kernel<2>", "wg_bwd_kernel<1>",
+                  "wg_bwd_kernel<2>", "wg_dw_kernel", "wg_stack_kernel",
+                  "wg_group_kernel")
 GATED = {  # wrapper -> the Pallas kernel it replaces
     "gated_pair_fused": "ae_wavenet_tpu/ops/gated_pallas.py:217",
     "gated_layer_fused": "ae_wavenet_tpu/ops/gated_pallas.py:105",
@@ -333,7 +345,8 @@ def phase_build(card: str) -> None:
         print(f"[build] ptxas {name}: {regs} registers{note}, spill stores {st} B, spill "
               f"loads {ld} B, stack {stack} B | {card}")
     hopper = [k for k in kernels if k.startswith("wg_")]
-    check(len(hopper) >= 5, f"ptxas report lists the Hopper kernels {hopper}")
+    check(set(HOPPER_KERNELS) <= set(hopper),
+          f"ptxas report lists the Hopper kernels {hopper}, not all of {HOPPER_KERNELS}")
     sampler = [k for k in kernels if k.startswith("fastgen_kernel")]
     check(len(sampler) == 3, f"ptxas report lists the sampler kernels {sampler}")
     check(all(kernels[k][1] == kernels[k][2] == 0 for k in hopper + sampler),
@@ -1043,8 +1056,8 @@ def _phase_train_kernels(card: str, dev) -> dict:
     # the full split-K), then both timed
     wn, ids, cond, spk = chk.random_stack(wcfg, TRAIN_B, TRAIN_WIN, 1, dev)
     dils, x0, cond_tm, packed, xs, ys, cot = chk.segment_inputs(wn, wcfg, ids, cond, spk)
-    macs = (x0.shape[2] * 2 + cond_tm.shape[2]) * 2 * wcfg.n_dil + wcfg.n_dil * (
-        wcfg.n_res + wcfg.n_skp)  # per row and layer
+    win_macs = (x0.shape[2] * 2 + cond_tm.shape[2]) * 2 * wcfg.n_dil
+    macs = win_macs + wcfg.n_dil * (wcfg.n_res + wcfg.n_skp)  # per row and layer
     times, yardsticks = {}, {}
     for name, (wrapper, call) in chk.segment_calls(dils, cond_tm, packed, xs, ys,
                                                    cot).items():
@@ -1052,6 +1065,7 @@ def _phase_train_kernels(card: str, dev) -> dict:
         got = call(kern)
         ab, rel, note = held(name, wrapper, call, got, x0, f"at B={TRAIN_B}")
         errs[wrapper] = max(errs[wrapper], ab)
+        errs[name] = max(errs.get(name, 0.0), ab)
         timing = ""
         if name in faults:  # the planted fault fails the same check at this shape too
             fault, bad = faults[name]
@@ -1059,7 +1073,8 @@ def _phase_train_kernels(card: str, dev) -> dict:
             check(rel_f >= chk.SEGMENT_REL_TOL, f"planted fault '{fault}' passes at "
                   f"B={TRAIN_B}")
             timing += f"; planted fault '{fault}': {rel_f:.4g} of max|plain|, rejected"
-        if name in ("gated_group_bwd", "gated_pair_bwd"):  # fixed-order sums: the same bits
+        if name in ("gated_group_bwd", "gated_pair_bwd", "gated_stack_fused"):
+            # one owner per output row, fixed-order sums: the same bits
             again = call(kern)
             torch.cuda.synchronize()
             check(all(torch.equal(a, b) for a, b in zip(got, again)),
@@ -1067,7 +1082,7 @@ def _phase_train_kernels(card: str, dev) -> dict:
             timing += "; same bits on a second launch"
             del again
         del got
-        if name == wrapper:  # the other cases are variants of these
+        if name in (wrapper, "gated_layer_bwd_recompute"):  # the rest are variants
             # the case as PR 4 timed it (with the copies of the inputs that it
             # updates in place), the plain version likewise, then the wrapper
             # alone on one set of inputs (those it updates just accumulate)
@@ -1090,10 +1105,12 @@ def _phase_train_kernels(card: str, dev) -> dict:
                         if "dds" in kw else 2 if "pair" in wrapper else 1)
             ops = (2 * TRAIN_B * TRAIN_WIN * macs * n_layers
                    * (2 if "bwd" in wrapper else 1))
+            if kw.get("y_saved", True) is None:  # and y = xin @ w_in recomputed
+                ops += 2 * TRAIN_B * TRAIN_WIN * win_macs
             n_bytes = tensor_bytes(moved)
             b_ms, by = bound(n_bytes, {"bf16": ops})
             del moved
-            times[wrapper] = (k_ms, p_ms, b_ms, by)
+            times[name] = (k_ms, p_ms, b_ms, by)
             timing += (f"; {n_layers} layer(s): kernel {k_ms:.3f} ms ({kc_ms:.3f} with the "
                        f"case's input copies, as PR 4 timed it), plain {p_ms:.3f} ms, "
                        f"bound {b_ms:.3f} ms by {by}, {100 * b_ms / k_ms:.1f}% of the bound")
@@ -1160,15 +1177,18 @@ def _path_run(argv, expect: dict, card: str, label: str):
     from ae_wavenet_tpu_torch.ops import gated, gated_cuda as gc
     from ae_wavenet_tpu_torch.ops import vq_cuda as vq
 
-    expect = {**dict.fromkeys(GATED, 0), "vq_lookup_fused": 0, **expect}
+    expect = {**dict.fromkeys(GATED, 0), "gated_layer_bwd_recompute": 0,
+              "vq_lookup_fused": 0, **expect}
     kernels = [getattr(gc, n) for n in GATED] + [vq.vq_lookup_fused]
     plain = [getattr(gated, n + "_reference") for n in GATED] + [vq.vq_lookup_reference]
     for f in kernels + plain:
         f.launches = 0
+    gc.gated_layer_bwd.launches_recompute = 0
     torch.cuda.reset_peak_memory_stats()
     recs = _run_cli(argv)
     torch.cuda.synchronize()
     got = {f.__name__: f.launches for f in kernels}
+    got["gated_layer_bwd_recompute"] = gc.gated_layer_bwd.launches_recompute
     plain_runs = {f.__name__: f.launches for f in plain}
     peak = torch.cuda.max_memory_allocated() / 2**30
     check(got == expect, f"{label}: kernel launches {got}, expected {expect}")
@@ -1292,8 +1312,10 @@ def phase_train(card: str, dev, tmp: str) -> dict:
     check(n_layers % GROUP == 0, f"{n_layers} layers: groups of {GROUP} leave some")
 
     def expect(pairs: int, layers: int, steps: int) -> dict:
+        # the single-layer path saves no y: its backward is the recompute mode
         return {"gated_pair_fused": pairs * steps, "gated_layer_fused": layers * steps,
-                "gated_pair_bwd": pairs * steps, "gated_layer_bwd": layers * steps}
+                "gated_pair_bwd": pairs * steps, "gated_layer_bwd": layers * steps,
+                "gated_layer_bwd_recompute": layers * steps}
 
     shape = ["--preset", "chorowski", "--pallas-stack", "--batch-sz", str(TRAIN_B),
              "--n-win", str(TRAIN_WIN), "--data", data, "--log-every", "1"]
@@ -1415,6 +1437,10 @@ def phase_train(card: str, dev, tmp: str) -> dict:
     print(f"[train] --gated-full-fusion alone: median step {step_ff * 1e3:.1f} ms -> "
           f"{TRAIN_B * TRAIN_WIN / step_ff:.0f} samples/s; peak memory {peak_ff:.2f} "
           f"GiB | {card}")
+    print(f"[train] step by schedule, this run: pairs {step_s * 1e3:.1f} ms; "
+          f"--gated-full-fusion {step_ff * 1e3:.1f} ms ({step_ff / step_s - 1:+.1%} "
+          f"against pairs); --gated-full-fusion --gated-bwd-group {GROUP} "
+          f"{step_ws * 1e3:.1f} ms ({step_ws / step_s - 1:+.1%}) | {card}")
 
     # two profiled steps of the main path and of the whole-stack path:
     # device time by kernel name
@@ -1447,7 +1473,7 @@ def phase_train(card: str, dev, tmp: str) -> dict:
                             "prof_pairs")
     n_prof = profiled(["--gated-full-fusion", "--gated-bwd-group", str(GROUP)],
                       {"gated_stack_fused": 2, "gated_group_bwd": 2 * n_layers // GROUP},
-                      "whole-stack path", ("gated_stack_kernel", "gated_group_kernel"),
+                      "whole-stack path", ("wg_stack_kernel", "wg_group_kernel"),
                       "prof")
 
     cfg = dataclasses.replace(
@@ -1458,7 +1484,7 @@ def phase_train(card: str, dev, tmp: str) -> dict:
         cfg.wavenet, gated_full_fusion=True, gated_bwd_group=GROUP)), data, dev,
         f"whole-stack path (full fusion, groups of {GROUP})", card)
     runs = (n_new, n_res, n_alt, n_vq, n_ws, n_ws_res, n_ff, n_prof_pairs, n_prof)
-    launches = {n: sum(r[n] for r in runs) for n in GATED}
+    launches = {n: sum(r[n] for r in runs) for n in (*GATED, "gated_layer_bwd_recompute")}
     launches["vq_lookup_fused"] = n_vq["vq_lookup_fused"]
     return {"launches": launches, "data": data, "ckpt_vq": ckpt_vq}
 
@@ -1540,15 +1566,24 @@ def main() -> int:
         "max_abs_err": k[mode]["max_abs_err"], **k[mode]["by_batch"][1],
         "library_ms": None, "batch": 1, "per": "generated step",
         "by_batch": k[mode]["by_batch"]} for mode in ("bf16", "int8", "int4")]
-    for name, replaced in GATED.items():
+    def gated_row(name, launches):
         k_ms, p_ms, b_ms, by = g["times"][name]
+        return {"launches": launches, "max_abs_err": g["errs"][name], "ms": k_ms,
+                "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+
+    for name, replaced in GATED.items():
         kernels.append({
             "name": name, "route": "cuda",
             "source": "ae_wavenet_tpu_torch/csrc/gated.cu", "replaces": replaced,
-            "launches": t["launches"][name], "max_abs_err": g["errs"][name],
-            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
-            "library_ms": None,
+            **gated_row(name, t["launches"][name]),
             **({"yardstick_ms": g["yardsticks"][name]} if name in g["yardsticks"] else {})})
+    # K2b's two modes are two kernels behind one wrapper: the row above is
+    # the saved-y mode's time; the recompute mode's (the single-layer path's
+    # launches) rides beside it
+    n_rec = t["launches"]["gated_layer_bwd_recompute"]
+    k2b = next(k for k in kernels if k["name"] == "gated_layer_bwd")
+    k2b["saved_y_launches"] = k2b["launches"] - n_rec
+    k2b["recompute_mode"] = gated_row("gated_layer_bwd_recompute", n_rec)
     vq_train = {n: x for n, x in v["training step"].items() if n != "n"}
     vq_by_n = {x["n"]: {n: y for n, y in x.items() if n not in ("n", "max_abs_err")}
                for x in v.values()}

@@ -393,23 +393,23 @@ def test_gated_kernel_matches_plain(cuda_device, name):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["gated_pair_fused", "gated_layer_fused",
-                                  "gated_pair_bwd", "gated_layer_bwd"])
+                                  "gated_pair_bwd", "gated_layer_bwd",
+                                  "gated_stack_fused", "gated_stack_fused_no_save",
+                                  "gated_group_bwd", "gated_group_bwd_3"])
 def test_gated_kernel_matches_plain_at_flagship_width(cuda_device, name):
     """The Hopper kernels at the ``chorowski`` widths (n_res 384, cond 160,
     n_dil 256, n_skp 256: the tile shapes of the main path) on a short ragged
-    T (4,100 = 64 x 64 + 4 loss samples), B = 2."""
+    T (4,100 = 64 x 64 + 4 loss samples), B = 2: the pair and single-layer
+    kernels, the whole stack's 20 layers and groups of 5 and 3."""
     from ae_wavenet_tpu_torch.utils.config import chorowski_config
 
     _held_against_plain(chorowski_config().wavenet, 2, 4100, name, cuda_device)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", ["gated_pair_bwd", "gated_layer_bwd",
-                                  "gated_layer_bwd_recompute"])
-def test_gated_backward_gives_the_same_bits_twice(cuda_device, name):
-    """Fixed-order split-K sums: a second launch on the same inputs gives
-    every output bit for bit."""
-    wn, ids, cond, spk = gchk.random_stack(GCFG, 3, 150, 0, cuda_device)
+def _same_bits_twice(name, dev):
+    """Two launches of kernel case ``name`` on the same inputs give every
+    output bit for bit."""
+    wn, ids, cond, spk = gchk.random_stack(GCFG, 3, 150, 0, dev)
     dils, _, cond_tm, packed, xs, ys, cot = gchk.segment_inputs(wn, GCFG, ids,
                                                                 cond, spk)
     wrapper, call = gchk.segment_calls(dils, cond_tm, packed, xs, ys, cot)[name]
@@ -417,6 +417,105 @@ def test_gated_backward_gives_the_same_bits_twice(cuda_device, name):
     again = call(getattr(tgc, wrapper))
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gated_pair_bwd", "gated_layer_bwd",
+                                  "gated_layer_bwd_recompute", "gated_group_bwd"])
+def test_gated_backward_gives_the_same_bits_twice(cuda_device, name):
+    """Fixed-order split-K sums (and in the grouped backward one owner block
+    per row): a second launch on the same inputs gives every output bit for
+    bit."""
+    _same_bits_twice(name, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gated_stack_fused", "gated_stack_fused_no_save"])
+def test_gated_whole_stack_forward_gives_the_same_bits_twice(cuda_device, name):
+    """The whole-stack forward: every output row has one owner block, which
+    adds the layers' skip terms in layer order, so a second launch on the
+    same inputs gives every output bit for bit."""
+    _same_bits_twice(name, cuda_device)
+
+
+def _first_row(name, dils) -> int:
+    """The first row of ``segment_calls``'s case ``name``'s tiles."""
+    if name.startswith("gated_stack_fused"):
+        return tgt.valid_lo(dils, 0)
+    hi = max(range(len(dils) - 1), key=lambda i: (dils[i], -i))
+    return tgt.valid_lo(dils, max(hi + 1 - 5, 0))  # the group of up to 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gated_stack_fused", "gated_group_bwd"])
+def test_gated_whole_stack_kernels_with_blocks_idle_in_the_last_round(cuda_device,
+                                                                       name):
+    """One tile more than the card holds blocks (B = 1), a single row in the
+    last tile: in each layer's second round every block but block 0 is
+    idle, and still meets each grid barrier."""
+    kind = "stack" if name.startswith("gated_stack") else "group"
+    n_cond = GCFG.n_lc_out + GCFG.n_global_embed
+    dims = [1, 1, GCFG.n_res, n_cond, GCFG.n_dil, GCFG.n_skp, 0, 0, 0, 0]
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    capacity = sms * tgc._per_sm(kind, dims)
+    rows = tgc.TM * capacity + 1
+    t_out = rows + _first_row(name, tgt.stack_dils(GCFG)) - twn.receptive_field(GCFG)
+    grid, n_tiles, most = tgc.coop_plan(rows, 1, sms, capacity // sms)
+    assert (grid, n_tiles, most) == (capacity, capacity + 1, 2)
+    _held_against_plain(GCFG, 1, t_out, name, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gated_stack_fused", "gated_group_bwd"])
+def test_gated_whole_stack_kernels_at_the_deepest_launch(cuda_device, name):
+    """As many layers in one launch as ``awt_gated_max_fused_layers`` allows
+    (the per-layer tables fill the kernel's parameters) against the plain
+    version, and the same bits on a second launch.  The whole-stack forward
+    is held layer by layer on its own streams (SEGMENT_REL_TOL) and from x0
+    (DRIFT_REL_TOL).  The group's cotangents cross that many layers of bf16
+    rounding points (g_out, g_y) in one launch and drift from the plain
+    version's as the forward does from x0, whatever the tile core: every
+    output is held at DRIFT_REL_TOL, and the top five layers' weight
+    gradients, before the drift, at SEGMENT_REL_TOL."""
+    from ae_wavenet_tpu_torch.ops import _build
+
+    most = _build.load().awt_gated_max_fused_layers()
+    cfg = dataclasses.replace(GCFG, n_blocks=-(-(most + 1) // GCFG.n_block_layers))
+    wn, ids, cond, spk = gchk.random_stack(cfg, 2, 150, 0, cuda_device)
+    dils, x0, cond_tm, packed, xs, ys, cot = gchk.segment_inputs(wn, cfg, ids, cond,
+                                                                 spk)
+    vl = lambda m: tgt.valid_lo(dils, m)  # noqa: E731
+    skip0 = gchk._skip0(x0, packed, 1)
+    if name == "gated_stack_fused":
+        dils, packed = dils[:most], packed[:most]
+
+        def call(fn):
+            skip, mids, ys_all = fn(x0, cond_tm, skip0.clone(), packed, dils=dils,
+                                    r0=vl(0), save_y=True)
+            return (skip, *mids, *ys_all)
+    else:
+        i, k = len(dils) - 1 - most, len(dils) - 1
+
+        def call(fn):
+            c = {n: v.clone() for n, v in cot.items()}
+            return fn(tuple(xs[i:k]), cond_tm, c["gxcur"], c["gxprev"], c["gskip"],
+                      c["gcond"], tuple(packed[i:k]), tuple(ys[i:k]),
+                      dds=tuple(dils[i:k]), prev_dd=dils[k],
+                      valid_los=tuple(vl(m) for m in range(i, k)), cur_valid_lo=vl(k))
+    fn = getattr(tgc, name)
+    got, again = call(fn), call(fn)
+    want = call(getattr(tgt, name + "_reference"))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(bool(torch.isfinite(g.float()).all()) for g in got)
+    _, rel = gchk.compare_outputs(got, want)
+    assert rel < gchk.DRIFT_REL_TOL, rel
+    if name == "gated_stack_fused":
+        _, rel = gchk.compare_outputs(
+            got, gchk.stack_layerwise(got, dils, cond_tm, packed, x0))
+    else:  # (gxc, gxp, gcond, then dW_in, db_in, dW_out, db_out per layer, lowest first)
+        _, rel = gchk.compare_outputs(got[-4 * 5:], want[-4 * 5:])
+    assert rel < gchk.SEGMENT_REL_TOL, rel
 
 
 @pytest.mark.cuda

@@ -447,3 +447,41 @@ def test_chunk_plan_is_one_wave_and_covers_every_row(rows, batch, dd2, sms, per_
     assert chunk % gated_cuda.TM == 0 and chunk >= dd2
     assert (n - 1) * chunk < rows <= n * chunk
     assert batch * n <= max(sms * per_sm, batch)
+
+
+@pytest.mark.parametrize("rows,batch,sms,per_sm", [
+    (50046 - 1, 4, 132, 1),    # the whole stack at the flagship training shape
+    (50046 - 2046, 4, 132, 1), # a group at the top of the stack
+    (4036, 2, 132, 1),         # the smoke's B = 2 check
+    (132 * 64 + 1, 1, 132, 1), # one tile past a round: 131 blocks idle in it
+    (147, 3, 132, 2),          # fewer tiles than blocks: one tile each
+    (50000, 5, 114, 2),        # another card, two blocks an SM
+    (1, 1, 132, 1),            # one row
+])
+def test_coop_plan_gives_every_tile_once_to_one_block(rows, batch, sms, per_sm):
+    """The whole-stack forward's and the grouped backward's grid: every tile
+    of a layer taken once, by the same block in every layer (each block adds
+    to the rows it alone owns), no more blocks than the card holds at once,
+    and no block more than one tile ahead of another."""
+    from ae_wavenet_tpu_torch.ops import gated_cuda
+
+    grid, n_tiles, most = gated_cuda.coop_plan(rows, batch, sms, per_sm)
+    total = batch * n_tiles
+    assert (n_tiles - 1) * gated_cuda.TM < rows <= n_tiles * gated_cuda.TM
+    assert 1 <= grid <= min(sms * per_sm, total)
+
+    def tiles(block):  # csrc/gated.cu: for (tile = blockIdx.x; ...; tile += gridDim.x)
+        return range(block, total, grid)
+
+    owners = []
+    for _ in range(2):  # two layers
+        owner = {}
+        for block in range(grid):
+            for tile in tiles(block):
+                assert tile not in owner
+                owner[tile] = block
+        assert sorted(owner) == list(range(total))
+        owners.append(owner)
+    assert owners[0] == owners[1]
+    counts = [len(tiles(block)) for block in range(grid)]
+    assert max(counts) == most and max(counts) - min(counts) <= 1
