@@ -7,7 +7,7 @@
 //   gated_layer_fused (K1b) and gated_pair_fused (K1)  -> wg_fwd_kernel<1|2>
 //   gated_layer_bwd (K2b) and gated_pair_bwd (K2)      -> wg_bwd_kernel<1|2>
 //                                                         + wg_dw_kernel
-//     (K2b's recompute mode, no saved y: gated_bwd_recompute_kernel)
+//     (K2b's recompute mode, no saved y: wg_bwd_kernel<1, true>)
 //   gated_stack_fused (K7, every layer in one launch)  -> wg_stack_kernel
 //   gated_group_bwd (K8, G >= 3 layers in one launch)  -> wg_group_kernel
 //                                                         + wg_dw_kernel
@@ -17,13 +17,10 @@
 // Layout: time-major [B, P, C] bf16 streams (f32 skip / gcond), P = t_in
 // rows, layer i valid from row vl_i.
 //
-// Two tile cores.  The Hopper core (wgmma fed by TMA, "Hopper core" below)
-// runs every kernel but one, on the weights as they are.  The first core
-// (WMMA fragments from L2, one 8-warp block per SM) runs only K2b's
-// recompute mode, on weights zero-padded to 16-column multiples (Rp, Cp,
-// Dp, Sp):
-//   win  [2Rp + Cp][2Dp]  rows prev | cur | cond, cols f | g
-//   wout [Dp][Rp + Sp]    cols res | skip
+// One tile core, "Hopper core" below (wgmma fed by TMA), runs every kernel
+// on the weights as they are:
+//   win  [2R + C][2D]  rows prev | cur | cond, cols f | g
+//   wout [D][R + S]    cols res | skip
 //
 // What the design does about the TPU schedule.  The Pallas grid walks the
 // time tiles of a batch row in order and carries state between them (the
@@ -68,346 +65,31 @@
 #include <cuda.h>  // CUtensorMap; the encoder comes from the runtime's driver entry point
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int TM = 64;      // rows per tile
-constexpr int NWARP = 8;
-constexpr int NTHR = 32 * NWARP;
-constexpr int SKEW = 8;     // bf16 padding per shared-memory row
-constexpr int STAGE = 512;  // f32 staging per warp (two 16x16 tiles)
+constexpr int TM = 64;  // rows per tile
 
-struct Dims {
-  int B, P, R, C, D, S, Rp, Cp, Dp, Sp;
-  __host__ __device__ int kp() const { return 2 * Rp + Cp; }
-  __host__ __device__ int rsp() const { return Rp + Sp; }
-};
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> FragAc;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBc;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-__device__ __forceinline__ float sigm(float v) { return 1.f / (1.f + expf(-v)); }
 __device__ __forceinline__ float rbf(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// 8 consecutive bf16 <-> f32 (16-byte aligned)
+// 8 consecutive bf16 -> f32 (16-byte aligned)
 __device__ __forceinline__ void ld8(float* o, const bf16* p) {
   uint4 u = *reinterpret_cast<const uint4*>(p);
   const bf16* h = reinterpret_cast<const bf16*>(&u);
 #pragma unroll
   for (int e = 0; e < 8; ++e) o[e] = __bfloat162float(h[e]);
 }
-__device__ __forceinline__ void st8(bf16* p, const float* v) {
-  uint4 u;
-  bf16* h = reinterpret_cast<bf16*>(&u);
-#pragma unroll
-  for (int e = 0; e < 8; ++e) h[e] = __float2bfloat16(v[e]);
-  *reinterpret_cast<uint4*>(p) = u;
-}
-__device__ __forceinline__ void cp8(bf16* dst, const bf16* src) {
-  *reinterpret_cast<uint4*>(dst) =
-      src ? *reinterpret_cast<const uint4*>(src) : make_uint4(0, 0, 0, 0);
-}
-__device__ __forceinline__ void ldf8(float* o, const float* p) {
-  float4 a = reinterpret_cast<const float4*>(p)[0];
-  float4 b = reinterpret_cast<const float4*>(p)[1];
-  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
-  o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
-}
-__device__ __forceinline__ void stf8(float* p, const float* v) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-
-// Fill xin rows [t0, t0 + TM) in shared memory (columns prev | cur | cond,
-// each zero-padded) from row pointers; rows >= nr and null pointers give
-// zeros.  Only the tap columns are loaded when with_cond is false.
-template <typename PrevF, typename CurF>
-__device__ void load_xin(bf16* xs, const Dims& d, int b, int t0, int nr,
-                         const bf16* cond, bool with_cond, PrevF prev, CurF cur,
-                         int valid_lo) {
-  const int ldx = d.kp() + SKEW;
-  const int nc = (with_cond ? d.kp() : 2 * d.Rp) / 8;
-  for (int i = threadIdx.x; i < TM * nc; i += NTHR) {
-    const int rr = i / nc, col = (i % nc) * 8, g = t0 + rr;
-    const bool in = rr < nr && g >= valid_lo;
-    const bf16* src = nullptr;
-    if (col < d.Rp) {
-      if (in && col < d.R) { src = prev(g); if (src) src += col; }
-    } else if (col < 2 * d.Rp) {
-      if (in && col - d.Rp < d.R) src = cur(g) + (col - d.Rp);
-    } else if (in && col - 2 * d.Rp < d.C) {
-      src = cond + ((size_t)b * d.P + g) * d.C + (col - 2 * d.Rp);
-    }
-    cp8(xs + rr * ldx + col, src);
-  }
-}
-
-// ------------------------------------ K2b's recompute mode (first core)
-
-struct BwdLayer {
-  const bf16* x;
-  const bf16* win; const float* bin; const bf16* wout;
-  bf16* gy; bf16* h; bf16* gout;  // [B, P, 2D], [B, P, D], [B, P, R + S]
-  int dd, vl;
-};
-
-struct BwdP {
-  Dims d;
-  const bf16* cond; const bf16* gxcur; const bf16* gxprev; const bf16* gskip;
-  float* gcond; bf16* gxc; bf16* gxp;
-  float* yf;  // the recomputed f32 y [B, P, 2Dp]
-  BwdLayer L;
-  int prev_dd, cur_vl, r0, chunk;
-};
-
-// Upstream cotangent of the layer's output rows g, channels r..r+7 (before
-// the layer's own valid mask).
-__device__ __forceinline__ void gxn8(const BwdP& p, int b, int g, int r, float* o) {
-  const Dims& d = p.d;
-  const size_t off = ((size_t)b * d.P + g) * d.R + r;
-#pragma unroll
-  for (int e = 0; e < 8; ++e) o[e] = 0.f;
-  if (g >= p.cur_vl) ld8(o, p.gxcur + off);
-  if (p.prev_dd && g + p.prev_dd < d.P) {
-    float q[8];
-    ld8(q, p.gxprev + off + (size_t)p.prev_dd * d.R);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) o[e] += q[e];
-  }
-}
-
-// The layer's recomputed f32 gate pre-activations at row g, gate channels
-// n..n+7 (f and g halves), zero on rows outside its lattice.
-__device__ __forceinline__ void y8(const BwdP& p, int b, int g, bool ok, int n,
-                                   float* yf, float* yg) {
-  const Dims& d = p.d;
-  if (!ok || g < p.L.vl) {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) yf[e] = yg[e] = 0.f;
-    return;
-  }
-  const float* yp = p.yf + ((size_t)b * d.P + g) * 2 * d.Dp;
-  ldf8(yf, yp + n);
-  ldf8(yg, yp + d.Dp + n);
-}
-
-__device__ void bwd_layer_tile(const BwdP& p, int b, int t0, int nr, unsigned char* U,
-                               float* stage) {
-  const Dims& d = p.d;
-  const BwdLayer& L = p.L;
-  const int lo = d.rsp(), ldo = lo + SKEW, ldy = 2 * d.Dp + SKEW;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* st = stage + warp * STAGE;
-  const int rr = lane >> 1, cc = (lane & 1) * 8;
-  bf16* gos = reinterpret_cast<bf16*>(U);
-  bf16* gys = gos + TM * ldo;
-  const size_t rowb = (size_t)b * d.P;
-
-  {
-    // y = where(valid, xin @ w_in + b_in, 0) -> f32 scratch
-    bf16* xs = reinterpret_cast<bf16*>(U);
-    const int ldx = d.kp() + SKEW, ldw = 2 * d.Dp;
-    const bf16* xb = L.x + rowb * d.R;
-    load_xin(xs, d, b, t0, nr, p.cond, true,
-             [&](int g) -> const bf16* {
-               return g - L.dd >= 0 ? xb + (size_t)(g - L.dd) * d.R : nullptr;
-             },
-             [&](int g) -> const bf16* { return xb + (size_t)g * d.R; }, L.vl);
-    __syncthreads();
-    for (int ni = warp; ni < 2 * d.Dp / 16; ni += NWARP) {
-      FragC acc[4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) wmma::fill_fragment(acc[mi], 0.f);
-      for (int k = 0; k < d.kp(); k += 16) {
-        FragB bw;
-        wmma::load_matrix_sync(bw, L.win + (size_t)k * ldw + ni * 16, ldw);
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          FragA a;
-          wmma::load_matrix_sync(a, xs + mi * 16 * ldx + k, ldx);
-          wmma::mma_sync(acc[mi], a, bw, acc[mi]);
-        }
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        wmma::store_matrix_sync(st, acc[mi], 16, wmma::mem_row_major);
-        __syncwarp();
-        const int row = mi * 16 + rr, n0 = ni * 16 + cc, g = t0 + row;
-        if (row < nr) {
-          float v[8];
-          const bool ok = g >= L.vl;
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            v[e] = ok ? st[rr * 16 + cc + e] + L.bin[n0 + e] : 0.f;
-          stf8(p.yf + (rowb + g) * 2 * d.Dp + n0, v);
-        }
-        __syncwarp();
-      }
-    }
-    __syncthreads();
-  }
-
-  // h (for dW_out) and g_out = bf16([gxn | gskip]) masked to valid rows
-  for (int i = threadIdx.x; i < TM * (d.Dp / 8); i += NTHR) {
-    const int row = i / (d.Dp / 8), n = (i % (d.Dp / 8)) * 8, g = t0 + row;
-    if (row >= nr || g < L.vl || n >= d.D) continue;
-    float yf[8], yg[8], hv[8];
-    y8(p, b, g, true, n, yf, yg);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) hv[e] = tanhf(yf[e]) * sigm(yg[e]);
-    st8(L.h + (rowb + g) * d.D + n, hv);
-  }
-  for (int i = threadIdx.x; i < TM * (lo / 8); i += NTHR) {
-    const int row = i / (lo / 8), col = (i % (lo / 8)) * 8, g = t0 + row;
-    const bool ok = row < nr && g >= L.vl;
-    float v[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = 0.f;
-    bool real = false;
-    if (col < d.Rp) {
-      if (ok && col < d.R) { gxn8(p, b, g, col, v); real = true; }
-    } else if (ok && col - d.Rp < d.S) {
-      ld8(v, p.gskip + (rowb + g) * d.S + (col - d.Rp));
-      real = true;
-    }
-    st8(gos + row * ldo + col, v);
-    if (real) {
-      const int n = col < d.Rp ? col : col - d.Rp + d.R;
-      st8(L.gout + (rowb + g) * (d.R + d.S) + n, v);
-    }
-  }
-  __syncthreads();
-
-  // g_h = g_out @ w_out^T; g_y = bf16([g_h s (1 - t^2) | g_h t s (1 - s)])
-  for (int ni = warp; ni < d.Dp / 16; ni += NWARP) {
-    FragC acc[4];
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi) wmma::fill_fragment(acc[mi], 0.f);
-    for (int k = 0; k < lo; k += 16) {
-      FragBc bw;  // w_out^T[k][n] = w_out[n][k]
-      wmma::load_matrix_sync(bw, L.wout + (size_t)ni * 16 * lo + k, lo);
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        FragA a;
-        wmma::load_matrix_sync(a, gos + mi * 16 * ldo + k, ldo);
-        wmma::mma_sync(acc[mi], a, bw, acc[mi]);
-      }
-    }
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-      wmma::store_matrix_sync(st, acc[mi], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int row = mi * 16 + rr, n0 = ni * 16 + cc, g = t0 + row;
-      float yf[8], yg[8], gf[8], gg[8];
-      y8(p, b, g, row < nr, n0, yf, yg);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float gh = st[rr * 16 + cc + e];
-        const float tf = tanhf(yf[e]), sg = sigm(yg[e]);
-        gf[e] = gh * sg * (1.f - tf * tf);
-        gg[e] = gh * tf * sg * (1.f - sg);
-      }
-      st8(gys + row * ldy + n0, gf);
-      st8(gys + row * ldy + d.Dp + n0, gg);
-      if (row < nr && g >= L.vl && n0 < d.D) {
-        bf16* gp = L.gy + (rowb + g) * 2 * d.D;
-        st8(gp + n0, gf);
-        st8(gp + d.D + n0, gg);
-      }
-      __syncwarp();
-    }
-  }
-  __syncthreads();
-
-  // g_xin = g_y @ w_in^T (f32) -> the input cotangents
-  const int ldw = 2 * d.Dp;
-  for (int nj = warp; nj < d.kp() / 16; nj += NWARP) {
-    FragC acc[4];
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi) wmma::fill_fragment(acc[mi], 0.f);
-    for (int k = 0; k < 2 * d.Dp; k += 16) {
-      FragBc bw;  // w_in^T[k][n] = w_in[n][k]
-      wmma::load_matrix_sync(bw, L.win + (size_t)nj * 16 * ldw + k, ldw);
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        FragA a;
-        wmma::load_matrix_sync(a, gys + mi * 16 * ldy + k, ldy);
-        wmma::mma_sync(acc[mi], a, bw, acc[mi]);
-      }
-    }
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-      wmma::store_matrix_sync(st, acc[mi], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int row = mi * 16 + rr, n0 = nj * 16 + cc, g = t0 + row;
-      if (row < nr) {
-        float v[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = st[rr * 16 + cc + e];
-        if (n0 < d.Rp) {
-          if (n0 < d.R) st8(p.gxp + (rowb + g) * d.R + n0, v);
-        } else if (n0 < 2 * d.Rp) {
-          const int r = n0 - d.Rp;
-          if (r < d.R) {
-            float gx[8];
-            if (g >= L.vl) {
-              gxn8(p, b, g, r, gx);
-            } else {
-#pragma unroll
-              for (int e = 0; e < 8; ++e) gx[e] = 0.f;
-            }
-#pragma unroll
-            for (int e = 0; e < 8; ++e) gx[e] += v[e];
-            st8(p.gxc + (rowb + g) * d.R + r, gx);
-          }
-        } else if (n0 - 2 * d.Rp < d.C) {
-          float* gc = p.gcond + (rowb + g) * d.C + (n0 - 2 * d.Rp);
-          float s[8];
-          ldf8(s, gc);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) s[e] += v[e];
-          stf8(gc, s);
-        }
-      }
-      __syncwarp();
-    }
-  }
-  __syncthreads();
-}
-
-// One layer, descending tiles over the block's chunk.
-__global__ void __launch_bounds__(NTHR) gated_bwd_recompute_kernel(BwdP p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Dims& d = p.d;
-  const int ldx = d.kp() + SKEW, ldo = d.rsp() + SKEW, ldy = 2 * d.Dp + SKEW;
-  const int ubytes = 2 * TM * max(ldx, ldo + ldy);
-  float* stage = reinterpret_cast<float*>(smem + ubytes);
-  const int b = blockIdx.y;
-  const int c0 = p.r0 + blockIdx.x * p.chunk;
-  const int c1 = min(c0 + p.chunk, d.P);
-  if (c0 >= c1) return;
-  for (int k = (c1 - c0 + TM - 1) / TM - 1; k >= 0; --k) {  // descending tiles
-    const int t0 = c0 + k * TM;
-    bwd_layer_tile(p, b, t0, min(TM, c1 - t0), smem, stage);
-  }
-}
-
 // ============================================================ Hopper core
 //
 // K1 (pair forward), K1b (one layer forward), K7 (the whole stack forward),
-// K2, K2b with saved y and K8 (pair, one layer and group backward) and every
-// weight-gradient product run here: wgmma fed by TMA, in blocks of three
-// warpgroups.
+// K2, K2b in both modes and K8 (pair, one layer and group backward) and
+// every weight-gradient product run here: wgmma fed by TMA, in blocks of
+// three warpgroups.
 //
 // What bounds it.  A 64-row tile of one layer is 64 x 1.28 MFLOP against
 // 1.28 MB of weights (chorowski), so the weights are re-read from L2 once
@@ -444,6 +126,12 @@ __global__ void __launch_bounds__(NTHR) gated_bwd_recompute_kernel(BwdP p) {
 //   g_y from the registers into shared memory (over g_out) and to global
 //     memory for dW_in; g_xin = g_y @ w_in^T (w_in again K-major as B),
 //     scattered into prev / cur / cond from the registers.
+//   K2b's recompute mode (no saved y) first runs the forward's gate pass on
+//     the tile's xin (y = xin @ w_in + b_in, f32 from the accumulator, as
+//     the reference keeps it): the gate goes to a per-block scratch of
+//     132 x 128 KB at chorowski, which stays in L2, and comes back to the
+//     same thread in the g_h epilogue; then the tile as above, g_out built
+//     over xin.
 // Weight gradients: part[s] = A^T G over split s's rows, A = xin (gathered
 // by TMA from x at two row offsets and cond) or h, G = g_y or g_out; both
 // come in by TMA and feed wgmma as MN-major operands (128 x 256 output
@@ -726,7 +414,7 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
 }
 
 // Fill the xin tile (rows [t0, t0 + TM), parts prev | cur | cond) from row
-// pointers, as load_xin, with cp.async: every copy in flight at once;
+// pointers with cp.async: every copy in flight at once;
 // rows >= nr, rows below valid_lo and null pointers give zeros (a copy of
 // 0 source bytes), and so do the columns past each part's width.  Only the
 // tap parts are written when with_cond is false.
@@ -786,11 +474,12 @@ struct WgFwdP {
   int r0, chunk, nst, hoff, roff, boff;  // byte offsets of h, the ring, the barriers
 };
 
-// The weight slabs of one layer on one tile, in the order the consumers
-// take them.
-__device__ void wg_fwd_produce(const WgFwdLayer& L, const WgDims& d, Pipe& pp,
-                               uint64_t* full, uint64_t* empty, unsigned char* ring) {
-  const int gch = (d.D + 127) >> 7, och = (d.R + d.S + 127) >> 7;
+// The gate pass's weight slabs (w_in through its three part maps, prev,
+// cur and cond rows), in the order wg_gate_pass takes them: the forward's
+// first product and K2b's recomputed y.
+__device__ void wg_gate_produce(const CUtensorMap* win, const WgDims& d, Pipe& pp,
+                                uint64_t* full, uint64_t* empty, unsigned char* ring) {
+  const int gch = (d.D + 127) >> 7;
   for (int pass = 0; 2 * pass < gch; ++pass) {
     const int nw = min(2, gch - 2 * pass);
     for (int part = 0; part < 3; ++part) {
@@ -803,13 +492,56 @@ __device__ void wg_fwd_produce(const WgFwdLayer& L, const WgDims& d, Pipe& pp,
         for (int w = 0; w < nw; ++w) {
           const int ch = 2 * pass + w;
           for (int q = 0; q < 4; ++q)  // f lo, f hi, g lo, g hi
-            tma3(st + w * HALF + q * 4096, &L.win[part], fb, ch * 128 + (q & 1) * 64,
+            tma3(st + w * HALF + q * 4096, &win[part], fb, ch * 128 + (q & 1) * 64,
                  q >> 1, j * 32);
         }
         pp.next();
       }
     }
   }
+}
+
+// y = xin @ w_in on the xin tile at shared address xa (consumer threads):
+// warpgroup w takes gate channels [128 ch, 128 ch + 128) for ch = 2 pass +
+// w, in one m64n256 accumulator, f in its first 128 columns and g in its
+// last 128 (acc[i * 4 + hf * 2 + e] is row r_lo + 8 hf, f channel 128 ch +
+// c_lo + 8 i + e; acc[(i + 16) * 4 + ...] the same g channel), so the gate
+// is thread-local.  epi(pass, ch, acc) runs on each active block after a
+// barrier of the consumers: both warpgroups have read xin by then.
+template <typename Epi>
+__device__ __forceinline__ void wg_gate_pass(const WgDims& d, uint32_t xa, Pipe& pp,
+                                             uint64_t* full, uint64_t* empty,
+                                             unsigned char* ring, Epi epi) {
+  const int wg = threadIdx.x >> 7;
+  const int gch = (d.D + 127) >> 7;
+  for (int pass = 0; 2 * pass < gch; ++pass) {
+    const int ch = 2 * pass + wg;
+    const bool act = ch < gch;
+    float acc[128];
+    acc_zero<128>(acc);
+    for (int part = 0; part < 3; ++part) {
+      const uint32_t pa = xa + part * d.Ra * ATOM;
+      mma_slabs(((part < 2 ? d.R : d.C) + 31) >> 5, act, pp, full, empty, ring,
+                [&](uint32_t st, int j) {
+                  const uint32_t a0 = pa + (j >> 1) * ATOM + (j & 1) * 64;
+                  const uint32_t b0 = st + wg * HALF;
+#pragma unroll
+                  for (int kk = 0; kk < 2; ++kk)
+                    wgmma_n256<0, 1>(acc, kdesc(a0 + kk * 32), mndesc(b0 + kk * 2048, 4096));
+                });
+    }
+    acc_fence<128>(acc);
+    consumers_sync();
+    if (act) epi(pass, ch, acc);
+  }
+}
+
+// The weight slabs of one layer on one tile, in the order the consumers
+// take them.
+__device__ void wg_fwd_produce(const WgFwdLayer& L, const WgDims& d, Pipe& pp,
+                               uint64_t* full, uint64_t* empty, unsigned char* ring) {
+  wg_gate_produce(L.win, d, pp, full, empty, ring);
+  const int och = (d.R + d.S + 127) >> 7;
   for (int pass = 0; 2 * pass < och; ++pass) {
     const int nw = min(2, och - 2 * pass);
     for (int j = 0; j < d.Da; ++j) {
@@ -847,58 +579,39 @@ __device__ void wg_fwd_tile(const P& p, const WgFwdLayer& L, int b, int t0, int 
   const uint32_t xa = smem_u32(sm), ha = smem_u32(hs);
   const size_t rowb = (size_t)b * d.P;
 
-  // y = xin @ w_in + b_in; gate; h -> shared memory
-  const int gch = (d.D + 127) >> 7;
-  for (int pass = 0; 2 * pass < gch; ++pass) {
-    const int ch = 2 * pass + wg;
-    const bool act = ch < gch;
-    float acc[128];
-    acc_zero<128>(acc);
-    for (int part = 0; part < 3; ++part) {
-      const uint32_t pa = xa + part * d.Ra * ATOM;
-      mma_slabs(((part < 2 ? d.R : d.C) + 31) >> 5, act, pp, full, empty, ring,
-                [&](uint32_t st, int j) {
-                  const uint32_t a0 = pa + (j >> 1) * ATOM + (j & 1) * 64;
-                  const uint32_t b0 = st + wg * HALF;
+  // y = xin @ w_in + b_in; gate; h -> shared memory (over xin's prev part,
+  // which both warpgroups have read before the epilogue)
+  wg_gate_pass(d, xa, pp, full, empty, ring, [&](int, int ch, float* acc) {
+    const int r_lo = NCB < 16 ? opaque(r_lo0) : r_lo0;
+    const int c_lo = NCB < 16 ? opaque(c_lo0) : c_lo0;
 #pragma unroll
-                  for (int kk = 0; kk < 2; ++kk)
-                    wgmma_n256<0, 1>(acc, kdesc(a0 + kk * 32), mndesc(b0 + kk * 2048, 4096));
-                });
-    }
-    acc_fence<128>(acc);
-    consumers_sync();  // xin's prev part is read by both warpgroups before h lands on it
-    if (act) {
-      const int r_lo = NCB < 16 ? opaque(r_lo0) : r_lo0;
-      const int c_lo = NCB < 16 ? opaque(c_lo0) : c_lo0;
+    for (int i = 0; i < 16; ++i) {
+      const int n = ch * 128 + c_lo + i * 8;
+      const bool nin = n < d.D;
+      float bf0 = 0.f, bf1 = 0.f, bg0 = 0.f, bg1 = 0.f;
+      if (nin) {
+        bf0 = __ldg(L.bin + n); bf1 = __ldg(L.bin + n + 1);
+        bg0 = __ldg(L.bin + d.D + n); bg1 = __ldg(L.bin + d.D + n + 1);
+      }
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const int n = ch * 128 + c_lo + i * 8;
-        const bool nin = n < d.D;
-        float bf0 = 0.f, bf1 = 0.f, bg0 = 0.f, bg1 = 0.f;
-        if (nin) {
-          bf0 = __ldg(L.bin + n); bf1 = __ldg(L.bin + n + 1);
-          bg0 = __ldg(L.bin + d.D + n); bg1 = __ldg(L.bin + d.D + n + 1);
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = r_lo + hf * 8, g = t0 + row;
+        const float yf0 = acc[i * 4 + hf * 2] + bf0, yf1 = acc[i * 4 + hf * 2 + 1] + bf1;
+        const float yg0 = acc[(i + 16) * 4 + hf * 2] + bg0;
+        const float yg1 = acc[(i + 16) * 4 + hf * 2 + 1] + bg1;
+        if (!halo && L.y && nin && row < nr) {
+          bf16* yp = L.y + (rowb + g) * 2 * d.D + n;
+          st2(yp, yf0, yf1);
+          st2(yp + d.D, yg0, yg1);
         }
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int row = r_lo + hf * 8, g = t0 + row;
-          const float yf0 = acc[i * 4 + hf * 2] + bf0, yf1 = acc[i * 4 + hf * 2 + 1] + bf1;
-          const float yg0 = acc[(i + 16) * 4 + hf * 2] + bg0;
-          const float yg1 = acc[(i + 16) * 4 + hf * 2 + 1] + bg1;
-          if (!halo && L.y && nin && row < nr) {
-            bf16* yp = L.y + (rowb + g) * 2 * d.D + n;
-            st2(yp, yf0, yf1);
-            st2(yp + d.D, yg0, yg1);
-          }
-          if (n < d.Da * 64) {
-            const float h0 = nin ? ftanh(yf0) * fsigm(yg0) : 0.f;
-            const float h1 = nin ? ftanh(yf1) * fsigm(yg1) : 0.f;
-            *reinterpret_cast<uint32_t*>(hs + swz(row, n)) = pack2(h0, h1);
-          }
+        if (n < d.Da * 64) {
+          const float h0 = nin ? ftanh(yf0) * fsigm(yg0) : 0.f;
+          const float h1 = nin ? ftanh(yf1) * fsigm(yg1) : 0.f;
+          *reinterpret_cast<uint32_t*>(hs + swz(row, n)) = pack2(h0, h1);
         }
       }
     }
-  }
+  });
   fence_async();
   consumers_sync();
 
@@ -1141,8 +854,17 @@ struct WgBwdP {
   const bf16* cond; const bf16* gxcur; const bf16* gxprev; const bf16* gskip;
   float* gcond; bf16* gxc; bf16* gxp;
   float* gcur; float* gp2;  // the pair's layer 2 -> layer 1 cotangent (f32)
+  // K2b's recompute mode (no saved y): w_in as the forward reads it (the
+  // three part maps), b_in, the layer's input stream x [B, P, R], and the
+  // gate scratch, REC_SLOTS float4 per block and pass of the gate
+  CUtensorMap win[3];
+  const float* bin; const bf16* x; float4* gate;
   int prev_dd, cur_vl, r0, chunk, nst, yoff, roff, boff;  // g_out at 0, g_y at yoff
 };
+
+// Per block and gate pass, one float4 (tanh y_f, sigmoid y_g at two
+// channels) for each of a consumer thread's 16 column blocks x 2 rows.
+constexpr int REC_SLOTS = 32 * CONSUMERS;
 
 // A layer's place in the launch: its mode, and for LOWER and INNER the
 // dilation of the layer above and that layer's f32 prev-tap cotangent
@@ -1240,9 +962,72 @@ __device__ void wg_bwd_produce(const WgBwdLayer& L, const WgDims& d, int mode, P
   }
 }
 
+// This thread's first gate slot of pass `pass` in the block's scratch,
+// derived anew at each use (opaque): a pointer kept across the tile's
+// products would cost registers the epilogues need.
+__device__ __forceinline__ float4* rec_slot(const WgBwdP& p, int pass) {
+  const int blk = opaque(blockIdx.y * gridDim.x + blockIdx.x);
+  return p.gate + ((size_t)blk * ((p.d.D + 255) >> 8) + pass) * REC_SLOTS + threadIdx.x;
+}
+
+// K2b's recompute mode, ahead of the backward tile (consumer threads): the
+// tile's xin (x at g - dd and g, cond; zeros below the layer's lattice) in
+// shared memory at 0, y = xin @ w_in + b_in in f32 from the gate pass's
+// accumulator, and from it tanh(y_f) and sigmoid(y_g), f32, into this
+// thread's slots of the block's scratch.  wg_bwd_tile's g_h pass reads the
+// slots back (and writes h from them, as from a saved y): its accumulator
+// maps each thread to the same (row, channel) pairs, so the round trip is
+// the thread's own (no barrier, no fence) and stays in L2.  (h written here
+// instead kept one more pointer live across the tile's products: ptxas
+// spilled the tile loop's bounds.)
+__device__ void wg_gate_recompute(const WgBwdP& p, int b, int t0, int nr, unsigned char* sm,
+                                  Pipe& pp, uint64_t* full, uint64_t* empty) {
+  const WgDims& d = p.d;
+  const WgBwdLayer& L = p.L[0];
+  const int tid = threadIdx.x & 127;
+  const int r_lo = (tid >> 5) * 16 + ((tid & 31) >> 2), c_lo = (tid & 3) * 2;
+  const size_t rowb = (size_t)b * d.P;
+  const bf16* xb = p.x + rowb * d.R;
+  consumers_sync();  // the previous tile's last products have read shared memory
+  wg_load_xin(sm, d, b, t0, nr, p.cond, true,
+              [&](int g) -> const bf16* {
+                return g - L.dd >= 0 ? xb + (size_t)(g - L.dd) * d.R : nullptr;
+              },
+              [&](int g) -> const bf16* { return xb + (size_t)g * d.R; }, L.vl);
+  fence_async();
+  consumers_sync();
+  wg_gate_pass(d, smem_u32(sm), pp, full, empty, sm + p.roff,
+               [&](int pass, int ch, float* acc) {
+    float4* slot = rec_slot(p, pass);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int n = ch * 128 + c_lo + i * 8;
+      const bool nin = n < d.D;
+      float bf0 = 0.f, bf1 = 0.f, bg0 = 0.f, bg1 = 0.f;
+      if (nin) {
+        bf0 = __ldg(p.bin + n); bf1 = __ldg(p.bin + n + 1);
+        bg0 = __ldg(p.bin + d.D + n); bg1 = __ldg(p.bin + d.D + n + 1);
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = r_lo + hf * 8, g = t0 + row;
+        const bool ok = nin && row < nr && g >= L.vl;
+        const float tf0 = ftanh(acc[i * 4 + hf * 2] + bf0);
+        const float tf1 = ftanh(acc[i * 4 + hf * 2 + 1] + bf1);
+        const float sg0 = fsigm(acc[(i + 16) * 4 + hf * 2] + bg0);
+        const float sg1 = fsigm(acc[(i + 16) * 4 + hf * 2 + 1] + bg1);
+        __stcg(slot + (i * 2 + hf) * CONSUMERS,
+               ok ? make_float4(tf0, tf1, sg0, sg1) : make_float4(0.f, 0.f, 0.f, 0.f));
+      }
+    }
+  });
+}
+
 // One layer's backward on one tile (consumer threads); rows below c0 take
-// no prev-tap cotangent.  P: WgBwdP or WgGroupArgs.
-template <typename P>
+// no prev-tap cotangent.  P: WgBwdP or WgGroupArgs.  REC: K2b's recompute
+// mode, after wg_gate_recompute on the same tile (the gate from the
+// block's scratch), else the gate from the saved y.
+template <typename P, bool REC = false>
 __device__ void wg_bwd_tile(const P& p, const WgBwdLayer& L, const Link& k, int b, int t0,
                             int nr, int c0, unsigned char* sm, Pipe& pp, uint64_t* full,
                             uint64_t* empty) {
@@ -1310,18 +1095,25 @@ __device__ void wg_bwd_tile(const P& p, const WgBwdLayer& L, const Link& k, int 
     if (!act) continue;
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {  // two halves of 8 column blocks: fewer live registers
-      uint32_t yv[8][2][2];  // this thread's saved y (f, g pairs), loaded first
+      // this thread's gate inputs, loaded first: the saved y (f, g pairs),
+      // or the recomputed tanh y_f, sigmoid y_g from the block's scratch
+      uint32_t yv[8][2][2];
+      float4 gv[REC ? 8 : 1][2];
 #pragma unroll
       for (int ii = 0; ii < 8; ++ii) {
         const int n = ch * 128 + c_lo + (hh * 8 + ii) * 8;
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
           const int row = r_lo + hf * 8, g = t0 + row;
-          yv[ii][hf][0] = yv[ii][hf][1] = 0u;
-          if (n < d.D && row < nr && g >= L.vl) {
-            const bf16* yp = L.y + (rowb + g) * 2 * d.D + n;
-            yv[ii][hf][0] = __ldg(reinterpret_cast<const unsigned int*>(yp));
-            yv[ii][hf][1] = __ldg(reinterpret_cast<const unsigned int*>(yp + d.D));
+          if constexpr (REC) {
+            gv[ii][hf] = __ldcg(rec_slot(p, pass) + ((hh * 8 + ii) * 2 + hf) * CONSUMERS);
+          } else {
+            yv[ii][hf][0] = yv[ii][hf][1] = 0u;
+            if (n < d.D && row < nr && g >= L.vl) {
+              const bf16* yp = L.y + (rowb + g) * 2 * d.D + n;
+              yv[ii][hf][0] = __ldg(reinterpret_cast<const unsigned int*>(yp));
+              yv[ii][hf][1] = __ldg(reinterpret_cast<const unsigned int*>(yp + d.D));
+            }
           }
         }
       }
@@ -1333,11 +1125,16 @@ __device__ void wg_bwd_tile(const P& p, const WgBwdLayer& L, const Link& k, int 
         for (int hf = 0; hf < 2; ++hf) {
           const int row = r_lo + hf * 8, g = t0 + row;
           const bool ok = row < nr && g >= L.vl;
-          float yf0, yf1, yg0, yg1;
-          ld2(reinterpret_cast<const bf16*>(&yv[ii][hf][0]), yf0, yf1);
-          ld2(reinterpret_cast<const bf16*>(&yv[ii][hf][1]), yg0, yg1);
           const float gh0 = acc[i * 4 + hf * 2], gh1 = acc[i * 4 + hf * 2 + 1];
-          const float tf0 = ftanh(yf0), sg0 = fsigm(yg0), tf1 = ftanh(yf1), sg1 = fsigm(yg1);
+          float tf0, tf1, sg0, sg1;
+          if constexpr (REC) {
+            tf0 = gv[ii][hf].x; tf1 = gv[ii][hf].y; sg0 = gv[ii][hf].z; sg1 = gv[ii][hf].w;
+          } else {
+            float yf0, yf1, yg0, yg1;
+            ld2(reinterpret_cast<const bf16*>(&yv[ii][hf][0]), yf0, yf1);
+            ld2(reinterpret_cast<const bf16*>(&yv[ii][hf][1]), yg0, yg1);
+            tf0 = ftanh(yf0); sg0 = fsigm(yg0); tf1 = ftanh(yf1); sg1 = fsigm(yg1);
+          }
           const float gf0 = gh0 * sg0 * (1.f - tf0 * tf0), gf1 = gh1 * sg1 * (1.f - tf1 * tf1);
           const float gg0 = gh0 * tf0 * sg0 * (1.f - sg0), gg1 = gh1 * tf1 * sg1 * (1.f - sg1);
           *reinterpret_cast<uint32_t*>(ys + swz(row, n)) = pack2(gf0, gf1);
@@ -1428,9 +1225,12 @@ __device__ void wg_bwd_tile(const P& p, const WgBwdLayer& L, const Link& k, int 
   }
 }
 
-template <int NL>
+// NL = 1: K2b (REC: its recompute mode, y from xin @ w_in ahead of each
+// tile); NL = 2: K2.
+template <int NL, bool REC = false>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 wg_bwd_kernel(const __grid_constant__ WgBwdP p) {
+  static_assert(!REC || NL == 1, "the recompute mode takes one layer");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
   const WgDims& d = p.d;
@@ -1456,6 +1256,7 @@ wg_bwd_kernel(const __grid_constant__ WgBwdP p) {
           wg_bwd_produce(p.L[1], d, UPPER, pp, full, empty, ring);
           wg_bwd_produce(p.L[0], d, LOWER, pp, full, empty, ring);
         } else {
+          if (REC) wg_gate_produce(p.win, d, pp, full, empty, ring);
           wg_bwd_produce(p.L[0], d, SINGLE, pp, full, empty, ring);
         }
       }
@@ -1473,7 +1274,8 @@ wg_bwd_kernel(const __grid_constant__ WgBwdP p) {
         wg_bwd_tile(p, p.L[1], upper, b, t0, nr, c0, sm, pp, full, empty);
         wg_bwd_tile(p, p.L[0], lower, b, t0, nr, c0, sm, pp, full, empty);
       } else {
-        wg_bwd_tile(p, p.L[0], single, b, t0, nr, c0, sm, pp, full, empty);
+        if constexpr (REC) wg_gate_recompute(p, b, t0, nr, sm, pp, full, empty);
+        wg_bwd_tile<WgBwdP, REC>(p, p.L[0], single, b, t0, nr, c0, sm, pp, full, empty);
       }
     }
   }
@@ -1671,14 +1473,6 @@ int reduce(const float* part, float* out, int splits, long long n,
   return (int)cudaGetLastError();
 }
 
-Dims dims_from(const int* iv) {
-  Dims d;
-  d.B = iv[0]; d.P = iv[1]; d.R = iv[2]; d.C = iv[3]; d.D = iv[4]; d.S = iv[5];
-  d.Rp = iv[6]; d.Cp = iv[7]; d.Dp = iv[8]; d.Sp = iv[9];
-  return d;
-}
-
-
 // ------------------------------------------------------------- host side
 
 // cuTensorMapEncodeTiled through the runtime's driver entry point, so the
@@ -1778,6 +1572,14 @@ Layout bwd_layout(const WgDims& d) {
   return ring_layout(alias ? go : go + d.Ya * ATOM, alias ? 0 : go, SLAB);
 }
 
+// K2b's recompute mode: the backward's tiles, and the forward's xin at 0
+// before them (g_out is built over xin once the gate pass has read it)
+Layout bwd_rec_layout(const WgDims& d) {
+  const Layout l = bwd_layout(d);
+  const int xin = (2 * d.Ra + d.Ca) * ATOM;
+  return ring_layout(l.tiles > xin ? l.tiles : xin, l.aux, SLAB);
+}
+
 template <typename P>
 int wg_launch(void (*kernel)(P), const P& p, dim3 grid, int smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1851,21 +1653,20 @@ int launch_coop(void (*kernel)(P), const P& p, int grid, int smem, cudaStream_t 
 
 extern "C" {
 
-// the first core's shared memory (K2b's recompute mode)
-int awt_gated_bwd_smem(const int* iv) {
-  Dims d = dims_from(iv);
-  const int a = d.kp() + SKEW, c = d.rsp() + SKEW + 2 * d.Dp + SKEW;
-  const int u = 2 * TM * (a > c ? a : c);
-  return u + 4 * NWARP * STAGE;
-}
-
-// the Hopper kernels' shared memory: > 232,448 when the widths do not fit
+// The kernels' shared memory: > 232,448 when the widths do not fit.  iv
+// (here and below): the 6 dims B, P, R, C, D, S, then each entry point's own.
 int awt_gated_wg_fwd_smem(const int* iv) { return fwd_layout(wg_dims(iv)).bytes; }
 int awt_gated_wg_bwd_smem(const int* iv) { return bwd_layout(wg_dims(iv)).bytes; }
+int awt_gated_wg_bwd_rec_smem(const int* iv) { return bwd_rec_layout(wg_dims(iv)).bytes; }
 
-// Blocks of a Hopper kernel that one SM holds at these widths (negative: a
-// CUDA error).  kind 0: the forward, 1: the backward, 2: the whole stack,
-// 3: the group.
+// K2b's recompute mode: the gate scratch's float4 per block
+long long awt_gated_rec_slots(const int* iv) {
+  return (long long)((wg_dims(iv).D + 255) >> 8) * REC_SLOTS;
+}
+
+// Blocks of a kernel that one SM holds at these widths (negative: a CUDA
+// error).  kind 0: the forward, 1: the backward, 2: the whole stack, 3: the
+// group, 4: the single-layer backward's recompute mode.
 int awt_gated_wg_blocks(int kind, const int* iv) {
   const WgDims d = wg_dims(iv);
   switch (kind) {
@@ -1873,13 +1674,14 @@ int awt_gated_wg_blocks(int kind, const int* iv) {
     case 1: return wg_blocks_per_sm(wg_bwd_kernel<2>, bwd_layout(d).bytes);
     case 2: return wg_blocks_per_sm(wg_stack_kernel, fwd_layout(d).bytes);
     case 3: return wg_blocks_per_sm(wg_group_kernel, bwd_layout(d).bytes);
+    case 4: return wg_blocks_per_sm(wg_bwd_kernel<1, true>, bwd_rec_layout(d).bytes);
   }
   return -(int)cudaErrorInvalidValue;
 }
 
 // ptr: x, cond, skip, mid, xout, halo, then per layer win, bin, wout, bout, y
 // (weights unpadded: win [2R + C][2D], wout [D][R + S] bf16; biases f32)
-// iv: 10 dims, r0, chunk, dd1, dd2, n_chunks
+// iv: 6 dims, r0, chunk, dd1, dd2, n_chunks
 int awt_gated_fwd(int nl, void* const* ptr, const int* iv, cudaStream_t stream) {
   WgFwdP p;
   const WgDims d = p.d = wg_dims(iv);
@@ -1893,21 +1695,23 @@ int awt_gated_fwd(int nl, void* const* ptr, const int* iv, cudaStream_t stream) 
       return (int)cudaErrorInvalidValue;
     L.bin = (const float*)q[1]; L.bout = (const float*)q[3]; L.y = (bf16*)q[4];
     L.xin = nullptr; L.xout = nullptr;
-    L.dd = iv[12 + l];
+    L.dd = iv[8 + l];
   }
-  p.r0 = iv[10]; p.chunk = iv[11];
+  p.r0 = iv[6]; p.chunk = iv[7];
   const Layout lay = fwd_layout(d);
   if (lay.nst < 2) return (int)cudaErrorInvalidValue;
   p.nst = lay.nst; p.hoff = lay.aux; p.roff = lay.tiles;
   p.boff = lay.tiles + lay.nst * SLAB;
-  const dim3 grid(iv[14], d.B);
+  const dim3 grid(iv[10], d.B);
   return nl == 2 ? wg_launch(wg_fwd_kernel<2>, p, grid, lay.bytes, stream)
                  : wg_launch(wg_fwd_kernel<1>, p, grid, lay.bytes, stream);
 }
 
-// Saved y.  ptr: cond, gxcur, gxprev, gskip, gcond, gxc, gxp, gcur, gp2,
-//      then per layer y, win, wout, gy, h, gout (weights unpadded)
-// iv: 10 dims, prev_dd, cur_vl, r0, chunk, dd1, vl1, dd2, vl2, n_chunks
+// ptr: cond, gxcur, gxprev, gskip, gcond, gxc, gxp, gcur, gp2, then per
+// layer (two slots) y, win, wout, gy, h, gout (weights unpadded), then x,
+// bin and the gate scratch (awt_gated_rec_slots float4 per block), read
+// only in the recompute mode: one layer whose y is null.
+// iv: 6 dims, prev_dd, cur_vl, r0, chunk, dd1, vl1, dd2, vl2, n_chunks
 int awt_gated_bwd(int nl, void* const* ptr, const int* iv, cudaStream_t stream) {
   WgBwdP p;
   const WgDims d = p.d = wg_dims(iv);
@@ -1921,50 +1725,39 @@ int awt_gated_bwd(int nl, void* const* ptr, const int* iv, cudaStream_t stream) 
     if (!map_bwd_layer(L, d, (const bf16*)q[1], (const bf16*)q[2]))
       return (int)cudaErrorInvalidValue;
     L.y = (const bf16*)q[0]; L.gy = (bf16*)q[3]; L.h = (bf16*)q[4]; L.gout = (bf16*)q[5];
-    L.dd = iv[14 + 2 * l]; L.vl = iv[15 + 2 * l];
+    L.dd = iv[10 + 2 * l]; L.vl = iv[11 + 2 * l];
   }
-  p.prev_dd = iv[10]; p.cur_vl = iv[11]; p.r0 = iv[12]; p.chunk = iv[13];
-  const Layout lay = bwd_layout(d);
+  const bool rec = p.L[0].y == nullptr;
+  if (rec) {
+    if (nl != 1 || !ptr[21] || !ptr[22] || !ptr[23] ||
+        !map_win_part(&p.win[0], (const bf16*)ptr[10], 0, d.R, d.D) ||
+        !map_win_part(&p.win[1], (const bf16*)ptr[10], d.R, d.R, d.D) ||
+        !map_win_part(&p.win[2], (const bf16*)ptr[10], 2 * d.R, d.C, d.D))
+      return (int)cudaErrorInvalidValue;
+    p.x = (const bf16*)ptr[21]; p.bin = (const float*)ptr[22]; p.gate = (float4*)ptr[23];
+  }
+  p.prev_dd = iv[6]; p.cur_vl = iv[7]; p.r0 = iv[8]; p.chunk = iv[9];
+  const Layout lay = rec ? bwd_rec_layout(d) : bwd_layout(d);
   if (lay.nst < 2) return (int)cudaErrorInvalidValue;
   p.nst = lay.nst; p.yoff = lay.aux; p.roff = lay.tiles;
   p.boff = lay.tiles + lay.nst * SLAB;
-  const dim3 grid(iv[18], d.B);
+  const dim3 grid(iv[14], d.B);
+  if (rec) return wg_launch(wg_bwd_kernel<1, true>, p, grid, lay.bytes, stream);
   return nl == 2 ? wg_launch(wg_bwd_kernel<2>, p, grid, lay.bytes, stream)
                  : wg_launch(wg_bwd_kernel<1>, p, grid, lay.bytes, stream);
-}
-
-// One layer, recompute mode (first core, weights padded).  ptr: cond,
-// gxcur, gxprev, gskip, gcond, gxc, gxp, yf, then x, win, bin, wout, gy, h,
-// gout.  iv: 10 dims, prev_dd, cur_vl, r0, chunk, dd, vl, n_chunks
-int awt_gated_bwd_recompute(void* const* ptr, const int* iv, cudaStream_t stream) {
-  BwdP p;
-  p.d = dims_from(iv);
-  p.cond = (const bf16*)ptr[0]; p.gxcur = (const bf16*)ptr[1];
-  p.gxprev = (const bf16*)ptr[2]; p.gskip = (const bf16*)ptr[3];
-  p.gcond = (float*)ptr[4]; p.gxc = (bf16*)ptr[5]; p.gxp = (bf16*)ptr[6];
-  p.yf = (float*)ptr[7];
-  void* const* q = ptr + 8;
-  p.L = BwdLayer{(const bf16*)q[0], (const bf16*)q[1], (const float*)q[2],
-                 (const bf16*)q[3], (bf16*)q[4], (bf16*)q[5], (bf16*)q[6], iv[14], iv[15]};
-  p.prev_dd = iv[10]; p.cur_vl = iv[11]; p.r0 = iv[12]; p.chunk = iv[13];
-  const int smem = awt_gated_bwd_smem(iv);
-  cudaFuncSetAttribute(gated_bwd_recompute_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  gated_bwd_recompute_kernel<<<dim3(iv[16], p.d.B), NTHR, smem, stream>>>(p);
-  return (int)cudaGetLastError();
 }
 
 int awt_gated_max_fused_layers() { return MAX_FUSED; }
 
 // The whole-stack forward.  ptr: cond, skip, bar (one zeroed 64-bit count),
 // then per layer win, bin, wout, bout, y, xin, xout (weights unpadded)
-// iv: 10 dims, n_layers, r0, grid, then dd per layer
+// iv: 6 dims, n_layers, r0, grid, then dd per layer
 int awt_gated_stack(void* const* ptr, const int* iv, cudaStream_t stream) {
   WgStackArgs p;
   const WgDims d = p.d = wg_dims(iv);
   p.cond = (const bf16*)ptr[0]; p.skip = (float*)ptr[1];
   p.bar = (unsigned long long*)ptr[2];
-  p.n_layers = iv[10]; p.r0 = iv[11];
+  p.n_layers = iv[6]; p.r0 = iv[7];
   p.n_tiles = (d.P - p.r0 + TM - 1) / TM;
   if (p.n_layers < 1 || p.n_layers > MAX_FUSED || p.n_tiles < 1)
     return (int)cudaErrorInvalidValue;
@@ -1975,19 +1768,19 @@ int awt_gated_stack(void* const* ptr, const int* iv, cudaStream_t stream) {
       return (int)cudaErrorInvalidValue;
     L.bin = (const float*)q[1]; L.bout = (const float*)q[3]; L.y = (bf16*)q[4];
     L.xin = (const bf16*)q[5]; L.xout = (bf16*)q[6];
-    L.dd = iv[13 + l];
+    L.dd = iv[9 + l];
   }
   const Layout lay = fwd_layout(d);
   if (lay.nst < 2) return (int)cudaErrorInvalidValue;
   p.nst = lay.nst; p.hoff = lay.aux; p.roff = lay.tiles;
   p.boff = lay.tiles + lay.nst * SLAB;
-  return launch_coop(wg_stack_kernel, p, iv[12], lay.bytes, stream);
+  return launch_coop(wg_stack_kernel, p, iv[8], lay.bytes, stream);
 }
 
 // The grouped backward (saved y).  ptr: cond, gxcur, gxprev, gskip, gcond,
 // gxc, gxp, gcur, gp0, gp1, bar (one zeroed 64-bit count), then per layer
 // (lower layer first) y, win, wout, gy, h, gout (weights unpadded)
-// iv: 10 dims, n_layers, prev_dd, cur_vl, r0, grid, then dd, vl per layer
+// iv: 6 dims, n_layers, prev_dd, cur_vl, r0, grid, then dd, vl per layer
 int awt_gated_group(void* const* ptr, const int* iv, cudaStream_t stream) {
   WgGroupArgs p;
   const WgDims d = p.d = wg_dims(iv);
@@ -1996,7 +1789,7 @@ int awt_gated_group(void* const* ptr, const int* iv, cudaStream_t stream) {
   p.gcond = (float*)ptr[4]; p.gxc = (bf16*)ptr[5]; p.gxp = (bf16*)ptr[6];
   p.gcur = (float*)ptr[7]; p.gp[0] = (float*)ptr[8]; p.gp[1] = (float*)ptr[9];
   p.bar = (unsigned long long*)ptr[10];
-  p.n_layers = iv[10]; p.prev_dd = iv[11]; p.cur_vl = iv[12]; p.r0 = iv[13];
+  p.n_layers = iv[6]; p.prev_dd = iv[7]; p.cur_vl = iv[8]; p.r0 = iv[9];
   p.n_tiles = (d.P - p.r0 + TM - 1) / TM;
   if (p.n_layers < 2 || p.n_layers > MAX_FUSED || p.n_tiles < 1)
     return (int)cudaErrorInvalidValue;
@@ -2006,13 +1799,13 @@ int awt_gated_group(void* const* ptr, const int* iv, cudaStream_t stream) {
     if (!map_bwd_layer(L, d, (const bf16*)q[1], (const bf16*)q[2]))
       return (int)cudaErrorInvalidValue;
     L.y = (const bf16*)q[0]; L.gy = (bf16*)q[3]; L.h = (bf16*)q[4]; L.gout = (bf16*)q[5];
-    L.dd = iv[15 + 2 * l]; L.vl = iv[16 + 2 * l];
+    L.dd = iv[11 + 2 * l]; L.vl = iv[12 + 2 * l];
   }
   const Layout lay = bwd_layout(d);
   if (lay.nst < 2) return (int)cudaErrorInvalidValue;
   p.nst = lay.nst; p.yoff = lay.aux; p.roff = lay.tiles;
   p.boff = lay.tiles + lay.nst * SLAB;
-  return launch_coop(wg_group_kernel, p, iv[14], lay.bytes, stream);
+  return launch_coop(wg_group_kernel, p, iv[10], lay.bytes, stream);
 }
 
 // dW = A^T G and db = the column sums of G over rows [lo, P) of every batch

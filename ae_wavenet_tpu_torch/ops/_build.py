@@ -46,18 +46,20 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.awt_fastgen.restype = i
     lib.awt_fastgen_device.argtypes = [ip, ip]
     lib.awt_fastgen_device.restype = i
-    lib.awt_vq_lookup.argtypes = [p, p, i, i, i, p, p, p, p, p]
+    lib.awt_vq_lookup.argtypes = [p, p, i, i, i, p, p, p, p, p, p]
     lib.awt_vq_lookup.restype = i
     for name in ("awt_gated_fwd", "awt_gated_bwd"):
         getattr(lib, name).argtypes = [i, p, p, p]
         getattr(lib, name).restype = i
-    for name in ("awt_gated_dw", "awt_gated_stack", "awt_gated_group",
-                 "awt_gated_bwd_recompute"):
+    for name in ("awt_gated_dw", "awt_gated_stack", "awt_gated_group"):
         getattr(lib, name).argtypes = [p, p, p]
         getattr(lib, name).restype = i
-    for name in ("awt_gated_bwd_smem", "awt_gated_wg_fwd_smem", "awt_gated_wg_bwd_smem"):
+    for name in ("awt_gated_wg_fwd_smem", "awt_gated_wg_bwd_smem",
+                 "awt_gated_wg_bwd_rec_smem"):
         getattr(lib, name).argtypes = [p]
         getattr(lib, name).restype = i
+    lib.awt_gated_rec_slots.argtypes = [p]
+    lib.awt_gated_rec_slots.restype = ctypes.c_longlong
     lib.awt_gated_wg_blocks.argtypes = [i, p]
     lib.awt_gated_wg_blocks.restype = i
     lib.awt_gated_max_fused_layers.argtypes = []

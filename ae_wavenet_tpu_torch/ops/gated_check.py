@@ -284,7 +284,9 @@ def planted_segment_faults() -> dict:
     prev-tap cotangent of the rows whose source lies in another tile: what
     the kernel hands over between blocks through global memory.  (It moves
     the whole stack's gradients by under GRAD_REL_TOL of the largest, so it
-    is held against the kernel's own outputs.)"""
+    is held against the kernel's own outputs.)  The single-layer backward's
+    recompute mode with b_in dropped from the y it recomputes (the bias
+    that its gate pass adds to the accumulator)."""
     inner_upstream = gated._inner_upstream
 
     def no_carry(gxn, g_xin, n_res, dd_up):
@@ -305,9 +307,17 @@ def planted_segment_faults() -> dict:
     def pair_bwd_off(*args, dd2, **kw):
         return gated.gated_pair_bwd_reference(*args, dd2=dd2 + 1, **kw)
 
+    def layer_bwd_no_bias(x, cond, gxcur, gxprev, gskip, gcond, w_in, w_out, b_in,
+                          **kw):
+        return gated.gated_layer_bwd_reference(x, cond, gxcur, gxprev, gskip, gcond,
+                                               w_in, w_out, torch.zeros_like(b_in),
+                                               **kw)
+
     return {"pair forward: layer 2's prev tap one row off":
             ("gated_pair_fused", pair_fwd_off),
             "pair backward: layer 2's prev tap one row off":
             ("gated_pair_bwd", pair_bwd_off),
             "grouped backward: prev-tap cotangents from another tile dropped":
-            ("gated_group_bwd", group_no_carry)}
+            ("gated_group_bwd", group_no_carry),
+            "single-layer backward, recompute mode: b_in dropped from y":
+            ("gated_layer_bwd_recompute", layer_bwd_no_bias)}

@@ -17,11 +17,12 @@ counts its kernel runs in ``.launches``.
 The kernels choose their own tiles (64 rows per tile, chunks of rows per
 block sized so that every block of a launch is resident at once); the
 reference's ``gated_tile`` and ``gated_bwd_tile`` are TPU schedule knobs and
-are not read.  Every kernel but one runs on the Hopper tile core (``wgmma``
-fed by TMA) on the weights as they are: K1, K1b, K7, K2, K2b with saved y,
-K8's data-gradient tiles and every weight gradient.  Only K2b's recompute
-mode runs on the first (WMMA) core, on weights zero-padded to 16-column
-multiples.  Shape limits: ``filter_sz == 2``; n_res, n_cond, n_dil and
+are not read.  Every kernel runs on one tile core (``wgmma`` fed by TMA) on
+the weights as they are: K1, K1b, K7, K2, K2b in both modes, K8's
+data-gradient tiles and every weight gradient.  K2b's recompute mode runs
+the forward's gate pass ahead of each backward tile and keeps its f32 gate
+in a per-block scratch (:func:`_rec_scratch`).  Shape limits:
+``filter_sz == 2``; n_res, n_cond, n_dil and
 n_skp multiples of 8 (16-byte rows); the widths' shared-memory footprint
 within one block's 227 KB (a width past it raises ``ValueError``); the
 grouped backward takes saved y only.  The whole-stack forward and the
@@ -43,51 +44,11 @@ SMEM_LIMIT = 232448     # bytes of shared memory one block may use (H100)
 BF16 = torch.bfloat16
 
 
-def _r16(n: int) -> int:
-    return -(-n // 16) * 16
-
-
 def _dims(x: torch.Tensor, cond: torch.Tensor, w_in: torch.Tensor,
           w_out: torch.Tensor) -> list:
+    """[B, P, n_res, n_cond, n_dil, n_skp]: the kernels' six dims."""
     b, p, r = x.shape
-    c = cond.shape[-1]
-    d = w_in.shape[1] // 2
-    s = w_out.shape[1] - r
-    return [b, p, r, c, d, s, _r16(r), _r16(c), _r16(d), _r16(s)]
-
-
-def _pad_weights(dims, w_in, b_in, w_out, b_out):
-    """Packed f32 weights -> the kernel's zero-padded layout: win
-    [2Rp + Cp, 2Dp] bf16, bin [2Dp] f32, wout [Dp, Rp + Sp] bf16, bout
-    [Rp + Sp] f32."""
-    _, _, r, c, d, s, rp, cp, dp, sp = dims
-    dev = w_in.device
-    if (rp, cp, dp, sp) == (r, c, d, s):
-        # nothing to pad (as at the flagship widths): one cast each
-        def cast(w):
-            return w.detach().to(BF16, memory_format=torch.contiguous_format)
-
-        def bias(v, n):
-            if v is None:
-                return torch.zeros(n, device=dev)
-            return v.detach().float().contiguous()
-
-        return cast(w_in), bias(b_in, 2 * d), cast(w_out), bias(b_out, r + s)
-    ar = lambda n: torch.arange(n, device=dev)  # noqa: E731
-    rows = torch.cat([ar(r), rp + ar(r), 2 * rp + ar(c)])
-    gcols = torch.cat([ar(d), dp + ar(d)])
-    ocols = torch.cat([ar(r), rp + ar(s)])
-    win = torch.zeros(2 * rp + cp, 2 * dp, dtype=BF16, device=dev)
-    win[rows[:, None], gcols[None, :]] = w_in.detach().to(BF16)
-    wout = torch.zeros(dp, rp + sp, dtype=BF16, device=dev)
-    wout[ar(d)[:, None], ocols[None, :]] = w_out.detach().to(BF16)
-    binp = torch.zeros(2 * dp, device=dev)
-    bout = torch.zeros(rp + sp, device=dev)
-    if b_in is not None:
-        binp[gcols] = b_in.detach().float()
-    if b_out is not None:
-        bout[ocols] = b_out.detach().float()
-    return win, binp, wout, bout
+    return [b, p, r, cond.shape[-1], w_in.shape[1] // 2, w_out.shape[1] - r]
 
 
 def _cast_weights(w_in, b_in, w_out, b_out):
@@ -159,18 +120,19 @@ def coop_plan(rows: int, batch: int, sms: int, per_sm: int) -> tuple[int, int, i
 
 
 _BLOCKS: dict = {}
-_KINDS = {"fwd": 0, "bwd": 1, "stack": 2, "group": 3}  # awt_gated_wg_blocks
+# awt_gated_wg_blocks: the forward, the backward (saved y), the whole stack,
+# the group, the single-layer backward's recompute mode
+_KINDS = {"fwd": 0, "bwd": 1, "stack": 2, "group": 3, "bwd_rec": 4}
 
 
 def _per_sm(kind: str, dims) -> int:
-    """Blocks of the Hopper kernel ``kind`` one SM holds at these widths
-    (memoised); the first core's recompute backward runs one per SM."""
+    """Blocks of the kernel ``kind`` one SM holds at these widths
+    (memoised)."""
     from ae_wavenet_tpu_torch.ops import _build
 
     key = (kind, tuple(dims[2:6]))
     if key not in _BLOCKS:
-        n = 1 if kind == "recompute" else _build.load().awt_gated_wg_blocks(
-            _KINDS[kind], _ints(*dims))
+        n = _build.load().awt_gated_wg_blocks(_KINDS[kind], _ints(*dims))
         if n < 1:
             raise RuntimeError(f"occupancy query failed: CUDA error {-n}"
                                if n < 0 else f"no {kind} block fits on an SM at "
@@ -185,7 +147,7 @@ def _sms(dev) -> int:
 
 def _plan(dev, kind: str, dims, rows: int, batch: int, dd2: int) -> tuple[int, int]:
     """``_chunk`` from the card's SM count and the kernel's occupancy at
-    these widths (kind "fwd", "bwd" or "recompute")."""
+    these widths (kind "fwd", "bwd" or "bwd_rec")."""
     return _chunk(rows, batch, dd2, _sms(dev), _per_sm(kind, dims))
 
 
@@ -383,6 +345,16 @@ def _weight_grads(dims, saved: list, xs, cond, dds, vls) -> list:
     return grads
 
 
+def _rec_scratch(dims, blocks: int, dev) -> torch.Tensor:
+    """The recompute mode's gate scratch: per block of the launch, f32
+    tanh(y_f) and sigmoid(y_g) for one 64-row tile (``awt_gated_rec_slots``
+    float4 each, 128 KB at n_dil 256), reused tile after tile."""
+    from ae_wavenet_tpu_torch.ops import _build
+
+    slots = _build.load().awt_gated_rec_slots(_ints(*dims))
+    return torch.empty(blocks * slots * 4, device=dev, dtype=torch.float32)
+
+
 def _bwd(nl, xs, cond, gxcur, gxprev, gskip, gcond, pks, ys, dds, vls,
          prev_dd, cur_valid_lo):
     dims = _dims(xs[0], cond, pks[0][0], pks[0][2])
@@ -391,43 +363,36 @@ def _bwd(nl, xs, cond, gxcur, gxprev, gskip, gcond, pks, ys, dds, vls,
                "gskip": gskip, "gcond": gcond, "y1": ys[0]}
     if nl == 2:
         tensors.update(x2=xs[1], y2=ys[1])
-    _check(dims, tensors, _smem("awt_gated_bwd_smem" if recompute
+    _check(dims, tensors, _smem("awt_gated_wg_bwd_rec_smem" if recompute
                                 else "awt_gated_wg_bwd_smem", dims))
     for v, name in ((gxcur, "gxcur"), (gxprev, "gxprev")):
         if tuple(v.shape) != tuple(xs[0].shape) or v.dtype != BF16:
             raise ValueError(f"{name}: {tuple(v.shape)} {v.dtype}, the kernel "
                              f"takes {tuple(xs[0].shape)} {BF16}")
-    (b, p, r), dp = dims[:3], dims[8]
+    b, p, r = dims[:3]
     dev = xs[0].device
     r0 = vls[0]
-    chunk, n_chunks = _plan(dev, "recompute" if recompute else "bwd", dims, p - r0,
+    chunk, n_chunks = _plan(dev, "bwd_rec" if recompute else "bwd", dims, p - r0,
                             b, dds[-1] if nl == 2 else 0)
     gxc, gxp = (_head_zeroed(torch.empty_like(xs[0]), r0) for _ in range(2))
     saved = [_scratch(dims, dev) for _ in range(nl)]
-    head = [cond, gxcur, gxprev, gskip, gcond, gxc, gxp]
-    if recompute:  # one layer, the first core
-        win, binp, wout, _ = _pad_weights(dims, pks[0][0], pks[0][1], pks[0][2], None)
-        yf = torch.empty(b, p, 2 * dp, device=dev, dtype=torch.float32)
-        _call("awt_gated_bwd_recompute", None,
-              _ptrs(*head, yf, xs[0], win, binp, wout, *saved[0]),
-              _ints(*dims, prev_dd, cur_valid_lo, r0, chunk, dds[0], vls[0],
-                    n_chunks), dev)
-    else:
-        f32 = dict(device=dev, dtype=torch.float32)
-        gcur2 = torch.empty(b, p, r, **f32) if nl == 2 else None
-        gp2 = torch.empty(b, p, r, **f32) if nl == 2 else None
-        layers = []
-        for l in range(2):
-            if l >= nl:
-                layers += [None] * 6
-                continue
-            win, _, wout, _ = _cast_weights(*pks[l])
-            layers += [ys[l], win, wout, *saved[l]]
-        ints = [*dims, prev_dd, cur_valid_lo, r0, chunk, dds[0], vls[0],
-                dds[1] if nl == 2 else 0, vls[1] if nl == 2 else 0, n_chunks]
-        _call("awt_gated_bwd", nl, _ptrs(*head, gcur2, gp2, *layers),
-              _ints(*ints), dev)
-        del layers
+    f32 = dict(device=dev, dtype=torch.float32)
+    gcur2 = torch.empty(b, p, r, **f32) if nl == 2 else None
+    gp2 = torch.empty(b, p, r, **f32) if nl == 2 else None
+    cast = [_cast_weights(*pk) for pk in pks]
+    layers = []
+    for l in range(2):
+        layers += ([ys[l], cast[l][0], cast[l][2], *saved[l]] if l < nl
+                   else [None] * 6)
+    # the recompute mode (one layer, no saved y) reads x, b_in and its scratch
+    rec = ([xs[0], cast[0][1], _rec_scratch(dims, b * n_chunks, dev)] if recompute
+           else [None] * 3)
+    ints = [*dims, prev_dd, cur_valid_lo, r0, chunk, dds[0], vls[0],
+            dds[1] if nl == 2 else 0, vls[1] if nl == 2 else 0, n_chunks]
+    _call("awt_gated_bwd", nl,
+          _ptrs(cond, gxcur, gxprev, gskip, gcond, gxc, gxp, gcur2, gp2, *layers,
+                *rec), _ints(*ints), dev)
+    del cast, layers, rec
     return (gxc, gxp, gcond, *_weight_grads(dims, saved, xs, cond, dds, vls))
 
 

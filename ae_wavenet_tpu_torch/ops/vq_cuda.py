@@ -11,14 +11,17 @@ Replaces the TPU kernel ``ae_wavenet_tpu/ops/vq_pallas.py``
 
 A caller that reads only codes and quant (the serving and eval halves of the
 bottleneck) passes ``stats=False``: counts and sums come back as None and
-their launch, half of the kernel's time, is skipped.
+the kernel stops before its barrier across the grid.  Either way a call is
+one launch; the wrapper's own work is one ``torch.empty`` per output (the
+cheapest carve on the host: views of one buffer cost more) and the call.
 
 ``|z_n|^2`` is constant per row and left out of the distances, as in the TPU
 kernel; ``VQBottleneck._nearest`` keeps it and stays the unfused path.  The
 kernel has no backward: its inputs are detached latents.
 
 What bounds it on the card: tens of MFLOP over less than a megabyte at the
-model's shapes, so the launches dominate; the kernel keeps the [N, K]
+model's shapes, so latency dominates (the launch, L2 round trips, one grid
+barrier); the kernel spreads the rows over the SMs, keeps the [N, K]
 distances and the one-hot matrix out of device memory and reduces the sums
 in a fixed order, so two runs give the same bits.
 
@@ -32,6 +35,16 @@ from __future__ import annotations
 import torch
 
 _MAX_D = 256  # csrc/vq.cu MAX_D
+# the statistics' grid barrier: two int32 counters per (device, stream), zero
+# when made; every call leaves them ready for the next one (csrc/vq.cu)
+_BARRIERS: dict = {}
+
+
+def _barrier(dev: torch.device, stream: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    if key not in _BARRIERS:
+        _BARRIERS[key] = torch.zeros(2, dtype=torch.int32, device=dev)
+    return _BARRIERS[key]
 
 
 @torch.no_grad()
@@ -50,6 +63,18 @@ def vq_lookup_reference(z: torch.Tensor, codebook: torch.Tensor,
 
 
 vq_lookup_reference.launches = 0
+
+
+def _launch(lib, z, codebook, codes, quant, counts, sums) -> int:
+    """``awt_vq_lookup`` on the current device's current stream."""
+    stream = torch.cuda.current_stream(z.device).cuda_stream
+    stats = counts is not None
+    return lib.awt_vq_lookup(z.data_ptr(), codebook.data_ptr(), z.shape[0],
+                             codebook.shape[0], z.shape[1], codes.data_ptr(),
+                             quant.data_ptr(), counts.data_ptr() if stats else None,
+                             sums.data_ptr() if stats else None,
+                             _barrier(z.device, stream).data_ptr() if stats else None,
+                             stream)
 
 
 def vq_lookup_fused(z: torch.Tensor, codebook: torch.Tensor, stats: bool = True):
@@ -87,12 +112,11 @@ def vq_lookup_fused(z: torch.Tensor, codebook: torch.Tensor, stats: bool = True)
     quant = torch.empty(n, d, device=dev)
     counts = torch.empty(k, device=dev) if stats else None
     sums = torch.empty(k, d, device=dev) if stats else None
-    with torch.cuda.device(dev):
-        rc = lib.awt_vq_lookup(z.data_ptr(), codebook.data_ptr(), n, k, d,
-                               codes.data_ptr(), quant.data_ptr(),
-                               counts.data_ptr() if stats else None,
-                               sums.data_ptr() if stats else None,
-                               torch.cuda.current_stream(dev).cuda_stream)
+    if dev.index == torch.cuda.current_device():
+        rc = _launch(lib, z, codebook, codes, quant, counts, sums)
+    else:
+        with torch.cuda.device(dev):
+            rc = _launch(lib, z, codebook, codes, quant, counts, sums)
     if rc != 0:
         raise RuntimeError(f"vq kernel launch failed: CUDA error {rc} "
                            f"({lib.awt_cuda_error_string(rc).decode()})")

@@ -10,9 +10,9 @@ power limit:
 1. environment: torch, CUDA, nvcc, triton, the card;
 2. build: compiles ae_wavenet_tpu_torch/csrc/*.cu from this checkout and
    prints every kernel's registers, spills and stack from the ptxas report
-   (every kernel of the Hopper tile core, the whole-stack and group kernels
-   among them, must be listed, and none of them nor the sampler's may
-   spill);
+   (every kernel of the Hopper tile core, the whole-stack, group and
+   recompute-mode kernels among them, must be listed, and none of them nor
+   the sampler's may spill; no WMMA kernel is left);
 3. the fused sampler kernels (one cooperative grid, each block's column
    share of the weights resident in shared memory; the plan's block count
    and resident bytes printed) against their plain PyTorch versions at the
@@ -37,16 +37,19 @@ power limit:
 4. the fused VQ lookup kernel against its plain version at the N of the
    serving request and of the training step: codes (differing rows must be
    near-ties), the looked-up rows bit for bit, exact counts, sums, the same
-   bits on a second launch, and a planted fault (|e|^2 dropped);
+   bits on a second launch, and a planted fault (|e|^2 dropped); one kernel
+   per call with and without the statistics (torch.profiler), and its time
+   three ways: CUDA events around a loop of wrapper calls, the kernel's
+   device time (profiler) and the wrapper's host time per call;
 5. serving: the generate CLI on one clip (B = 1) of a synthetic dataset from
    an export-format checkpoint, then ``reconstruct`` on a batch of 64 clips,
    then the CLI with ``--int8`` and with ``--int4`` on a checkpoint whose
    config has ``vq_use_pallas=True``; the launch counters are set to 0
    before each run and show which kernels it went through;
 6. train-kernels: the six gated-stack kernels (``csrc/gated.cu``: one
-   layer, a pair, the whole stack forward; one layer, a pair, a group of
-   layers backward; all on the Hopper core but the single-layer backward's
-   recompute mode) against their plain versions at the full ``chorowski``
+   layer, a pair, the whole stack forward; one layer in both modes, a pair,
+   a group of layers backward; all on the Hopper core) against their plain
+   versions at the full ``chorowski``
    width (seeded random weights, every bias perturbed), each output, at
    B = 2 with 4,100 loss samples (a ragged last tile) and again at the
    training path's shape (B = 4, n_win = 48,000), where both are also
@@ -56,14 +59,16 @@ power limit:
    pair backward's, the whole-stack forward's and the grouped backward's
    bits on a second launch; the whole stack
    through ``GatedStack`` in seven schedules (logits and every gradient);
-   six faults planted in the plain versions, which the same checks must
+   seven faults planted in the plain versions, which the same checks must
    reject (among them the pair forward's and the pair backward's layer 2
-   prev tap one row off, at both shapes); the stack's forward and backward timed under pairs, full fusion,
+   prev tap one row off, and b_in dropped from the recompute mode's y, at
+   both shapes); the stack's forward and backward timed under pairs, full fusion,
    and full fusion with groups of 5;
 7. train: the train CLI at B = 4, n_win = 48,000.  ``new --preset chorowski
    --pallas-stack`` for 4 steps and ``resume`` for 2 more (the main path:
-   pairs, saved y); 2 steps of the single-layer schedule
-   (``--no-gated-fuse-pairs --no-gated-save-y``); 3 steps with
+   pairs, saved y); 4 steps of the single-layer schedule
+   (``--no-gated-fuse-pairs --no-gated-save-y``, the first step's loss beside
+   the main path's); 3 steps with
    ``--vq-use-pallas`` (the fused VQ lookup once per step, the first step's
    loss equal to the run without it); then the whole-stack path,
    ``--gated-full-fusion --gated-bwd-group 5 --ckpt-keep 2 --ckpt-every 2
@@ -76,11 +81,17 @@ power limit:
    launch counters are set to 0 before each run and read after it: every
    gated kernel (the single-layer backward's recompute mode counted apart)
    must have launched exactly as its path says and no plain version at all.
-   Median step time, samples/s and peak memory of each path, each
+   Median step time, samples/s and peak memory of each path (the
+   single-layer path's beside the other three), each
    whole-stack schedule's step beside the pairs step of the same run, and
    the step's time split from CUDA events around its parts in 3 steps of
    one ``Chassis`` run, for the main and the whole-stack path;
 8. eval: ``cli/eval.py --quality`` on the checkpoint that run wrote.
+
+``python3 chip_smoke.py --kernel-times`` builds the kernels and only times
+the VQ lookup (phase 4's numbers) and the single-layer backward's recompute
+mode (phase 6's), with no checks: run from an unpacked older commit with
+this file beside it, it times that commit's kernels in the same call.
 
 Then one JSON line describing the ten kernels (each with its launches on
 its path, its error against the plain version, its time beside the plain
@@ -143,9 +154,11 @@ HBM_BYTES_PER_S = 3.35e12
 # 1.98 GHz boost clock
 SMEM_BYTES_PER_S = 132 * 128 * 1.98e9
 # every kernel of the Hopper tile core, as the ptxas report names them
-HOPPER_KERNELS = ("wg_fwd_kernel<1>", "wg_fwd_kernel<2>", "wg_bwd_kernel<1>",
-                  "wg_bwd_kernel<2>", "wg_dw_kernel", "wg_stack_kernel",
-                  "wg_group_kernel")
+# (wg_bwd_kernel<NL, REC>: K2b saved y, K2, K2b's recompute mode)
+HOPPER_KERNELS = ("wg_fwd_kernel<1>", "wg_fwd_kernel<2>", "wg_bwd_kernel<1, false>",
+                  "wg_bwd_kernel<2, false>", "wg_bwd_kernel<1, true>", "wg_dw_kernel",
+                  "wg_stack_kernel", "wg_group_kernel")
+VQ_TIMING_REPS = 20
 GATED = {  # wrapper -> the Pallas kernel it replaces
     "gated_pair_fused": "ae_wavenet_tpu/ops/gated_pallas.py:217",
     "gated_layer_fused": "ae_wavenet_tpu/ops/gated_pallas.py:105",
@@ -314,8 +327,12 @@ def ptxas_kernels(log: str) -> dict:
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             name = re.search(r"'([^']+)'", ln).group(1)
-            m = re.search(r"\d+(wg_\w+?|gated_\w+?|fastgen_\w+?|vq_\w+?)(ILi(\d)EE)?E", name)
-            cur = (m.group(1) + (f"<{m.group(3)}>" if m.group(3) else "")) if m else name
+            m = re.search(r"\d+((?:wg|gated|fastgen|vq)_\w+?)(I((?:L[ib]\d+E)+)E)?E", name)
+            cur = name
+            if m:
+                args = [v if t == "i" else ("true" if v == "1" else "false")
+                        for t, v in re.findall(r"L([ib])(\d+)E", m.group(3) or "")]
+                cur = m.group(1) + (f"<{', '.join(args)}>" if args else "")
             out[cur] = [0, 0, 0, 0]
             continue
         if cur is None:
@@ -349,6 +366,11 @@ def phase_build(card: str) -> None:
           f"ptxas report lists the Hopper kernels {hopper}, not all of {HOPPER_KERNELS}")
     sampler = [k for k in kernels if k.startswith("fastgen_kernel")]
     check(len(sampler) == 3, f"ptxas report lists the sampler kernels {sampler}")
+    # one tile core: the first (WMMA) core's kernel and header are gone
+    src = (_build.CSRC / "gated.cu").read_text()
+    check(not [k for k in kernels if k.startswith("gated_bwd_recompute")]
+          and "wmma" not in src and "mma.h" not in src,
+          "the first core (WMMA, gated_bwd_recompute_kernel) is still built")
     check(all(kernels[k][1] == kernels[k][2] == 0 for k in hopper + sampler),
           f"a Hopper or sampler kernel spills: "
           f"{[(k, kernels[k]) for k in hopper + sampler]}")
@@ -715,10 +737,10 @@ def phase_vq(card: str, dev, data: str) -> dict:
         return _phase_vq(card, dev, data)
 
 
-def _phase_vq(card: str, dev, data: str) -> dict:
-    """The fused VQ lookup against its plain version on the encoder's own
-    latents, at the N of the serving request (clip 0 of ``data``) and of
-    the training step (TRAIN_B windows)."""
+def vq_cases(dev, data: str) -> tuple:
+    """(codebook, {label: latents}): a seeded ``chorowski`` model's codebook
+    and its encoder's latents at the N of the serving request (clip 0 of
+    ``data``) and of the training step (TRAIN_B windows)."""
     import torch
 
     from ae_wavenet_tpu_torch.audio import mfcc
@@ -726,13 +748,11 @@ def _phase_vq(card: str, dev, data: str) -> dict:
     from ae_wavenet_tpu_torch.data.dataset import PackedDataset
     from ae_wavenet_tpu_torch.models import autoencoder as ae
     from ae_wavenet_tpu_torch.models.common import normalize_frames
-    from ae_wavenet_tpu_torch.ops import vq_cuda as vq
     from ae_wavenet_tpu_torch.utils.config import chorowski_config
 
     cfg = chorowski_config()
     gen = torch.Generator().manual_seed(1)
     model = ae.init(cfg, gen, dev).eval()
-    e = model.bottleneck.codebook
     spec = ae.make_window_spec(cfg, TRAIN_WIN)
     clip = torch.from_numpy(PackedDataset(data).clip(0, 64000))[None].to(dev)
     windows = (torch.randn(TRAIN_B, spec.u_len, generator=gen) * 3000).to(
@@ -743,6 +763,79 @@ def _phase_vq(card: str, dev, data: str) -> dict:
         with torch.no_grad():
             z = model.encoder(normalize_frames(frames, n_ref=n_ref, spec=cfg.spec))
         return z.permute(0, 2, 1).reshape(-1, z.shape[1]).contiguous()
+
+    return model.bottleneck.codebook.detach(), {
+        "serving request": latents(clip, ae.make_window_spec(cfg).n_frames),
+        "training step": latents(windows, None)}
+
+
+def device_ms(fn, reps: int) -> tuple[float, float, list]:
+    """fn()'s kernels on the card from torch.profiler, over reps calls after
+    a warm-up: (device ms per call summed over its kernels, kernels per
+    call, their names)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    us = sum(e.time_range.end - e.time_range.start for e in ev)
+    return us / 1e3 / reps, len(ev) / reps, sorted({e.name for e in ev})
+
+
+def host_ms(fn, reps: int) -> float:
+    """Host milliseconds per fn() call (what the caller's thread spends to
+    enqueue it), the device synchronised before and after the loop."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / reps
+
+
+def vq_times(z, e) -> dict:
+    """The VQ lookup at these latents, with and without the statistics:
+    CUDA events around a loop of wrapper calls (``ms``, as earlier PRs
+    timed it), the kernels' device time and count per call (profiler) and
+    the wrapper's host time per call."""
+    from ae_wavenet_tpu_torch.ops import vq_cuda as vq
+
+    out = {}
+    for key, stats in (("", True), ("lean_", False)):
+        fn = lambda: vq.vq_lookup_fused(z, e, stats=stats)  # noqa: E731
+        dev_ms, per_call, names = device_ms(fn, VQ_TIMING_REPS)
+        out.update({f"{key}ms": cuda_ms(fn, VQ_TIMING_REPS), f"{key}device_ms": dev_ms,
+                    f"{key}kernels_per_call": per_call, f"{key}kernel_names": names,
+                    f"{key}host_ms": host_ms(fn, VQ_TIMING_REPS)})
+    return out
+
+
+def vq_times_line(t: dict) -> str:
+    return (f"events around {VQ_TIMING_REPS} calls {t['ms']:.4f} ms a call, device "
+            f"{t['device_ms']:.4f} ms in {t['kernels_per_call']:g} kernel(s) "
+            f"{t['kernel_names']}, wrapper (host) {t['host_ms']:.4f} ms; without the "
+            f"statistics {t['lean_ms']:.4f} / {t['lean_device_ms']:.4f} ms in "
+            f"{t['lean_kernels_per_call']:g} kernel(s) / {t['lean_host_ms']:.4f} ms")
+
+
+def _phase_vq(card: str, dev, data: str) -> dict:
+    """The fused VQ lookup against its plain version on the encoder's own
+    latents (``vq_cases``)."""
+    import torch
+
+    from ae_wavenet_tpu_torch.ops import vq_cuda as vq
+
+    e, cases = vq_cases(dev, data)
 
     def verdict(z, codes, plain_codes) -> list[str]:
         """Why ``codes`` do not agree with ``plain_codes`` (empty: they do):
@@ -761,8 +854,6 @@ def _phase_vq(card: str, dev, data: str) -> dict:
         return why
 
     out = {}
-    cases = {"serving request": latents(clip, ae.make_window_spec(cfg).n_frames),
-             "training step": latents(windows, None)}
     for label, z in cases.items():
         n, (k, d) = z.shape[0], e.shape
         got = vq.vq_lookup_fused(z, e)
@@ -787,24 +878,29 @@ def _phase_vq(card: str, dev, data: str) -> dict:
         # planted fault in the plain version: |e|^2 left out of the distances
         bad = verdict(z, codes, (-2.0 * (z @ e.t())).argmin(1))
         check(bool(bad), f"vq {label}: planted fault '|e|^2 dropped' passes")
-        # what serving and eval call: codes and rows only, one launch fewer
+        # what serving and eval call: codes and rows only
         lean = vq.vq_lookup_fused(z, e, stats=False)
         check(torch.equal(lean[0], got[0]) and torch.equal(lean[1], got[1])
               and lean[2] is None and lean[3] is None,
               f"vq {label}: the lookup without statistics differs")
-        k_ms = cuda_ms(lambda: vq.vq_lookup_fused(z, e), 20)
-        lean_ms = cuda_ms(lambda: vq.vq_lookup_fused(z, e, stats=False), 20)
-        p_ms = cuda_ms(lambda: vq.vq_lookup_reference(z, e), 20)
+        t = vq_times(z, e)
+        check(t["kernels_per_call"] == 1 and t["lean_kernels_per_call"] == 1,
+              f"vq {label}: {t['kernels_per_call']:g} kernels a call with the "
+              f"statistics, {t['lean_kernels_per_call']:g} without; one launch each "
+              f"expected ({t['kernel_names']})")
+        p_ms = cuda_ms(lambda: vq.vq_lookup_reference(z, e), VQ_TIMING_REPS)
         b_ms, by = bound(tensor_bytes(z, e, got), {"f32": 2 * n * k * d})
         print(f"[vq] {label}: N={n} K={k} D={d}: {n_diff} codes differ from the plain "
               f"version (near-ties only), {len(torch.unique(codes))} codes in use, quant "
               f"== codebook[codes], counts exact (sum {n}), sums max|d| {err:.4g} of "
               f"{scale:.4g} (tol {VQ_SUM_REL_TOL}), same bits twice; planted fault "
-              f"'|e|^2 dropped': {bad[0]}: rejected; kernel {k_ms:.4f} ms "
-              f"({lean_ms:.4f} ms without the statistics: same codes and rows), "
-              f"plain {p_ms:.4f} ms, bound {b_ms:.6f} ms by {by} | {card}")
-        out[label] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-                      "bound_ms": b_ms, "bound_by": by, "n": n}
+              f"'|e|^2 dropped': {bad[0]}: rejected; without the statistics the same "
+              f"codes and rows | {card}")
+        print(f"[vq] {label}: N={n}: kernel: {vq_times_line(t)}; plain {p_ms:.4f} ms; "
+              f"bound {b_ms:.6f} ms by {by} | {card}")
+        out[label] = {"max_abs_err": err, "ms": t["ms"], "device_ms": t["device_ms"],
+                      "host_ms": t["host_ms"], "plain_ms": p_ms, "bound_ms": b_ms,
+                      "bound_by": by, "n": n}
     return out
 
 
@@ -1346,12 +1442,24 @@ def phase_train(card: str, dev, tmp: str) -> dict:
           f"{TRAIN_B * TRAIN_WIN / step_s:.0f} samples/s (B={TRAIN_B}, n_win="
           f"{TRAIN_WIN}); peak memory {peak:.2f} GiB | {card}")
 
-    # the single-layer path (--no-gated-fuse-pairs --no-gated-save-y)
-    alt, n_alt, _, _ = _path_run(
-        ["new", *shape, "--no-gated-fuse-pairs", "--no-gated-save-y", "--n-steps", "2",
-         "--ckpt-dir", os.path.join(tmp, "ckpt_alt")],
-        expect(0, n_layers, 2), card, "single-layer path, new")
-    check(len(alt) == 2, f"single-layer run logged {len(alt)} steps")
+    # the single-layer path (--no-gated-fuse-pairs --no-gated-save-y): K1b
+    # forward, K2b's recompute mode backward; the same first step
+    alt, n_alt, peak_alt, _ = _path_run(
+        ["new", *shape, "--no-gated-fuse-pairs", "--no-gated-save-y", "--n-steps",
+         str(TRAIN_STEPS), "--ckpt-dir", os.path.join(tmp, "ckpt_alt")],
+        expect(0, n_layers, TRAIN_STEPS), card, "single-layer path, new")
+    check(len(alt) == TRAIN_STEPS, f"single-layer run logged {len(alt)} steps")
+    d_alt = abs(alt[0]["loss"] - new[0]["loss"])
+    check(d_alt < LOSS_TOL, f"single-layer path: first-step loss {alt[0]['loss']} vs "
+          f"the main path's {new[0]['loss']} (tol {LOSS_TOL})")
+    step_alt = _median_step(alt)
+    ce_alt = " ".join(f"{r['recon_ce']:.4f}" for r in alt)
+    print(f"[train] single-layer path (--no-gated-fuse-pairs --no-gated-save-y): "
+          f"first-step loss {alt[0]['loss']:.6f} vs the main path's "
+          f"{new[0]['loss']:.6f} (|d| {d_alt:.2g} < {LOSS_TOL}); recon_ce "
+          f"{ce_alt}; median step "
+          f"{step_alt * 1e3:.1f} ms -> {TRAIN_B * TRAIN_WIN / step_alt:.0f} samples/s; "
+          f"peak memory {peak_alt:.2f} GiB | {card}")
 
     # the main path again with the fused VQ lookup: once per step, and the
     # first step (same seed, same data) loses nothing to it
@@ -1437,10 +1545,13 @@ def phase_train(card: str, dev, tmp: str) -> dict:
     print(f"[train] --gated-full-fusion alone: median step {step_ff * 1e3:.1f} ms -> "
           f"{TRAIN_B * TRAIN_WIN / step_ff:.0f} samples/s; peak memory {peak_ff:.2f} "
           f"GiB | {card}")
-    print(f"[train] step by schedule, this run: pairs {step_s * 1e3:.1f} ms; "
-          f"--gated-full-fusion {step_ff * 1e3:.1f} ms ({step_ff / step_s - 1:+.1%} "
-          f"against pairs); --gated-full-fusion --gated-bwd-group {GROUP} "
-          f"{step_ws * 1e3:.1f} ms ({step_ws / step_s - 1:+.1%}) | {card}")
+    print(f"[train] step by schedule, this run: pairs {step_s * 1e3:.1f} ms "
+          f"({peak:.2f} GiB); --gated-full-fusion {step_ff * 1e3:.1f} ms "
+          f"({step_ff / step_s - 1:+.1%} against pairs, {peak_ff:.2f} GiB); "
+          f"--gated-full-fusion --gated-bwd-group {GROUP} {step_ws * 1e3:.1f} ms "
+          f"({step_ws / step_s - 1:+.1%}, {max(peak_ws, peak_ws_res):.2f} GiB); "
+          f"--no-gated-fuse-pairs --no-gated-save-y {step_alt * 1e3:.1f} ms "
+          f"({step_alt / step_s - 1:+.1%}, {peak_alt:.2f} GiB) | {card}")
 
     # two profiled steps of the main path and of the whole-stack path:
     # device time by kernel name
@@ -1529,6 +1640,80 @@ def phase_eval(card: str, data: str, ckpt_dir: str) -> dict:
     return {"launches": n_vq}
 
 
+def kernel_times(card: str, dev) -> None:
+    """``--kernel-times``: the VQ lookup's times (``vq_times``) at phase 4's
+    latents, the single-layer backward's recompute mode at the training
+    path's shape, timed as phase 6 times it, with the call's peak memory
+    above its inputs, and the single-layer path through the train CLI as
+    phase 7 runs it (median step, peak memory); no checks, so that an older
+    commit's package can be timed with the same code."""
+    import torch
+
+    from ae_wavenet_tpu_torch.data.dataset import make_synthetic_dataset
+    from ae_wavenet_tpu_torch.models import autoencoder as ae
+    from ae_wavenet_tpu_torch.ops import _build
+    from ae_wavenet_tpu_torch.ops import gated_check as chk
+    from ae_wavenet_tpu_torch.ops import gated_cuda as gc
+    from ae_wavenet_tpu_torch.utils.config import chorowski_config
+
+    t0 = time.perf_counter()
+    _build.load()
+    print(f"[times] build {time.perf_counter() - t0:.2f} s, package "
+          f"{os.path.dirname(_build.CSRC)} | {card}")
+    with f32_numerics(), tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "synth")
+        make_synthetic_dataset(data, n_clips=BATCH, n_speakers=8,
+                               clip_len=(12400, 14000), seed=0)
+        e, cases = vq_cases(dev, data)
+        for label, z in cases.items():
+            print(f"[times] vq {label}: N={z.shape[0]}: {vq_times_line(vq_times(z, e))} "
+                  f"| {card}")
+        del e, cases
+        wcfg = chorowski_config().wavenet
+        wn, ids, cond, spk = chk.random_stack(wcfg, TRAIN_B, TRAIN_WIN, 1, dev)
+        dils, x0, cond_tm, packed, xs, ys, cot = chk.segment_inputs(wn, wcfg, ids, cond,
+                                                                    spk)
+        wrapper, call = chk.segment_calls(dils, cond_tm, packed, xs, ys,
+                                          cot)["gated_layer_bwd_recompute"]
+        kern, moved = getattr(gc, wrapper), []
+
+        def probe(*a, **kw):
+            moved.append((a, kw))
+            return kern(*a, **kw)
+
+        call(probe)
+        a, kw = moved[0]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = kern(*a, **kw)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        del out
+        k_ms = cuda_ms(lambda: kern(*a, **kw), 3)
+        kc_ms = cuda_ms(lambda: call(kern), 3)
+        print(f"[times] gated_layer_bwd_recompute B={TRAIN_B} t_in={x0.shape[1]}: kernel "
+              f"{k_ms:.3f} ms ({kc_ms:.3f} with the case's input copies); the call's peak "
+              f"memory above its inputs {peak:.3f} GB | {card}")
+        del wn, ids, cond, spk, x0, cond_tm, packed, xs, ys, cot, moved, a, kw, call
+        cfg = chorowski_config()
+        u_len = ae.make_window_spec(cfg, TRAIN_WIN).u_len
+        make_synthetic_dataset(data + "_train", n_clips=8, n_speakers=8,
+                               clip_len=(u_len + 4000, u_len + 30000), seed=1)
+        torch.cuda.reset_peak_memory_stats()
+        recs = [r for r in _run_cli(
+            ["new", "--preset", "chorowski", "--pallas-stack", "--batch-sz", str(TRAIN_B),
+             "--n-win", str(TRAIN_WIN), "--data", data + "_train", "--log-every", "1",
+             "--no-gated-fuse-pairs", "--no-gated-save-y", "--n-steps", str(TRAIN_STEPS),
+             "--ckpt-dir", os.path.join(tmp, "ckpt_alt")]) if "loss" in r]
+        torch.cuda.synchronize()
+        step = _median_step(recs)
+        print(f"[times] single-layer path (--no-gated-fuse-pairs --no-gated-save-y), "
+              f"{TRAIN_STEPS} steps: first-step loss {recs[0]['loss']:.6f}, median step "
+              f"{step * 1e3:.1f} ms, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {card}")
+
+
 def main() -> int:
     import torch
 
@@ -1539,6 +1724,9 @@ def main() -> int:
     card = card_line()
     print(card)  # exactly as nvidia-smi reports name and power limit
     dev = torch.device("cuda", 0)
+    if sys.argv[1:] == ["--kernel-times"]:
+        kernel_times(card, dev)
+        return 0
     phase_env(card)
     phase_build(card)
     k = phase_kernel(card, dev)

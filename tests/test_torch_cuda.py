@@ -262,14 +262,32 @@ def test_kernel_gives_the_same_bits_twice(cuda_device, mode):
 from ae_wavenet_tpu_torch.ops import vq_cuda  # noqa: E402
 
 
+def _kernels_of(fn) -> list:
+    """Names of the device operations (kernels, copies, fills) of one fn()
+    call, after a warm-up call, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,k,d", [(512, 128, 64), (301, 128, 64), (37, 100, 30),
-                                   (5, 700, 8)])
+                                   (5, 700, 8), (1, 512, 64), (27, 512, 64),
+                                   (640, 512, 64), (4099, 512, 64)])
 def test_vq_kernel_matches_plain_version(cuda_device, n, k, d):
     """Codes equal except on near-ties (under 1% of rows, each with a
     relative distance gap under 1e-5), quant the codebook rows bit for bit,
     counts exact, sums within 1e-4, and the same bits on a second launch;
-    ragged N, K above one pass of the block and a D off the 16-byte path."""
+    ragged N, K above one pass of the block and a D off the 16-byte path;
+    one row, the serving request's 27 and the training step's 640 latents
+    at the flagship K and D, and N past one chunk of the statistics' scan;
+    one device operation per call, with and without the statistics."""
     gen = torch.Generator().manual_seed(n)
     z = (torch.randn(n, d, generator=gen) * 0.5).to(cuda_device)
     e = (torch.randn(k, d, generator=gen) / d ** 0.5).to(cuda_device)
@@ -279,6 +297,9 @@ def test_vq_kernel_matches_plain_version(cuda_device, n, k, d):
     want = vq_cuda.vq_lookup_reference(z, e)
     torch.cuda.synchronize()
     assert vq_cuda.vq_lookup_fused.launches == before + 2
+    for stats in (True, False):
+        ops = _kernels_of(lambda: vq_cuda.vq_lookup_fused(z, e, stats=stats))
+        assert len(ops) == 1 and "vq_kernel" in ops[0], (stats, ops)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
     codes = got[0].long()
@@ -306,7 +327,7 @@ def test_vq_kernel_takes_the_first_index_on_ties(cuda_device):
     assert torch.equal(quant, e[codes.long()])
     assert counts[:2].tolist() == [2.0, 1.0] and float(counts.sum()) == 3.0
     assert sums[0].tolist() == [2.5, 0.5]
-    # without the statistics: the same codes and rows, one launch fewer
+    # without the statistics: the same codes and rows
     lean = vq_cuda.vq_lookup_fused(z, e, stats=False)
     assert torch.equal(lean[0], codes) and torch.equal(lean[1], quant)
     assert lean[2] is None and lean[3] is None
@@ -394,13 +415,16 @@ def test_gated_kernel_matches_plain(cuda_device, name):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["gated_pair_fused", "gated_layer_fused",
                                   "gated_pair_bwd", "gated_layer_bwd",
+                                  "gated_layer_bwd_recompute",
                                   "gated_stack_fused", "gated_stack_fused_no_save",
                                   "gated_group_bwd", "gated_group_bwd_3"])
 def test_gated_kernel_matches_plain_at_flagship_width(cuda_device, name):
     """The Hopper kernels at the ``chorowski`` widths (n_res 384, cond 160,
     n_dil 256, n_skp 256: the tile shapes of the main path) on a short ragged
     T (4,100 = 64 x 64 + 4 loss samples), B = 2: the pair and single-layer
-    kernels, the whole stack's 20 layers and groups of 5 and 3."""
+    kernels (the recompute mode's xin, 2 x 384 + 160 wide, is the largest
+    tile, with the fewest ring stages beside it), the whole stack's 20 layers
+    and groups of 5 and 3."""
     from ae_wavenet_tpu_torch.utils.config import chorowski_config
 
     _held_against_plain(chorowski_config().wavenet, 2, 4100, name, cuda_device)
@@ -455,7 +479,7 @@ def test_gated_whole_stack_kernels_with_blocks_idle_in_the_last_round(cuda_devic
     idle, and still meets each grid barrier."""
     kind = "stack" if name.startswith("gated_stack") else "group"
     n_cond = GCFG.n_lc_out + GCFG.n_global_embed
-    dims = [1, 1, GCFG.n_res, n_cond, GCFG.n_dil, GCFG.n_skp, 0, 0, 0, 0]
+    dims = [1, 1, GCFG.n_res, n_cond, GCFG.n_dil, GCFG.n_skp]
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     capacity = sms * tgc._per_sm(kind, dims)
     rows = tgc.TM * capacity + 1

@@ -166,23 +166,29 @@ def _cmp_dw(got, want, n_in, ncp):
 
 
 @pytest.mark.parametrize("saved", [True, False])
-def test_plain_layer_bwd_matches_pallas(saved):
-    """One layer below the top (its upstream prev-tap cotangent is read),
-    saved-y and recompute modes."""
+@pytest.mark.parametrize("layer", ["below_top", "bottom", "top"])
+def test_plain_layer_bwd_matches_pallas(saved, layer):
+    """Saved-y and recompute modes, for one layer below the top (its
+    upstream prev-tap cotangent is read), the bottom layer (dilation 1, x
+    defined from row 0) and the top layer (no layer above: no prev_dd, and
+    no rows of gxcur on its lattice)."""
     dils, cond_tm, packed, xs, ys, cot, j, jpk, (p_len, lpad, off, ncp) = _segment()
-    i = len(dils) - 2
-    vl, cur_vl = gated.valid_lo(dils, i), gated.valid_lo(dils, i + 1)
+    n = len(dils)
+    i = {"below_top": n - 2, "bottom": 0, "top": n - 1}[layer]
+    vl = gated.valid_lo(dils, i)
+    prev_dd = dils[i + 1] if i + 1 < n else 0
+    cur_vl = gated.valid_lo(dils, i + 1) if i + 1 < n else xs[0].shape[1]
     c = {k: v.clone() for k, v in cot.items()}
     w_in, b_in, w_out, _ = packed[i]
     got = gated.gated_layer_bwd_reference(
         xs[i], cond_tm, c["gxcur"], c["gxprev"], c["gskip"], c["gcond"], w_in,
-        w_out, b_in, dd=dils[i], prev_dd=dils[i + 1], valid_lo=vl,
+        w_out, b_in, dd=dils[i], prev_dd=prev_dd, valid_lo=vl,
         cur_valid_lo=cur_vl, y_saved=ys[i] if saved else None)
     jw_in, jb_in, jw_out, _ = jpk[i]
     want = gp.gated_layer_bwd(
         _jx(xs[i], lpad + off).astype(jnp.bfloat16), j["cond"], j["gxcur"],
         j["gxprev"], j["gskip"], j["gcond"], jw_in, jw_out, jb_in, dd=dils[i],
-        prev_dd=dils[i + 1], t_min=(off + vl) // TILE, valid_lo=off + vl,
+        prev_dd=prev_dd, t_min=(off + vl) // TILE, valid_lo=off + vl,
         cur_valid_lo=off + cur_vl, tile=TILE, interpret=True,
         y_saved=_jx(ys[i], off).astype(jnp.bfloat16) if saved else None)
     n_in = 2 * KW["n_res"]

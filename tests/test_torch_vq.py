@@ -24,9 +24,11 @@ from ae_wavenet_tpu_torch.ops import vq_cuda
 from ae_wavenet_tpu_torch.utils import config as tcfg
 
 
-# the shapes of tests/test_vq_pallas.py, and a ragged N below one tile
+# the shapes of tests/test_vq_pallas.py, a ragged N below one tile, and one
+# row and the serving request's 27 latents at the flagship K and D
 @pytest.mark.parametrize("n,k,d,tile", [(512, 128, 64, 256), (300, 128, 64, 256),
-                                        (37, 100, 24, 8)])
+                                        (37, 100, 24, 8), (1, 512, 64, 8),
+                                        (27, 512, 64, 8)])
 def test_reference_matches_pallas(n, k, d, tile):
     rng = np.random.default_rng(0)
     z = rng.normal(size=(n, d)).astype(np.float32)
