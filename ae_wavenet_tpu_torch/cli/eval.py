@@ -54,7 +54,7 @@ def main(argv=None) -> int:
     except FileNotFoundError as e:
         raise SystemExit(str(e))
     # through the chassis, so the eval step, the holdout split and the
-    # restore checks are the training ones (it refuses the MFCC inverter)
+    # restore checks are the training ones
     ch = ch_mod.Chassis(cfg, a.data, ckpt_dir=a.ckpt_dir, device=device,
                         log_stream=io.StringIO())
     step = ch.resume(step)
@@ -72,12 +72,13 @@ def main(argv=None) -> int:
         model = ch.model.eval()
         for ci in (int(x) for x in a.quality_clips.split(",") if x):
             qrec = clip_quality_record(
-                model, cfg, ch.dataset, ci, torch.Generator().manual_seed(a.seed),
-                n_samples=a.quality_samples, max_input=a.max_input, step=step,
-                device=device)
+                model, ch.cfg, ch.dataset, ci, torch.Generator().manual_seed(a.seed),
+                n_samples=a.quality_samples, max_input=a.max_input,
+                encode_fn=ch.family.encode, step=step, device=device)
             records.append(qrec)
             print(json.dumps(qrec), flush=True)
 
+    ch.close()
     if a.json:
         with open(a.json, "a") as f:
             for r in records:

@@ -1,4 +1,5 @@
-"""CLI: reconstruction from a checkpoint on the GPU (fast-queue path).
+"""CLI: reconstruction (the autoencoder) or vocoding (the MFCC inverter)
+from a checkpoint on the GPU (fast-queue path).
 
     python -m ae_wavenet_tpu_torch.cli.generate --ckpt MODEL.pt --data PREFIX \
         [--clip I] [--n-samples N] [--temperature T] [--int8 | --int4] \
@@ -21,7 +22,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--ckpt", required=True, help="export-format .pt file")
     p.add_argument("--data", required=True, help="packed dataset prefix")
-    p.add_argument("--clip", type=int, default=0, help="clip index to autoencode")
+    p.add_argument("--clip", type=int, default=0, help="clip index to reconstruct")
     p.add_argument("--n-samples", type=int, default=16000)
     p.add_argument("--max-input", type=int, default=64000,
                    help="cap on input samples fed to the encoder")
@@ -43,7 +44,7 @@ def main(argv=None) -> int:
 
     from ae_wavenet_tpu_torch.audio.mulaw import mu_decode
     from ae_wavenet_tpu_torch.data.dataset import PackedDataset
-    from ae_wavenet_tpu_torch.models import autoencoder
+    from ae_wavenet_tpu_torch.models import registry
     from ae_wavenet_tpu_torch.training.weights import load_export
     from ae_wavenet_tpu_torch.utils.wavio import write_wav
 
@@ -61,7 +62,8 @@ def main(argv=None) -> int:
     print(f"clip {a.clip}: {wav.shape[-1]} samples, speaker {int(spk[0])}")
 
     timings: dict = {}
-    ids, start = autoencoder.reconstruct(
+    # both model families have the same reconstruct()
+    ids, start = registry.get(cfg.model_kind).reconstruct(
         model, cfg, wav.to(device), spk.to(device),
         torch.Generator().manual_seed(a.seed), temperature=a.temperature,
         n_samples=a.n_samples, timings=timings,

@@ -11,10 +11,15 @@ only takes runtime overrides, so the architecture cannot drift.
 Checkpoints are export files ``DIR/step_XXXXXXXX.pt`` with ``LATEST`` and
 ``BEST`` pointers beside them; ``--ckpt-keep N`` keeps the newest N, the
 best-holdout one and the one ``LATEST`` names.  ``--profile-steps N
---profile-dir DIR`` traces the first N steps.  Flags of the reference left
-out until their modules are ported (ROADMAP.md): ``--mesh``,
+--profile-dir DIR`` traces the first N steps.  ``--tb-logdir DIR`` also
+writes every metric as a TensorBoard scalar (it needs the ``tensorboard``
+package and says so when it is missing).  ``--model mfcc_inverter`` trains
+the vocoder baseline (upsample strides (5, 4, 4, 2)); ``--frame-norm
+dataset`` computes the dataset's frame statistics once and keeps them in
+the config, so every checkpoint carries them.  Flags of the reference left
+out until their modules are ported (ROADMAP.md): ``--mesh`` and
 ``--distributed`` (and its ``--coordinator``/``--num-processes``/
-``--process-id``) and ``--tb-logdir``.
+``--process-id``).
 """
 
 from __future__ import annotations
@@ -57,6 +62,8 @@ def _add_runtime_flags(p):
                         "(requires --profile-dir)")
     p.add_argument("--profile-dir", default=None,
                    help="where the Chrome trace goes (trace.json)")
+    p.add_argument("--tb-logdir", default=None,
+                   help="also write the metrics as TensorBoard scalars here")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' fails when there is no card")
 
@@ -213,11 +220,11 @@ def main(argv=None) -> int:
         raise SystemExit("--device cuda: no CUDA device is available")
     ch = Chassis(cfg, a.data, ckpt_dir=a.ckpt_dir, device=device,
                  nan_checks=a.nan_checks, profile_dir=a.profile_dir,
-                 profile_steps=a.profile_steps)
+                 profile_steps=a.profile_steps, tb_logdir=a.tb_logdir)
     if a.mode == "resume":
         ch.resume(a.step)
         print(f"resumed at step {ch.step}")
-    print(config_mod.to_json(cfg))
+    print(config_mod.to_json(ch.cfg))  # with the dataset statistics, if computed
     ch.train(cfg.train.n_steps, eval_every=a.eval_every)
     if ch.profile_summary:
         print(json.dumps({"profile": ch.profile_summary}))

@@ -45,8 +45,8 @@ class WindowSampler:
     Clips shorter than the window are excluded; eligible clips are drawn
     in proportion to their number of valid window positions.  The batch
     at step s is a pure function of (seed, s) (``default_rng([seed, s])``),
-    so a resume needs no iterator state.  The gather is numpy (the
-    reference's C helper ``native/window_gather.c`` is not ported)."""
+    so a resume needs no iterator state.  The rows are gathered by the C
+    helper (``data/native.gather_windows``), as the reference's are."""
 
     def __init__(self, ds: PackedDataset, u_len: int, batch_sz: int,
                  seed: int = 0, clip_indices=None):
@@ -76,13 +76,16 @@ class WindowSampler:
         max_off = self.ds.lengths[rows] - self.u_len
         offs = self.ds.offsets[rows] + (
             rng.random(self.batch_sz) * (max_off + 1)).astype(np.int64)
-        wav = np.stack([self.ds.data[o : o + self.u_len] for o in offs]).astype(np.int16)
-        return wav, self.ds.speakers[rows]
+        from ae_wavenet_tpu_torch.data import native
+
+        return native.gather_windows(self.ds.data, offs, self.u_len), self.ds.speakers[rows]
 
 
 def write_packed(prefix: str, clips, speakers, speaker_names,
-                 sample_rate: int = 16000) -> dict:
-    """Write int16 ``clips`` (one array each) with their speaker indices."""
+                 sample_rate: int = 16000, extra: dict | None = None) -> dict:
+    """Write int16 ``clips`` (one array each, any iterable: each is written
+    as it comes) with their speaker indices; ``extra`` adds keys at the end
+    of the index."""
     index_clips, offset = [], 0
     with open(prefix + ".dat", "wb") as dat:
         for x, spk in zip(clips, speakers):
@@ -91,7 +94,7 @@ def write_packed(prefix: str, clips, speakers, speaker_names,
             index_clips.append({"offset": offset, "length": len(x), "speaker": int(spk)})
             offset += len(x)
     index = {"sample_rate": sample_rate, "n_speakers": len(speaker_names),
-             "speakers": list(speaker_names), "clips": index_clips}
+             "speakers": list(speaker_names), "clips": index_clips, **(extra or {})}
     with open(prefix + ".json", "w") as f:
         json.dump(index, f)
     return index

@@ -52,9 +52,9 @@ def _prime(model, cfg, wav_i16, spk, n_samples, encode_fn):
     """Encode and prime the queues (the temperature-invariant part, shared
     across a divergence sweep)."""
     if encode_fn is None:
-        from ae_wavenet_tpu_torch.models import autoencoder as ae
+        from ae_wavenet_tpu_torch.models import registry
 
-        encode_fn = ae.encode
+        encode_fn = registry.get(cfg.model_kind).encode
     return common.prime_for_generation(encode_fn, model, cfg, wav_i16, spk,
                                        n_samples)
 
@@ -190,4 +190,64 @@ def divergence_report(model, cfg: RunConfig, wav_i16: torch.Tensor,
         out["temperatures"][key] = {
             k: rep[k] for k in ("free_nll", "free_nll_early", "spectral_l2",
                                 "free_nll_curve") if k in rep}
+    return out
+
+
+#: the int8 gate of the reference (``tests_tpu/test_quality_tpu.py``):
+#: GATE_STEPS training steps, GATE_SAMPLES free-running samples, and
+#: d8 <= GATE_RATIO * d16 + GATE_SLACK
+GATE_STEPS, GATE_SAMPLES = 300, 16384
+GATE_RATIO, GATE_SLACK = 1.20, 0.15
+
+
+def quantized_quality_gate(workdir: str, device="cuda", on_trained=None) -> dict:
+    """The reference's int8 sampling-quality gate: train the flagship dims
+    (VQ, the fused stack, B = 4, n_win = 8,000, 4 steps a call, every 5th
+    clip held out) for GATE_STEPS steps on the reference's v2 fixture (6
+    clips, seed 2), then reconstruct GATE_SAMPLES free-running samples of
+    clip 0's first 40,000 samples at temperature 1 with the bf16, int8 and
+    int4 samplers, and score each by its log-mel distance to the source.
+    ``on_trained(chassis, history)`` runs between training and sampling.
+    -> {"d16", "d8", "d4", "silence", "passed" (d8 <= GATE_RATIO * d16 +
+    GATE_SLACK; int4 has no gate), "history", "n"}."""
+    import io
+    import os
+
+    from ae_wavenet_tpu_torch.data.dataset import PackedDataset
+    from ae_wavenet_tpu_torch.data.preprocess import make_synthetic_dataset
+    from ae_wavenet_tpu_torch.models import autoencoder as ae
+    from ae_wavenet_tpu_torch.training.chassis import Chassis
+    from ae_wavenet_tpu_torch.utils.config import (BottleneckConfig, TrainConfig,
+                                                   WaveNetConfig)
+
+    os.makedirs(workdir, exist_ok=True)
+    prefix = os.path.join(workdir, "gate")
+    make_synthetic_dataset(prefix, n_clips=6, n_speakers=4, seed=2,
+                           clip_len=(60000, 90000))
+    cfg = RunConfig(bottleneck=BottleneckConfig(kind="vq"),
+                    wavenet=WaveNetConfig(use_pallas_stack=True),
+                    train=TrainConfig(batch_sz=4, n_win=8000, steps_per_call=4,
+                                      log_every=100, holdout_every=5))
+    ch = Chassis(cfg, prefix, device=device, log_stream=io.StringIO())
+    history = ch.train(GATE_STEPS)
+    ch.close()
+    if on_trained is not None:
+        on_trained(ch, history)
+    ds = PackedDataset(prefix)
+    clip = 0  # holdout_every=5 holds out clips 0 and 5
+    wav = torch.from_numpy(ds.clip(clip, 40000))[None].to(ch.device)
+    spk = torch.from_numpy(ds.speakers[clip : clip + 1].astype(np.int64)).to(ch.device)
+    model = ch.model.eval()
+    out = {"history": history}
+    for key, quantized in (("d16", False), ("d8", "int8"), ("d4", "int4")):
+        ids, start = ae.reconstruct(model, ch.cfg, wav, spk,
+                                    torch.Generator().manual_seed(0), temperature=1.0,
+                                    n_samples=GATE_SAMPLES, quantized=quantized)
+        recon = mu_decode(ids, ch.cfg.wavenet.n_quant)
+        src = int16_to_float(wav)[..., start : start + recon.shape[-1]]
+        out[key] = log_mel_distance(recon, src, ch.cfg.spec)
+        out["n"] = int(recon.shape[-1])
+    out["silence"] = log_mel_distance(torch.zeros_like(src), src, ch.cfg.spec)
+    out["passed"] = bool(np.isfinite(out["d16"]) and np.isfinite(out["d8"])
+                         and out["d8"] <= GATE_RATIO * out["d16"] + GATE_SLACK)
     return out

@@ -20,7 +20,8 @@ from ae_wavenet_tpu_torch.geometry.vconv import Chain, Range
 from ae_wavenet_tpu_torch.audio import mfcc
 from ae_wavenet_tpu_torch.audio.mulaw import int16_to_float, mu_encode
 from ae_wavenet_tpu_torch.models import bottlenecks, common, encoder, wavenet
-from ae_wavenet_tpu_torch.models.common import (WindowSpec, btq_layout, mu_ce,
+from ae_wavenet_tpu_torch.models.common import (WindowSpec, btq_layout,
+                                                 compute_dtype, mu_ce,
                                                  normalize_frames)
 from ae_wavenet_tpu_torch.utils import device as device_mod
 from ae_wavenet_tpu_torch.utils.config import RunConfig
@@ -101,10 +102,6 @@ def reconstruct(model: AutoEncoder, cfg: RunConfig, wav_i16: torch.Tensor,
     sample.  Returns (ids [B, n], start); see models/common.reconstruct."""
     return common.reconstruct(encode, model, cfg, wav_i16, spk, generator,
                               temperature, n_samples, timings, quantized)
-
-
-def compute_dtype(cfg: RunConfig) -> torch.dtype:
-    return torch.bfloat16 if cfg.train.compute_dtype == "bfloat16" else torch.float32
 
 
 def forward(model: AutoEncoder, cfg: RunConfig, spec: WindowSpec,

@@ -48,6 +48,10 @@ def btq_layout(cfg: RunConfig) -> bool:
             and cfg.train.compute_dtype == "bfloat16")
 
 
+def compute_dtype(cfg: RunConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.train.compute_dtype == "bfloat16" else torch.float32
+
+
 def mu_ce(logits: torch.Tensor, targets: torch.Tensor,
           btq: bool = False) -> torch.Tensor:
     """Mean mu-law cross-entropy in f32.  btq: logits [B, T, Q]

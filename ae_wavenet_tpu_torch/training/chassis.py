@@ -19,15 +19,19 @@ Counterpart of ``ae_wavenet_tpu.training.chassis``:
 
 Checkpoints are export files (``training/weights.py``) named
 ``step_XXXXXXXX.pt`` in the checkpoint directory, written and pruned by
-``training/checkpoint.py``.  It runs on the card unless the caller passes
+``training/checkpoint.py``.  The model family (init, loss, window spec)
+comes from ``models/registry`` by ``cfg.model_kind``.  With
+``spec.norm="dataset"`` and no stored statistics, the dataset's frame
+statistics are computed once and baked into the config, so every
+checkpoint carries them.  It runs on the card unless the caller passes
 ``device="cpu"``.  Not ported yet (ROADMAP.md): data parallelism
-(``mesh``), ``spec.norm="dataset"`` without stored statistics, the MFCC
-inverter and TensorBoard.
+(``mesh``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import signal
 import sys
 import threading
@@ -38,7 +42,8 @@ import torch
 
 from ae_wavenet_tpu_torch.data.dataset import PackedDataset, WindowSampler
 from ae_wavenet_tpu_torch.data.loader import device_batches
-from ae_wavenet_tpu_torch.models import autoencoder as ae
+from ae_wavenet_tpu_torch.data.preprocess import dataset_frame_stats
+from ae_wavenet_tpu_torch.models import registry
 from ae_wavenet_tpu_torch.training import checkpoint as ckpt_mod
 from ae_wavenet_tpu_torch.training import weights
 from ae_wavenet_tpu_torch.utils import device as device_mod
@@ -154,7 +159,8 @@ def train_step(model, opt: Adam, cfg: RunConfig, spec, wav, spk, step: int,
     gen = step_generator(cfg.train.seed, step, wav.device)
     for p in opt.params.values():
         p.grad = None
-    total, metrics = ae.loss_fn(model, cfg, spec, wav, spk, step, True, gen)
+    total, metrics = registry.get(cfg.model_kind).loss_fn(model, cfg, spec, wav, spk,
+                                                          step, True, gen)
     total.backward()
     metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["grad_norm"] = opt.step({k: p.grad for k, p in opt.params.items()})
@@ -174,30 +180,27 @@ class Chassis:
     def __init__(self, cfg: RunConfig, data_prefix: str, ckpt_dir: str | None = None,
                  device="cuda", log_stream=None, nan_checks: bool = False,
                  mesh=None, profile_dir: str | None = None,
-                 profile_steps: int = 0):
+                 profile_steps: int = 0, tb_logdir: str | None = None):
         if mesh is not None:
             raise NotImplementedError(
                 "data parallelism is not ported yet (ROADMAP.md, modules: data "
                 "parallel)")
-        if cfg.model_kind != "autoencoder":
-            raise NotImplementedError(
-                f"model_kind={cfg.model_kind!r}: the MFCC inverter is not ported "
-                "yet (ROADMAP.md, modules: MFCC inverter)")
+        self.family = registry.get(cfg.model_kind)
         if cfg.spec.norm == "dataset" and not cfg.spec.stats_mean:
-            raise NotImplementedError(
-                'spec.norm="dataset" needs the dataset frame statistics, whose '
-                "computation (data/preprocess.dataset_frame_stats) is not ported "
-                "yet (ROADMAP.md, modules: CLI and utilities)")
+            mean, var = dataset_frame_stats(data_prefix, cfg.spec)
+            cfg = dataclasses.replace(cfg, spec=dataclasses.replace(
+                cfg.spec, stats_mean=mean, stats_var=var))
         self.cfg = cfg
         self.ckpt_dir = ckpt_dir
         self.device = device_mod.resolve(device)
-        self.logger = MetricsLogger(log_stream if log_stream is not None else sys.stdout)
+        self.logger = MetricsLogger(log_stream if log_stream is not None else sys.stdout,
+                                    tb_logdir=tb_logdir)
         self.nan_checks = nan_checks
         self.profile_dir = profile_dir
         self.profile_steps = profile_steps if profile_dir else 0
         self.profile_summary: dict = {}
         self.preempted = False
-        self.spec = ae.make_window_spec(cfg)
+        self.spec = self.family.make_window_spec(cfg)
         self.dataset = PackedDataset(data_prefix)
         if self.dataset.n_speakers > cfg.wavenet.n_speakers:
             raise ValueError(
@@ -225,8 +228,8 @@ class Chassis:
                 sys.stderr.write(f"warning: holdout split unusable ({e}); "
                                  "evaluate() falls back to the training clips\n")
         self.k_steps = max(1, cfg.train.steps_per_call)
-        self.model = ae.init(cfg, torch.Generator().manual_seed(cfg.train.seed + 1),
-                             self.device)
+        self.model = self.family.init(
+            cfg, torch.Generator().manual_seed(cfg.train.seed + 1), self.device)
         self.opt = Adam(self.model.named_parameters(), cfg.train)
         self.step = 0
         self.stats: dict = {}
@@ -262,7 +265,10 @@ class Chassis:
         if self._saver is not None:
             self._saver.wait()
 
-    close = wait_for_saves
+    def close(self) -> None:
+        """Wait for the saves and close the TensorBoard writer, if any."""
+        self.wait_for_saves()
+        self.logger.close()
 
     def resume(self, step: int | None = None) -> int:
         got, named, _cfg = ckpt_mod.load(self.ckpt_dir, step)
@@ -284,10 +290,10 @@ class Chassis:
         for i in range(n_batches):
             wav, spk = sampler.batch_at(stream_offset + self.step + i)
             gen = step_generator(self.cfg.train.seed + 2, self.step, self.device)
-            _, m = ae.loss_fn(self.model, self.cfg, self.spec,
-                              torch.from_numpy(wav).to(self.device),
-                              torch.from_numpy(spk.astype(np.int64)).to(self.device),
-                              self.step, False, gen)
+            _, m = self.family.loss_fn(
+                self.model, self.cfg, self.spec, torch.from_numpy(wav).to(self.device),
+                torch.from_numpy(spk.astype(np.int64)).to(self.device), self.step,
+                False, gen)
             for k, v in fetch(m).items():
                 totals[k] = totals.get(k, 0.0) + v / n_batches
         totals["split"] = "holdout" if self.eval_sampler is not None else "train"

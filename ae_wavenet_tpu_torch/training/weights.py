@@ -4,7 +4,8 @@ The reference names every tensor by its pytree path
 (``ae_wavenet_tpu.training.torch_compat.flatten_named``):
 ``params.wavenet.layers.3.w_cond.w``, ``bn_state.codebook``, ...  The
 port's ``state_dict`` keys are the same names with ``params.`` dropped and
-``bn_state.`` replaced by ``bottleneck.``.  Checkpoints use the reference's
+``bn_state.`` replaced by ``bottleneck.`` (the MFCC inverter has
+``params.wavenet.*`` only).  Checkpoints use the reference's
 ``export_torch`` payload ``{"step", "run_config_json", "state"}``, so a
 JAX checkpoint exported with ``export_torch`` serves (and, with its
 ``opt_state.*`` tensors, resumes training) here, and a file saved here
@@ -19,8 +20,9 @@ import os
 
 import numpy as np
 import torch
+from torch import nn
 
-from ae_wavenet_tpu_torch.models.autoencoder import AutoEncoder
+from ae_wavenet_tpu_torch.models import registry
 from ae_wavenet_tpu_torch.utils import config as config_mod
 
 
@@ -60,7 +62,7 @@ def check_merge(ref: dict, new: dict, what: str) -> None:
                 f"since the save")
 
 
-def load_into(model: AutoEncoder, named: dict) -> AutoEncoder:
+def load_into(model: nn.Module, named: dict) -> nn.Module:
     """Copy {reference dotted name: array} into ``model``: exactly the
     model's tensors, each with its shape (:func:`check_merge`;
     ``opt_state.*`` is ignored)."""
@@ -73,9 +75,10 @@ def load_into(model: AutoEncoder, named: dict) -> AutoEncoder:
     return model
 
 
-def from_named(named: dict, cfg: config_mod.RunConfig) -> AutoEncoder:
-    """{reference dotted name: array} -> AutoEncoder holding those values."""
-    return load_into(AutoEncoder(cfg), named)
+def from_named(named: dict, cfg: config_mod.RunConfig) -> nn.Module:
+    """{reference dotted name: array} -> the model of ``cfg.model_kind``
+    (on the CPU) holding those values."""
+    return load_into(registry.get(cfg.model_kind).init(cfg, device="cpu"), named)
 
 
 def load_named(path: str):
@@ -86,16 +89,13 @@ def load_named(path: str):
 
 
 def load_export(path: str):
-    """-> (step, AutoEncoder on the CPU, RunConfig) from an export file."""
+    """-> (step, model on the CPU, RunConfig) from an export file; the
+    model is the family the file's config names."""
     step, named, cfg = load_named(path)
-    if cfg.model_kind != "autoencoder":
-        raise NotImplementedError(
-            f"model_kind={cfg.model_kind!r}: the port serves the autoencoder "
-            "only (the MFCC inverter is a later slice, ROADMAP.md)")
     return step, from_named({k: v.numpy() for k, v in named.items()}, cfg), cfg
 
 
-def export_state(model: AutoEncoder, extra: dict | None = None) -> dict:
+def export_state(model: nn.Module, extra: dict | None = None) -> dict:
     """{reference dotted name: CPU tensor}: a host snapshot (copies, so a
     later step does not write into it) of the model and of ``extra``'s
     named tensors (the optimizer state)."""
@@ -121,7 +121,7 @@ def write_export(path: str, state: dict, cfg: config_mod.RunConfig,
     os.replace(tmp, path)
 
 
-def save_export(path: str, model: AutoEncoder, cfg: config_mod.RunConfig,
+def save_export(path: str, model: nn.Module, cfg: config_mod.RunConfig,
                 step: int, extra: dict | None = None) -> None:
     """Write the export payload; ``extra`` adds named tensors (the
     optimizer state)."""

@@ -86,7 +86,23 @@ power limit:
    whole-stack schedule's step beside the pairs step of the same run, and
    the step's time split from CUDA events around its parts in 3 steps of
    one ``Chassis`` run, for the main and the whole-stack path;
-8. eval: ``cli/eval.py --quality`` on the checkpoint that run wrote.
+8. eval: ``cli/eval.py --quality`` on the checkpoint that run wrote;
+9. inverter: ``python -m ae_wavenet_tpu_torch.cli.preprocess --synthetic``
+   writes the reference's v2 fixture (8 clips); the train CLI runs ``new
+   --preset chorowski --model mfcc_inverter --pallas-stack --frame-norm
+   dataset`` at B = 4, n_win = 48,000 for 4 steps and ``resume`` for 2 (10
+   pair forwards and 10 pair backwards a step, no other kernel; the
+   dataset statistics in the checkpoint's config; median step, samples/s,
+   peak memory and MFU from ``utils/flops.py``); then the generate CLI
+   vocodes 4,000 samples of one clip in bf16, ``--int8`` and ``--int4``,
+   one sampler launch each, and ``cli/eval.py --quality`` scores the
+   checkpoint;
+10. gate: the reference's int8 quality gate
+   (``eval/quality.quantized_quality_gate``): 300 training steps of the
+   flagship dims (VQ, fused stack, B = 4, n_win = 8,000) on its v2 fixture,
+   16,384 free-running samples of a held-out clip in bf16, int8 and int4,
+   log-mel distances to the source; d8 <= 1.20 d16 + 0.15 or the smoke
+   fails.  Phase 7 also prints the main path's MFU.
 
 ``python3 chip_smoke.py --kernel-times`` builds the kernels and only times
 the VQ lookup (phase 4's numbers) and the single-layer backward's recompute
@@ -94,8 +110,9 @@ mode (phase 6's), with no checks: run from an unpacked older commit with
 this file beside it, it times that commit's kernels in the same call.
 
 Then one JSON line describing the ten kernels (each with its launches on
-its path, its error against the plain version, its time beside the plain
-version's and the card's bound for the same work; the single-layer
+its paths, phases 9 and 10 included, its error against the plain version,
+its time beside the plain version's and the card's bound for the same
+work; the single-layer
 backward's row carries its recompute mode's numbers beside it), and as the
 last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
@@ -147,6 +164,7 @@ VQ_SUM_REL_TOL = 1e-4   # f32 sums of up to N rows taken in another order
 VQ_TIE_REL_GAP = 1e-5   # a differing code must be this near a tie
 VQ_TRAIN_STEPS = 3
 EVAL_SAMPLES, EVAL_BATCHES = 1000, 2
+INV_CLIPS = 8           # phase 9: the reference's v2 fixture, from the CLI
 # NVIDIA H100 SXM data sheet: dense peaks and the memory rate
 PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
@@ -1391,6 +1409,23 @@ def _print_split(cfg, data: str, dev, label: str, card: str) -> None:
           f"{s['optimizer']:.1f} | {card}")
 
 
+def mfu_text(cfg, spec, step_s: float) -> str:
+    """The step's model FLOP utilization at TRAIN_B (``utils/flops.py``: the
+    analytic count of the step's products over the card's bf16 peak)."""
+    import torch
+
+    from ae_wavenet_tpu_torch.utils import flops
+
+    work = TRAIN_B * flops.train_step_flops_per_item(cfg, spec)
+    peak = flops.peak_bf16_flops(torch.cuda.get_device_name(0))
+    share = "not known (no peak for this card)" if peak is None else \
+        f"{work / step_s / peak:.2%}"
+    peak_txt = "?" if peak is None else f"{peak / 1e12:.0f}"
+    return (f"MFU {share}: {work / 1e12:.3f} TFLOP a step (utils/flops.py) in "
+            f"{step_s * 1e3:.1f} ms = {work / step_s / 1e12:.1f} TFLOP/s over the "
+            f"{peak_txt} TFLOP/s bf16 peak")
+
+
 def phase_train(card: str, dev, tmp: str) -> dict:
     from ae_wavenet_tpu_torch.data.dataset import make_synthetic_dataset
     from ae_wavenet_tpu_torch.models import autoencoder as ae
@@ -1441,6 +1476,8 @@ def phase_train(card: str, dev, tmp: str) -> dict:
     print(f"[train] main path (pairs): median step {step_s * 1e3:.1f} ms -> "
           f"{TRAIN_B * TRAIN_WIN / step_s:.0f} samples/s (B={TRAIN_B}, n_win="
           f"{TRAIN_WIN}); peak memory {peak:.2f} GiB | {card}")
+    print(f"[train] main path (pairs): "
+          f"{mfu_text(cfg, ae.make_window_spec(cfg, TRAIN_WIN), step_s)} | {card}")
 
     # the single-layer path (--no-gated-fuse-pairs --no-gated-save-y): K1b
     # forward, K2b's recompute mode backward; the same first step
@@ -1640,6 +1677,230 @@ def phase_eval(card: str, data: str, ckpt_dir: str) -> dict:
     return {"launches": n_vq}
 
 
+def _zero_counts() -> None:
+    """Every launch counter (kernels and plain versions) to 0."""
+    from ae_wavenet_tpu_torch.ops import fastgen_cuda as fc
+    from ae_wavenet_tpu_torch.ops import gated, gated_cuda as gc
+    from ae_wavenet_tpu_torch.ops import vq_cuda as vq
+
+    for f in ([getattr(gc, n) for n in GATED]
+              + [getattr(gated, n + "_reference") for n in GATED]
+              + [vq.vq_lookup_fused, vq.vq_lookup_reference,
+                 fc.generate_fused_reference]):
+        f.launches = 0
+    gc.gated_layer_bwd.launches_recompute = 0
+    for name in ("launches", "launches_int8", "launches_int4"):
+        setattr(fc.generate_fused, name, 0)
+
+
+def _counts() -> dict:
+    """Every kernel's launches since _zero_counts, and the plain versions'
+    ("plain", all together)."""
+    from ae_wavenet_tpu_torch.ops import fastgen_cuda as fc
+    from ae_wavenet_tpu_torch.ops import gated, gated_cuda as gc
+    from ae_wavenet_tpu_torch.ops import vq_cuda as vq
+
+    got = {n: getattr(gc, n).launches for n in GATED}
+    got.update(gated_layer_bwd_recompute=gc.gated_layer_bwd.launches_recompute,
+               vq_lookup_fused=vq.vq_lookup_fused.launches,
+               bf16=fc.generate_fused.launches, int8=fc.generate_fused.launches_int8,
+               int4=fc.generate_fused.launches_int4)
+    got["plain"] = (sum(getattr(gated, n + "_reference").launches for n in GATED)
+                    + vq.vq_lookup_reference.launches
+                    + fc.generate_fused_reference.launches)
+    return got
+
+
+def _expect(**kw) -> dict:
+    """_counts() of a run that launched only the kernels given."""
+    return {**dict.fromkeys(GATED, 0), "gated_layer_bwd_recompute": 0,
+            "vq_lookup_fused": 0, "bf16": 0, "int8": 0, "int4": 0, "plain": 0, **kw}
+
+
+def phase_inverter(card: str, dev, tmp: str) -> dict:
+    """The MFCC inverter at the ``chorowski`` width, as a user runs it: the
+    preprocess CLI writes the reference's v2 fixture; the train CLI trains
+    ``--model mfcc_inverter --frame-norm dataset`` (new, then resume) on
+    the pair kernels; the generate CLI vocodes one clip with each sampler.
+    Launch counters at 0 before each run and checked exactly after it."""
+    import torch
+
+    from ae_wavenet_tpu_torch.cli import generate as gen_cli
+    from ae_wavenet_tpu_torch.data.preprocess import dataset_frame_stats
+    from ae_wavenet_tpu_torch.models import mfcc_inverter as mi
+    from ae_wavenet_tpu_torch.ops import gated
+    from ae_wavenet_tpu_torch.training import checkpoint as ckpt_mod
+    from ae_wavenet_tpu_torch.utils.config import chorowski_config
+    from ae_wavenet_tpu_torch.utils.wavio import read_wav
+
+    data, ckpt = os.path.join(tmp, "inv"), os.path.join(tmp, "ckpt_inv")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "ae_wavenet_tpu_torch.cli.preprocess",
+                        "--synthetic", data, "--n-clips", str(INV_CLIPS)],
+                       capture_output=True, text=True, timeout=300,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(r.returncode == 0, f"preprocess CLI returned {r.returncode}: {r.stderr}")
+    print(f"[inverter] {r.stdout.strip()} in {time.perf_counter() - t0:.1f} s | {card}")
+
+    n_pairs = len(gated.stack_dils(chorowski_config().wavenet)) // 2
+    shape = ["--preset", "chorowski", "--model", "mfcc_inverter", "--pallas-stack",
+             "--frame-norm", "dataset", "--batch-sz", str(TRAIN_B), "--n-win",
+             str(TRAIN_WIN), "--data", data, "--log-every", "1"]
+    expect = {"gated_pair_fused": n_pairs * TRAIN_STEPS,
+              "gated_pair_bwd": n_pairs * TRAIN_STEPS}
+    t0 = time.perf_counter()
+    new, n_new, peak_new, _ = _path_run(
+        ["new", *shape, "--n-steps", str(TRAIN_STEPS), "--ckpt-dir", ckpt], expect,
+        card, "inverter, new")
+    expect = {"gated_pair_fused": n_pairs * RESUME_STEPS,
+              "gated_pair_bwd": n_pairs * RESUME_STEPS}
+    res, n_res, peak_res, _ = _path_run(
+        ["resume", "--n-steps", str(RESUME_STEPS), "--data", data, "--log-every", "1",
+         "--ckpt-dir", ckpt], expect, card, "inverter, resume")
+    wall = time.perf_counter() - t0
+    last = TRAIN_STEPS + RESUME_STEPS
+    check([r["step"] for r in new + res] == list(range(1, last + 1)),
+          f"inverter runs logged steps {[r['step'] for r in new + res]}")
+    check(math.isfinite(new[0]["loss"]), f"inverter first-step loss {new[0]['loss']}")
+    check(set(new[0]) >= {"loss", "recon_ce"} and "perplexity" not in new[0],
+          f"inverter metrics {sorted(new[0])}")
+    ce = [r["recon_ce"] for r in new + res]
+    check(ce[-1] < ce[0], f"inverter recon_ce did not fall: {ce}")
+    cfg = ckpt_mod.load_config(ckpt, last)[1]
+    stats = dataset_frame_stats(data, cfg.spec)
+    check(cfg.model_kind == "mfcc_inverter" and cfg.spec.norm == "dataset"
+          and (cfg.spec.stats_mean, cfg.spec.stats_var) == stats
+          and len(stats[0]) == 3 * cfg.spec.n_mfcc,
+          "the inverter's checkpoint does not carry the dataset statistics")
+    check(cfg.wavenet.lc_upsample_strides == (5, 4, 4, 2),
+          f"inverter strides {cfg.wavenet.lc_upsample_strides}")
+    step_s = _median_step(new + res[1:])
+    peak = max(peak_new, peak_res)
+    print(f"[inverter] train CLI new {TRAIN_STEPS} + resume {RESUME_STEPS} steps in "
+          f"{wall:.1f} s (--frame-norm dataset: {len(stats[0])} channel statistics in "
+          f"the checkpoint's config); recon_ce {' '.join(f'{v:.4f}' for v in ce)}; "
+          f"first-step loss {new[0]['loss']:.6f} | {card}")
+    print(f"[inverter] median step {step_s * 1e3:.1f} ms -> "
+          f"{TRAIN_B * TRAIN_WIN / step_s:.0f} samples/s (B={TRAIN_B}, n_win="
+          f"{TRAIN_WIN}); peak memory {peak:.2f} GiB; "
+          f"{mfu_text(cfg, mi.make_window_spec(cfg, TRAIN_WIN), step_s)} | {card}")
+
+    out = os.path.join(tmp, "inv.wav")
+    launches = {"gated_pair_fused": n_new["gated_pair_fused"] + n_res["gated_pair_fused"],
+                "gated_pair_bwd": n_new["gated_pair_bwd"] + n_res["gated_pair_bwd"]}
+    for mode in ("bf16", "int8", "int4"):
+        flags = [] if mode == "bf16" else ["--" + mode]
+        _zero_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = gen_cli.main(["--ckpt", ckpt_mod.checkpoint_path(ckpt, last), "--data",
+                               data, "--clip", "0", "--n-samples", str(CLI_SAMPLES),
+                               "--temperature", "1.0", *flags, "--out", out])
+        torch.cuda.synchronize()
+        got, text = _counts(), buf.getvalue()
+        check(rc == 0, f"generate CLI on the inverter returned {rc}")
+        check(got == _expect(**{mode: 1}), f"inverter {mode}: launches {got}")
+        check("(mfcc_inverter," in text, f"generate CLI loaded another model:\n{text}")
+        wav, sr = read_wav(out)
+        check(len(wav) == CLI_SAMPLES and sr == cfg.spec.sample_rate, "wrong wav written")
+        check(len(set(wav.tolist())) > 16, "the vocoded wav is (nearly) constant")
+        m = re.search(r"encode ([\d.]+) s, prime ([\d.]+) s, generate ([\d.]+) s", text)
+        check(m is not None, f"CLI printed no timings:\n{text}")
+        enc, pr, gen_s = map(float, m.groups())
+        print(f"[inverter] generate CLI B=1 {' '.join(flags) or 'bf16'}: {CLI_SAMPLES} "
+              f"samples, encode {enc:.3f} s, prime {pr:.3f} s, generate {gen_s:.3f} s "
+              f"-> {CLI_SAMPLES / gen_s:.0f} samples/s; launches {mode} {got[mode]}, "
+              f"plain {got['plain']} | {card}")
+        launches[mode] = got[mode]
+
+    # the eval CLI on the same checkpoint (at its default --device): the
+    # eval batches' forwards on the pair kernel, the rollout in eager f32
+    from ae_wavenet_tpu_torch.cli import eval as eval_cli
+    from ae_wavenet_tpu_torch.eval.quality import QUALITY_KEYS
+
+    _zero_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = eval_cli.main(["--ckpt-dir", ckpt, "--data", data, "--n-batches",
+                            str(EVAL_BATCHES), "--quality", "--quality-samples",
+                            str(EVAL_SAMPLES)])
+    torch.cuda.synchronize()
+    secs, got = time.perf_counter() - t0, _counts()
+    check(rc == 0, f"eval CLI on the inverter returned {rc}")
+    recs = [json.loads(ln) for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+    check(len(recs) == 2, f"eval CLI printed {len(recs)} records")
+    ev, q = recs
+    check(ev["step"] == last and "eval_recon_ce" in ev and "eval_perplexity" not in ev,
+          f"inverter eval record {ev}")
+    check(all(k in q for k in QUALITY_KEYS) and q["n_scored"] == EVAL_SAMPLES
+          and all(math.isfinite(v) for r in recs for v in r.values()
+                  if isinstance(v, float)), f"inverter quality record {q}")
+    check(got == _expect(gated_pair_fused=n_pairs * EVAL_BATCHES),
+          f"inverter eval: launches {got}")
+    print(f"[inverter] cli/eval.py --quality: {json.dumps(ev)}; {json.dumps(q)}; "
+          f"{secs:.1f} s, pair forward launches {got['gated_pair_fused']} | {card}")
+    launches["gated_pair_fused"] += got["gated_pair_fused"]
+    return {"launches": launches}
+
+
+def phase_gate(card: str, dev, tmp: str) -> dict:
+    """The reference's int8 quality gate (``eval/quality.quantized_quality_
+    gate``: 300 steps of the flagship dims on its v2 fixture, then 16,384
+    free-running samples in bf16, int8 and int4): the training on the pair
+    kernels only, one sampler launch per reconstruction, no plain version,
+    and d8 <= 1.20 d16 + 0.15."""
+    import torch
+
+    from ae_wavenet_tpu_torch.eval import quality
+    from ae_wavenet_tpu_torch.ops import gated
+    from ae_wavenet_tpu_torch.utils.config import WaveNetConfig
+
+    n_pairs = len(gated.stack_dils(WaveNetConfig())) // 2
+    seen: dict = {}
+
+    def on_trained(ch, history):
+        torch.cuda.synchronize()
+        seen["train"], seen["train_s"] = _counts(), time.perf_counter() - t0
+        seen["history"] = history
+        _zero_counts()
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    r = quality.quantized_quality_gate(os.path.join(tmp, "gate"), dev,
+                                       on_trained=on_trained)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    sampled = _counts()
+    want = _expect(gated_pair_fused=n_pairs * quality.GATE_STEPS,
+                   gated_pair_bwd=n_pairs * quality.GATE_STEPS)
+    check(seen["train"] == want, f"gate training: launches {seen['train']}, "
+          f"expected {want}")
+    check(sampled == _expect(bf16=1, int8=1, int4=1), f"gate sampling: launches "
+          f"{sampled}")
+    dists = {k: r[k] for k in ("d16", "d8", "d4", "silence")}
+    check(r["n"] == quality.GATE_SAMPLES
+          and all(math.isfinite(v) for v in dists.values()),
+          f"gate: {r['n']} samples, distances {dists}")
+    hist = seen["history"]
+    ce = " ".join(f"{h['recon_ce']:.4f}" for h in hist)
+    print(f"[gate] {quality.GATE_STEPS} training steps (flagship dims, B=4, "
+          f"n_win=8000, 4 a call) in {seen['train_s']:.1f} s: recon_ce {ce} at steps "
+          f"{[h['step'] for h in hist]}, {hist[-1]['samples_per_sec']:.0f} samples/s "
+          f"at the last log | {card}")
+    bound = quality.GATE_RATIO * r["d16"] + quality.GATE_SLACK
+    verdict = "pass" if r["passed"] else "FAIL"
+    print(f"[gate] log-mel distance to the source over {r['n']} free-running samples: "
+          f"bf16 d16 {r['d16']:.4f}, int8 d8 {r['d8']:.4f} (gate d8 <= "
+          f"{quality.GATE_RATIO} x d16 + {quality.GATE_SLACK} = {bound:.4f}: "
+          f"{verdict}), int4 {r['d4']:.4f} (no gate), silence {r['silence']:.4f}; phase "
+          f"{secs:.1f} s | {card}")
+    check(r["passed"], f"int8 quality gate: d8 {r['d8']} > {bound} (d16 {r['d16']})")
+    launches = {n: seen["train"][n] for n in ("gated_pair_fused", "gated_pair_bwd")}
+    launches.update({m: sampled[m] for m in ("bf16", "int8", "int4")})
+    return {"launches": launches, **dists}
+
+
 def kernel_times(card: str, dev) -> None:
     """``--kernel-times``: the VQ lookup's times (``vq_times``) at phase 4's
     latents, the single-layer backward's recompute mode at the training
@@ -1742,6 +2003,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         t = phase_train(card, dev, tmp)
         e = phase_eval(card, t["data"], t["ckpt_vq"])
+    with tempfile.TemporaryDirectory() as tmp:
+        inv = phase_inverter(card, dev, tmp)
+        gate = phase_gate(card, dev, tmp)
+
+    def extra(name: str) -> int:
+        """Phases 9 and 10's launches of one kernel."""
+        return inv["launches"].get(name, 0) + gate["launches"].get(name, 0)
+
     fastgen = "ae_wavenet_tpu_torch/csrc/fastgen.cu"
     replaces = {"bf16": "ae_wavenet_tpu/ops/fastgen_pallas.py:612",
                 "int8": "ae_wavenet_tpu/ops/fastgen_pallas.py:501",
@@ -1750,7 +2019,7 @@ def main() -> int:
     # CLI request that their launches are counted on; by_batch has the rest
     kernels = [{
         "name": "fastgen_" + mode, "route": "cuda", "source": fastgen,
-        "replaces": replaces[mode], "launches": s["launches"][mode],
+        "replaces": replaces[mode], "launches": s["launches"][mode] + extra(mode),
         "max_abs_err": k[mode]["max_abs_err"], **k[mode]["by_batch"][1],
         "library_ms": None, "batch": 1, "per": "generated step",
         "by_batch": k[mode]["by_batch"]} for mode in ("bf16", "int8", "int4")]
@@ -1763,7 +2032,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": "ae_wavenet_tpu_torch/csrc/gated.cu", "replaces": replaced,
-            **gated_row(name, t["launches"][name]),
+            **gated_row(name, t["launches"][name] + extra(name)),
             **({"yardstick_ms": g["yardsticks"][name]} if name in g["yardsticks"] else {})})
     # K2b's two modes are two kernels behind one wrapper: the row above is
     # the saved-y mode's time; the recompute mode's (the single-layer path's

@@ -55,6 +55,11 @@ def test_port_imports_no_jax():
             "ae_wavenet_tpu_torch.training.checkpoint, "
             "ae_wavenet_tpu_torch.utils.profiling, ae_wavenet_tpu_torch.utils.device, "
             "ae_wavenet_tpu_torch.data.dataset, ae_wavenet_tpu_torch.utils.wavio, "
+            "ae_wavenet_tpu_torch.models.mfcc_inverter, "
+            "ae_wavenet_tpu_torch.models.registry, "
+            "ae_wavenet_tpu_torch.data.preprocess, ae_wavenet_tpu_torch.data.native, "
+            "ae_wavenet_tpu_torch.cli.preprocess, ae_wavenet_tpu_torch.utils.flops, "
+            "ae_wavenet_tpu_torch.utils.logging, "
             "chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'ae_wavenet_tpu')]; "
             "assert not bad, bad")
