@@ -1,12 +1,15 @@
 """CLI: reconstruction (the autoencoder) or vocoding (the MFCC inverter)
 from a checkpoint on the GPU (fast-queue path).
 
-    python -m ae_wavenet_tpu_torch.cli.generate --ckpt MODEL.pt --data PREFIX \
-        [--clip I] [--n-samples N] [--temperature T] [--int8 | --int4] \
-        [--device cuda] --out out.wav
+    python -m ae_wavenet_tpu_torch.cli.generate (--ckpt-dir DIR [--step N] | \
+        --ckpt MODEL.pt) --data PREFIX [--clip I] [--n-samples N] \
+        [--temperature T] [--int8 | --int4] [--device cuda] --out out.wav
 
-``--ckpt`` is an export file: ``training/weights.save_export`` writes one,
-and ``ae_wavenet_tpu.training.torch_compat.export_torch`` converts a JAX
+``--ckpt-dir`` is a training run's checkpoint directory: the step
+``LATEST`` names, or ``--step``.  ``--ckpt`` is one export file:
+``training/weights.save_export`` writes one, the train CLI writes one per
+saved step (``DIR/step_XXXXXXXX.pt``), and
+``ae_wavenet_tpu.training.torch_compat.export_torch`` converts a JAX
 checkpoint to one.
 """
 
@@ -20,7 +23,11 @@ def main(argv=None) -> int:
 
     set_reference_precision()
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--ckpt", required=True, help="export-format .pt file")
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--ckpt-dir", help="checkpoint directory (LATEST, or --step)")
+    src.add_argument("--ckpt", help="export-format .pt file")
+    p.add_argument("--step", type=int, default=None,
+                   help="with --ckpt-dir: the checkpoint step (default LATEST)")
     p.add_argument("--data", required=True, help="packed dataset prefix")
     p.add_argument("--clip", type=int, default=0, help="clip index to reconstruct")
     p.add_argument("--n-samples", type=int, default=16000)
@@ -32,12 +39,17 @@ def main(argv=None) -> int:
                    help="sample with int8 layer weights and int8 activations")
     p.add_argument("--int4", action="store_true",
                    help="sample with nibble-packed int4 layer weights (int8 "
-                        "activations); takes precedence over --int8")
+                        "activations); takes precedence over --int8.  Check "
+                        "a checkpoint's bf16, int8 and int4 reconstructions "
+                        "with python -m "
+                        "ae_wavenet_tpu_torch.scripts.quality_quantized")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' fails when there is no card")
     p.add_argument("--out", required=True, help="output .wav path")
     a = p.parse_args(argv)
+    if a.step is not None and a.ckpt_dir is None:
+        p.error("--step needs --ckpt-dir")
 
     import numpy as np
     import torch
@@ -45,6 +57,7 @@ def main(argv=None) -> int:
     from ae_wavenet_tpu_torch.audio.mulaw import mu_decode
     from ae_wavenet_tpu_torch.data.dataset import PackedDataset
     from ae_wavenet_tpu_torch.models import registry
+    from ae_wavenet_tpu_torch.training import checkpoint
     from ae_wavenet_tpu_torch.training.weights import load_export
     from ae_wavenet_tpu_torch.utils.wavio import write_wav
 
@@ -52,7 +65,10 @@ def main(argv=None) -> int:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
 
-    step, model, cfg = load_export(a.ckpt)
+    if a.ckpt_dir is not None:
+        step, model, cfg = checkpoint.load_model(a.ckpt_dir, a.step)
+    else:
+        step, model, cfg = load_export(a.ckpt)
     model = model.to(device).eval()
     print(f"loaded step {step} ({cfg.model_kind}, bottleneck={cfg.bottleneck.kind})")
 

@@ -202,3 +202,11 @@ def load(ckpt_dir: str, step: int | None = None):
     """-> (step, {dotted name: tensor}, RunConfig); ``step`` defaults to
     :func:`latest_step`."""
     return weights.load_named(checkpoint_path(ckpt_dir, _resolve(ckpt_dir, step)))
+
+
+def load_model(ckpt_dir: str, step: int | None = None):
+    """-> (step, model on the CPU, RunConfig): :func:`load`'s weights in
+    the model family the checkpoint's config names (``weights.load_export``
+    for a checkpoint directory)."""
+    got, named, cfg = load(ckpt_dir, step)
+    return got, weights.from_named({k: v.numpy() for k, v in named.items()}, cfg), cfg

@@ -67,8 +67,10 @@ power limit:
 7. train: the train CLI at B = 4, n_win = 48,000.  ``new --preset chorowski
    --pallas-stack`` for 4 steps and ``resume`` for 2 more (the main path:
    pairs, saved y); 4 steps of the single-layer schedule
-   (``--no-gated-fuse-pairs --no-gated-save-y``, the first step's loss beside
-   the main path's); 3 steps with
+   (``--no-gated-fuse-pairs --no-gated-save-y``: K2b's recompute mode, the
+   first step's loss beside the main path's) and 4 with saved y
+   (``--no-gated-fuse-pairs`` alone: K1b and K2b's saved-y mode, the same
+   first-step check); 3 steps with
    ``--vq-use-pallas`` (the fused VQ lookup once per step, the first step's
    loss equal to the run without it); then the whole-stack path,
    ``--gated-full-fusion --gated-bwd-group 5 --ckpt-keep 2 --ckpt-every 2
@@ -127,7 +129,19 @@ power limit:
    stack (rtol/atol 2e-4); (e) ``python -m ae_wavenet_tpu_torch.dryrun 2``
    on the card (its default).  Median step, samples/s, each rank's peak
    memory, the gradient bytes all-reduced a step and the collective's time
-   (CUDA events); every subprocess and spawn has a timeout.
+   (CUDA events); every subprocess and spawn has a timeout;
+12. instruments (``ae_wavenet_tpu_torch/scripts``, each through its
+   ``main`` as ``python -m`` runs it) at the flagship width: ``long_run``
+   for 16 steps on 8 clips of the reference's v2 fixture (an eval and a
+   save at step 16, a 1,000-sample probe), ``eval_quality --divergence``
+   at two temperatures and ``quality_quantized --step best`` (K4, K5, K6
+   once each; 500 samples a rollout) on its checkpoints, the generate CLI by ``--ckpt-dir``,
+   ``--ckpt-dir --step 16`` and ``--ckpt`` (the same wav), then
+   ``diag_vq``, ``diag_vae --preset flagship`` and ``gain_ab
+   --bottlenecks zero,vq``, 8 steps a twin: each exits 0 with the JAX
+   script's record keys, every value finite, the launch counters at 0
+   before each and exact after it (K1 and K2 in training and eval); the
+   phase's seconds.
 
 ``python3 chip_smoke.py --mesh-cards``, on a machine with 2 or 4 cards,
 builds the kernels and runs ``--mesh`` over every card on NCCL (new 3 +
@@ -140,7 +154,7 @@ mode (phase 6's), with no checks: run from an unpacked older commit with
 this file beside it, it times that commit's kernels in the same call.
 
 Then one JSON line describing the ten kernels (each with its launches on
-its paths, phases 9 to 11 included, its error against the plain version,
+its paths, phases 9 to 12 included, its error against the plain version,
 its time beside the plain version's and the card's bound for the same
 work; the single-layer
 backward's row carries its recompute mode's numbers beside it), and as the
@@ -203,6 +217,12 @@ DP_TIMEOUT_S = 240      # per subprocess or spawn: a hung collective fails
 DP_LOSS_REL_TOL = 1e-3  # two-rank step vs single process (bf16 stacks at B 2 vs 4)
 GRAD_RMS_RATIO = 3.0    # the stack-gradient rule, tests/test_gated_pallas.py:100
 HALO_T = 25_000         # phase 11(d): time columns per rank
+INSTR_CLIPS = 8         # phase 12: the instruments' fixtures
+INSTR_STEPS = 16        # long_run: an eval, a save and the probe at the end
+DIAG_STEPS = 8          # each twin of diag_vq, diag_vae and gain_ab
+INSTR_SAMPLES = 1000    # free-running samples of long_run's probe
+ROLLOUT_SAMPLES = 500   # of each other rollout (the eager sampler's steps cost
+                        # ~3-7 ms on the host; the log-mel distance needs 400)
 # NVIDIA H100 SXM data sheet: dense peaks and the memory rate
 PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
@@ -1536,6 +1556,26 @@ def phase_train(card: str, dev, tmp: str) -> dict:
           f"{step_alt * 1e3:.1f} ms -> {TRAIN_B * TRAIN_WIN / step_alt:.0f} samples/s; "
           f"peak memory {peak_alt:.2f} GiB | {card}")
 
+    # K2b's saved-y mode: single layers with y saved (--no-gated-fuse-pairs
+    # alone; gated_save_y is on by default): K1b forward, K2b saved-y backward
+    sy, n_sy, peak_sy, _ = _path_run(
+        ["new", *shape, "--no-gated-fuse-pairs", "--n-steps", str(TRAIN_STEPS),
+         "--ckpt-dir", os.path.join(tmp, "ckpt_sy")],
+        {"gated_layer_fused": n_layers * TRAIN_STEPS,
+         "gated_layer_bwd": n_layers * TRAIN_STEPS}, card,
+        "single-layer path with saved y, new")
+    check(len(sy) == TRAIN_STEPS, f"saved-y single-layer run logged {len(sy)} steps")
+    d_sy = abs(sy[0]["loss"] - new[0]["loss"])
+    check(d_sy < LOSS_TOL, f"saved-y single-layer path: first-step loss {sy[0]['loss']} "
+          f"vs the main path's {new[0]['loss']} (tol {LOSS_TOL})")
+    step_sy = _median_step(sy)
+    ce_sy = " ".join(f"{r['recon_ce']:.4f}" for r in sy)
+    print(f"[train] single-layer path with saved y (--no-gated-fuse-pairs): first-step "
+          f"loss {sy[0]['loss']:.6f} vs the main path's {new[0]['loss']:.6f} (|d| "
+          f"{d_sy:.2g} < {LOSS_TOL}); recon_ce {ce_sy}; median step "
+          f"{step_sy * 1e3:.1f} ms -> {TRAIN_B * TRAIN_WIN / step_sy:.0f} samples/s; "
+          f"peak memory {peak_sy:.2f} GiB | {card}")
+
     # the main path again with the fused VQ lookup: once per step, and the
     # first step (same seed, same data) loses nothing to it
     ckpt_vq = os.path.join(tmp, "ckpt_vq")
@@ -1626,7 +1666,9 @@ def phase_train(card: str, dev, tmp: str) -> dict:
           f"--gated-full-fusion --gated-bwd-group {GROUP} {step_ws * 1e3:.1f} ms "
           f"({step_ws / step_s - 1:+.1%}, {max(peak_ws, peak_ws_res):.2f} GiB); "
           f"--no-gated-fuse-pairs --no-gated-save-y {step_alt * 1e3:.1f} ms "
-          f"({step_alt / step_s - 1:+.1%}, {peak_alt:.2f} GiB) | {card}")
+          f"({step_alt / step_s - 1:+.1%}, {peak_alt:.2f} GiB); --no-gated-fuse-pairs "
+          f"{step_sy * 1e3:.1f} ms ({step_sy / step_s - 1:+.1%}, {peak_sy:.2f} GiB) "
+          f"| {card}")
 
     # two profiled steps of the main path and of the whole-stack path:
     # device time by kernel name
@@ -1669,7 +1711,7 @@ def phase_train(card: str, dev, tmp: str) -> dict:
     _print_split(dataclasses.replace(cfg, wavenet=dataclasses.replace(
         cfg.wavenet, gated_full_fusion=True, gated_bwd_group=GROUP)), data, dev,
         f"whole-stack path (full fusion, groups of {GROUP})", card)
-    runs = (n_new, n_res, n_alt, n_vq, n_ws, n_ws_res, n_ff, n_prof_pairs, n_prof)
+    runs = (n_new, n_res, n_alt, n_sy, n_vq, n_ws, n_ws_res, n_ff, n_prof_pairs, n_prof)
     launches = {n: sum(r[n] for r in runs) for n in (*GATED, "gated_layer_bwd_recompute")}
     launches["vq_lookup_fused"] = n_vq["vq_lookup_fused"]
     return {"launches": launches, "data": data, "ckpt_vq": ckpt_vq}
@@ -1937,6 +1979,223 @@ def phase_gate(card: str, dev, tmp: str) -> dict:
     launches = {n: seen["train"][n] for n in ("gated_pair_fused", "gated_pair_bwd")}
     launches.update({m: sampled[m] for m in ("bf16", "int8", "int4")})
     return {"launches": launches, **dists}
+
+def _finite(rec) -> bool:
+    """Every float of a record, nested dicts and lists too, is finite."""
+    if isinstance(rec, dict):
+        return all(_finite(v) for v in rec.values())
+    if isinstance(rec, list):
+        return all(_finite(v) for v in rec)
+    return not isinstance(rec, float) or math.isfinite(rec)
+
+
+def _instrument(script, argv: list, expect: dict, card: str):
+    """``python -m ae_wavenet_tpu_torch.scripts.<script> ARGV`` in this
+    process (the module's ``main``), every launch counter at 0 just before
+    it and checked exactly after it (``expect`` as ``_expect`` takes it),
+    every record it printed finite.  -> (records printed, stdout, launches,
+    seconds)."""
+    import torch
+
+    name = script.__name__.rsplit(".", 1)[-1]
+    _zero_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = script.main(argv)
+    torch.cuda.synchronize()
+    secs, got = time.perf_counter() - t0, _counts()
+    check(rc == 0, f"{name} returned {rc}")
+    text = buf.getvalue()
+    recs = [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+    check(all(_finite(r) for r in recs), f"{name}: a non-finite record in {recs}")
+    check(got == _expect(**expect), f"{name}: launches {got}, expected "
+          f"{_expect(**expect)}")
+    return recs, text, got, secs
+
+
+def _held_keys(name: str, recs: list, want: dict) -> None:
+    """Each record kind of ``want`` ({kind: (the key that marks it, keys it
+    must carry)}) is among ``recs`` with those keys (the JAX script's)."""
+    for kind, (mark, keys) in want.items():
+        of_kind = [r for r in recs if mark in r]
+        check(bool(of_kind) and all(set(keys) <= set(r) for r in of_kind),
+              f"{name}: {kind} records {of_kind} lack some of {sorted(keys)}")
+
+
+def phase_instruments(card: str, dev, tmp: str) -> dict:
+    """The instruments (``ae_wavenet_tpu_torch/scripts``) at the flagship
+    width, as a user runs them, a few steps each: ``long_run`` (an eval, a
+    save and the probe), ``eval_quality --divergence`` and
+    ``quality_quantized --step best`` (K4, K5, K6) on its checkpoints, the
+    generate CLI three ways on one checkpoint (the same wav), ``diag_vq``,
+    ``diag_vae --preset flagship`` and ``gain_ab``.  Each exits 0, writes
+    the JAX script's record keys, every value finite, and launches exactly
+    the kernels its path gives (K1 and K2 in training and eval)."""
+    from ae_wavenet_tpu_torch.cli import generate as gen_cli
+    from ae_wavenet_tpu_torch.eval.quality import QUALITY_KEYS
+    from ae_wavenet_tpu_torch.ops import gated
+    from ae_wavenet_tpu_torch.scripts import (diag_vae, diag_vq, eval_quality, gain_ab,
+                                              long_run, quality_quantized)
+    from ae_wavenet_tpu_torch.training import checkpoint as ckpt_mod
+    from ae_wavenet_tpu_torch.utils.config import WaveNetConfig
+
+    t_phase = time.perf_counter()
+    pairs = len(gated.stack_dils(WaveNetConfig())) // 2
+    eval_batches = 8  # Chassis.evaluate's default
+
+    def trained(steps: int, evals: int, twins: int = 1) -> dict:
+        """K1 and K2 launches of ``twins`` runs of ``steps`` steps and
+        ``evals`` eval batches each, on the pair schedule."""
+        return {"gated_pair_fused": twins * pairs * (steps + evals),
+                "gated_pair_bwd": twins * pairs * steps}
+
+    launches: dict = {}
+
+    def add(got: dict) -> None:
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # long_run: 16 steps on 8 clips; eval and save at 16; the probe
+    work = os.path.join(tmp, "long_run")
+    out = os.path.join(tmp, "long_run.jsonl")
+    _, _, got, secs = _instrument(long_run, [
+        "--steps", str(INSTR_STEPS), "--clips", str(INSTR_CLIPS), "--eval-every",
+        str(INSTR_STEPS), "--ckpt-every", str(INSTR_STEPS), "--log-every", "8",
+        "--quality-samples", str(INSTR_SAMPLES), "--workdir", work, "--out", out],
+        trained(INSTR_STEPS, eval_batches), card)
+    add(got)
+    with open(out) as f:
+        recs = [json.loads(ln) for ln in f]
+    check(all(_finite(r) for r in recs), f"long_run: a non-finite record in {recs}")
+    _held_keys("long_run", recs, {
+        "header": ("run_config", ("steps", "batch", "n_win", "bottleneck", "fixture",
+                                  "vq_k", "vq_groups", "latent_hz", "clips",
+                                  "data_prefix", "t_start")),
+        "train": ("samples_per_sec", ("step", "loss", "recon_ce", "bn_loss",
+                                      "commitment", "perplexity", "restarts",
+                                      "aux_frame_mse", "aux_frame_loss", "grad_norm")),
+        "eval": ("eval_split", ("step", "eval_recon_ce", "eval_perplexity",
+                                "eval_commitment", "eval_loss")),
+        "probe": ("quality_holdout", ("step", "wall_s"))})
+    probe = next(r for r in recs if "quality_holdout" in r)
+    check(set(QUALITY_KEYS) | {"clips", "n_scored"} <= set(probe["quality_holdout"])
+          and probe["quality_holdout"]["n_scored"] == INSTR_SAMPLES
+          and [r["step"] for r in recs if "eval_split" in r] == [INSTR_STEPS],
+          f"long_run: probe {probe}")
+    ckpt = os.path.join(work, "ckpt")
+    best = ckpt_mod.best_info(ckpt)
+    check(best is not None and best[0] == INSTR_STEPS, f"long_run: BEST {best}")
+    ce = " ".join(f"{r['recon_ce']:.4f}" for r in recs if "samples_per_sec" in r)
+    print(f"[instruments] long_run: {INSTR_STEPS} steps on {INSTR_CLIPS} clips in "
+          f"{secs:.1f} s (the fixture, the steps, one eval and save, the "
+          f"{INSTR_SAMPLES}-sample probe in {probe['probe_s']} s); recon_ce "
+          f"{ce}; probe "
+          f"{json.dumps(probe['quality_holdout'])}; BEST {best} | {card}")
+
+    # eval_quality --divergence, two temperatures, on that directory
+    data = os.path.join(work, f"synth{INSTR_CLIPS}")
+    recs, _, got, secs = _instrument(eval_quality, [
+        "--ckpt-dir", ckpt, "--step", "best", "--data", data, "--clips", "0",
+        "--n-samples", str(ROLLOUT_SAMPLES), "--divergence", "--temperatures", "1.0,0.0",
+        "--nll-buckets", "4"], {}, card)
+    check(len(recs) == 3 and recs[0]["best_checkpoint"]["step"] == INSTR_STEPS
+          and set(recs[1]["divergence"]["temperatures"]) == {"1", "greedy"}
+          and {"teacher_nll", "spectral_l2_vs_silence", "n_scored"}
+          <= set(recs[1]["divergence"])
+          and {"teacher_nll_mean", "free_nll_by_temp", "spectral_l2_by_temp"}
+          <= set(recs[2]["summary"]), f"eval_quality: records {recs}")
+    print(f"[instruments] eval_quality --divergence (1.0, greedy), {ROLLOUT_SAMPLES} "
+          f"samples: {json.dumps(recs[2]['summary'])}; {secs:.1f} s | {card}")
+
+    # quality_quantized in all three modes: K4, K5, K6 once each
+    recs, _, got, secs = _instrument(quality_quantized, [
+        "--ckpt-dir", ckpt, "--step", "best", "--data", data, "--clips", "0",
+        "--n-samples", str(ROLLOUT_SAMPLES)], {"bf16": 1, "int8": 1, "int4": 1}, card)
+    add(got)
+    check([r.get("mode") for r in recs[1:-1]] == ["bf16", "int8", "int4"]
+          and all({"clip", "spectral_l2", "spectral_l2_vs_silence", "n_scored"} <= set(r)
+                  for r in recs[1:-1])
+          and set(recs[-1]["summary"]["mean_spectral_l2"]) == {"bf16", "int8", "int4"},
+          f"quality_quantized: records {recs}")
+    print(f"[instruments] quality_quantized --step best: "
+          f"{json.dumps(recs[-1]['summary'])}; {secs:.1f} s | {card}")
+
+    # the generate CLI three ways on one checkpoint: one wav
+    wavs = []
+    path = ckpt_mod.checkpoint_path(ckpt, INSTR_STEPS)
+    for source in (["--ckpt-dir", ckpt], ["--ckpt-dir", ckpt, "--step", str(INSTR_STEPS)],
+                   ["--ckpt", path]):
+        _zero_counts()
+        wav = os.path.join(tmp, f"gen{len(wavs)}.wav")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = gen_cli.main([*source, "--data", data, "--clip", "0", "--n-samples",
+                               str(ROLLOUT_SAMPLES), "--seed", "5", "--out", wav])
+        got = _counts()
+        check(rc == 0 and got == _expect(bf16=1), f"generate {source}: rc {rc}, "
+              f"launches {got}")
+        check(f"loaded step {INSTR_STEPS} " in buf.getvalue(),
+              f"generate {source} loaded another step: {buf.getvalue()}")
+        add(got)
+        with open(wav, "rb") as f:
+            wavs.append(f.read())
+    check(wavs[0] == wavs[1] == wavs[2], "generate: --ckpt-dir, --ckpt-dir --step and "
+          "--ckpt gave different wavs")
+    print(f"[instruments] generate CLI by --ckpt-dir, --ckpt-dir --step {INSTR_STEPS} "
+          f"and --ckpt: the same {len(wavs[0])}-byte wav; one bf16 launch each | {card}")
+
+    # the twins: diag_vq (vq, ae, zero), diag_vae (vae, zero, ae), gain_ab
+    diag = os.path.join(tmp, "diag")
+    recs, _, got, secs = _instrument(
+        diag_vq, ["--steps", str(DIAG_STEPS), "--workdir", diag],
+        trained(DIAG_STEPS, eval_batches, twins=3), card)
+    add(got)
+    clouds = [r for r in recs if "at" in r]
+    check([r["at"] for r in clouds] == ["init", f"step{DIAG_STEPS}"]
+          and all({"frame_norm_mean", "cloud_rms_spread", "nearest_d2_mean",
+                   "batch_perplexity", "batch_codes_used", "ema_counts_gt_thresh"}
+                  <= set(r) for r in clouds)
+          and {"summary", "conditioning_gain_nats", "vq_gap_to_continuous"}
+          <= set(recs[-1]), f"diag_vq: records {clouds}, {recs[-1]}")
+    print(f"[instruments] diag_vq, {DIAG_STEPS} steps a twin: {json.dumps(clouds[-1])}; "
+          f"{json.dumps(recs[-1])}; {secs:.1f} s | {card}")
+
+    recs, _, got, secs = _instrument(
+        diag_vae, ["--preset", "flagship", "--steps", str(DIAG_STEPS), "--workdir",
+                     diag], trained(DIAG_STEPS, eval_batches, twins=3), card)
+    add(got)
+    _held_keys("diag_vae", recs, {
+        "vae": ("kl_per_frame", ("kind", "steps", "final_eval_recon_ce", "active_units",
+                                 "n_dims", "mu_var", "free_nats", "kl_anneal_steps",
+                                 "aux_weight", "kl_trend", "active_trend")),
+        "summary": ("summary", ())})
+    check({"vae_conditioning_gain_nats", "continuous_conditioning_gain_nats",
+           "vae_gap_to_continuous", "active_units", "n_dims", "collapsed"}
+          <= set(recs[-1]["summary"]), f"diag_vae: summary {recs[-1]}")
+    print(f"[instruments] diag_vae --preset flagship, {DIAG_STEPS} steps a twin: "
+          f"{json.dumps(recs[-1])}; {secs:.1f} s | {card}")
+
+    recs, _, got, secs = _instrument(
+        gain_ab, ["--bottlenecks", "zero,vq", "--steps", str(DIAG_STEPS), "--clips",
+                    str(INSTR_CLIPS), "--eval-batches", "4", "--workdir",
+                    os.path.join(tmp, "gain")], trained(DIAG_STEPS, 4, twins=2), card)
+    add(got)
+    _held_keys("gain_ab", recs, {
+        "header": ("gain_ab", ("vq_gain_ceiling_nats",)),
+        "twin": ("eval", ("kind", "steps", "wall_s")),
+        "summary": ("summary", ())})
+    twins = [r for r in recs if "eval" in r]
+    check(set(recs[-1]["summary"]) == {"recon_ce", "gain_vs_zero_nats",
+                                       "vq_gain_ceiling_nats"}
+          and [r["kind"] for r in twins] == ["zero", "vq"]
+          and all("recon_ce" in r["eval"] for r in twins), f"gain_ab: records {recs}")
+    print(f"[instruments] gain_ab --bottlenecks zero,vq, {DIAG_STEPS} steps a twin: "
+          f"{json.dumps(recs[-1])}; {secs:.1f} s | {card}")
+    secs = time.perf_counter() - t_phase
+    print(f"[instruments] phase 12 in {secs:.1f} s; launches {launches} | {card}")
+    return {"launches": launches, "seconds": secs}
+
 
 def _timed_grad_mean(events: list, nbytes: list):
     """A stand-in for ``Mesh.mean_`` that records CUDA events around each
@@ -2820,11 +3079,12 @@ def main() -> int:
         gate = phase_gate(card, dev, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         par = phase_parallel(card, dev, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        instr = phase_instruments(card, dev, tmp)
 
     def extra(name: str) -> int:
-        """Phases 9 to 11's launches of one kernel."""
-        return (inv["launches"].get(name, 0) + gate["launches"].get(name, 0)
-                + par["launches"].get(name, 0))
+        """Phases 9 to 12's launches of one kernel."""
+        return sum(p["launches"].get(name, 0) for p in (inv, gate, par, instr))
 
     fastgen = "ae_wavenet_tpu_torch/csrc/fastgen.cu"
     replaces = {"bf16": "ae_wavenet_tpu/ops/fastgen_pallas.py:612",
@@ -2866,7 +3126,7 @@ def main() -> int:
         "launches": s["launches"]["vq"] + t["launches"]["vq_lookup_fused"]
         + e["launches"] + extra("vq_lookup_fused"), **vq_train, "library_ms": None,
         "n": v["training step"]["n"], "by_n": vq_by_n})
-    print(f"[smoke] phases 1-11 in {time.perf_counter() - t_start:.1f} s | {card}")
+    print(f"[smoke] phases 1-12 in {time.perf_counter() - t_start:.1f} s | {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -42,8 +42,8 @@ def test_presets_match():
 
 
 def test_port_imports_no_jax():
-    """Neither jax nor the JAX package: the port and chip_smoke.py stand on
-    their own on a machine that has neither."""
+    """Neither jax nor the JAX package nor its scripts: the port and
+    chip_smoke.py stand on their own on a machine that has neither."""
     code = ("import sys, ae_wavenet_tpu_torch.cli.generate, "
             "ae_wavenet_tpu_torch.cli.train, ae_wavenet_tpu_torch.training.chassis, "
             "ae_wavenet_tpu_torch.ops.gated_cuda, ae_wavenet_tpu_torch.ops.gated_check, "
@@ -62,8 +62,16 @@ def test_port_imports_no_jax():
             "ae_wavenet_tpu_torch.utils.logging, "
             "ae_wavenet_tpu_torch.parallel.mesh, ae_wavenet_tpu_torch.parallel.halo, "
             "ae_wavenet_tpu_torch.dryrun, "
+            "ae_wavenet_tpu_torch.scripts.long_run, "
+            "ae_wavenet_tpu_torch.scripts.eval_quality, "
+            "ae_wavenet_tpu_torch.scripts.quality_quantized, "
+            "ae_wavenet_tpu_torch.scripts.diag_vq, ae_wavenet_tpu_torch.scripts.diag_vae, "
+            "ae_wavenet_tpu_torch.scripts.gain_ab, "
+            "ae_wavenet_tpu_torch.scripts.compare_runs, "
+            "ae_wavenet_tpu_torch.scripts.gain_scaling, "
             "chip_smoke; "
-            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'ae_wavenet_tpu')]; "
+            "bad = [m for m in sys.modules "
+            "       if m.split('.')[0] in ('jax', 'ae_wavenet_tpu', 'scripts')]; "
             "assert not bad, bad")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
@@ -78,5 +86,6 @@ def test_no_source_file_imports_jax():
         for line in path.read_text().splitlines():
             words = line.split()
             assert not (words[:1] in (["import"], ["from"]) and len(words) > 1
-                        and words[1].split(".")[0] in ("jax", "ae_wavenet_tpu")), (
+                        and words[1].split(".")[0] in ("jax", "ae_wavenet_tpu",
+                                                       "scripts")), (
                 f"{path}: {line}")

@@ -10,6 +10,7 @@ without the JAX suite's conftest:
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -901,3 +902,70 @@ def test_two_rank_step_on_one_card_matches_one_process(cuda_device, tmp_path):
         torch.cat([r["lookups"][0][1] for r in ranks]), *seen[0],
         torch.from_numpy(ranks[0]["ema_sums0"]), got, want, bn)
     assert not fails, (fails, vq)
+
+
+# ------------------------------------------------------------- the instruments
+
+MIN_PREFIX = 8  # greedy steps every row must agree on (chip_smoke.py MIN_PREFIX)
+
+
+@pytest.mark.cuda
+def test_quality_quantized_on_the_card_matches_the_cpu(cuda_device, tmp_path,
+                                                       monkeypatch, capsys):
+    """``scripts/quality_quantized`` at the 32-wide stack, greedy: on the
+    card one launch each of the bf16, int8 and int4 kernels, on the CPU
+    their plain versions; each mode's ids agree over at least MIN_PREFIX
+    steps, the source's distance to silence within 1e-4, and where a mode's
+    ids agree throughout its distance within 1e-4 too."""
+    import json
+
+    from ae_wavenet_tpu_torch.data.preprocess import make_synthetic_dataset
+    from ae_wavenet_tpu_torch.models import autoencoder as tae
+    from ae_wavenet_tpu_torch.scripts import quality_quantized
+    from ae_wavenet_tpu_torch.training import checkpoint as tckpt
+    from ae_wavenet_tpu_torch.training import weights
+    from ae_wavenet_tpu_torch.utils.config import tiny_config
+
+    cfg = tiny_config()
+    model = tae.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    with torch.no_grad():
+        model.wavenet.post2["w"].mul_(50.0)  # informative logits
+    ckpt = str(tmp_path / "ckpt")
+    os.makedirs(ckpt)
+    weights.save_export(tckpt.checkpoint_path(ckpt, 0), model, cfg, 0)
+    data = str(tmp_path / "synth")
+    make_synthetic_dataset(data, n_clips=2, n_speakers=2, clip_len=(9000, 11000), seed=0)
+    ids: list = []
+    reconstruct = tae.reconstruct
+
+    def recording(*a, **k):
+        out = reconstruct(*a, **k)
+        ids.append(out[0].cpu())
+        return out
+
+    monkeypatch.setattr(tae, "reconstruct", recording)
+    counters = ("launches", "launches_int8", "launches_int4")
+    recs = {}
+    for device in ("cuda", "cpu"):
+        before = [getattr(tfc.generate_fused, c) for c in counters]
+        plain = tfc.generate_fused_reference.launches
+        capsys.readouterr()
+        assert quality_quantized.main(["--ckpt-dir", ckpt, "--data", data, "--clips", "0",
+                                       "--n-samples", "400", "--temperature", "0",
+                                       "--device", device]) == 0
+        torch.cuda.synchronize()
+        recs[device] = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+        ran = [getattr(tfc.generate_fused, c) - b for c, b in zip(counters, before)]
+        assert ran == ([1, 1, 1] if device == "cuda" else [0, 0, 0])
+        assert tfc.generate_fused_reference.launches - plain == (device == "cpu") * 3
+    card, cpu = ids[:3], ids[3:]
+    for mode, g, w, rg, rw in zip(("bf16", "int8", "int4"), card, cpu,
+                                  recs["cuda"][1:4], recs["cpu"][1:4]):
+        diff = torch.nonzero(g[0] != w[0])
+        agree = g.shape[-1] if len(diff) == 0 else int(diff[0])
+        assert agree >= MIN_PREFIX, (mode, agree)
+        assert rg["mode"] == rw["mode"] == mode and rg["n_scored"] == rw["n_scored"]
+        sil = abs(rg["spectral_l2_vs_silence"] - rw["spectral_l2_vs_silence"])
+        assert sil <= 1e-4 * rw["spectral_l2_vs_silence"], mode
+        if agree == g.shape[-1]:
+            assert abs(rg["spectral_l2"] - rw["spectral_l2"]) <= 1e-4 * rw["spectral_l2"]
