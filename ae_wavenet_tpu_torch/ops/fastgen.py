@@ -41,46 +41,63 @@ def init_state(cfg: WaveNetConfig, batch: int, fill_id: int = 128,
                                      device=device), 0)
 
 
-def pack_params(wavenet: WaveNet, cfg: WaveNetConfig) -> dict:
+def _rounder(dtype):
+    """v -> v rounded to the compute ``dtype`` and held in f32 (identity
+    for f32): products of such values are exact in f32, so an f32 GEMM of
+    them accumulates in f32 as the reference's ``preferred_element_type``
+    does."""
+    if dtype == torch.float32:
+        return lambda v: v
+    return lambda v: v.to(dtype).float()
+
+
+def pack_params(wavenet: WaveNet, cfg: WaveNetConfig, dtype=torch.float32) -> dict:
     """Per layer, the five taps as two GEMMs, stored input-major:
         y     = [x_prev | x_cur | cond_t] @ w_in + b_in
         [r|s] = h @ w_out + b_out
-    """
+    with the GEMMs' weights rounded to the compute ``dtype`` once (the
+    embedding and the biases stay f32)."""
+    rnd = _rounder(dtype)
     w_in, b_in, w_out, b_out = [], [], [], []
     for p in wavenet.layers:
-        w_in.append(torch.cat([p.w_prev["w"], p.w_cur["w"], p.w_cond["w"]], 1).t())
+        w_in.append(rnd(torch.cat([p.w_prev["w"], p.w_cur["w"], p.w_cond["w"]], 1).t()))
         b_in.append(p.w_prev["b"] + p.w_cur["b"] + p.w_cond["b"])
-        w_out.append(torch.cat([p.w_res["w"], p.w_skip["w"]], 0).t())
+        w_out.append(rnd(torch.cat([p.w_res["w"], p.w_skip["w"]], 0).t()))
         b_out.append(torch.cat([p.w_res["b"], p.w_skip["b"]]))
     return {
         "embed": wavenet.embed, "w_in": w_in, "b_in": b_in,
         "w_out": w_out, "b_out": b_out,
-        "post1_w": wavenet.post1["w"].t(), "post1_b": wavenet.post1["b"],
-        "post2_w": wavenet.post2["w"].t(), "post2_b": wavenet.post2["b"],
+        "post1_w": rnd(wavenet.post1["w"].t()), "post1_b": wavenet.post1["b"],
+        "post2_w": rnd(wavenet.post2["w"].t()), "post2_b": wavenet.post2["b"],
     }
 
 
 def _cell(packed: dict, cfg: WaveNetConfig, state: GenState,
-          x_id: torch.Tensor, cond_t: torch.Tensor) -> torch.Tensor:
-    """One f32 AR step: consume sample ids x_id [B] and the cond column
-    [B, n_cond]; writes the queues in place and returns logits [B, n_quant]."""
+          x_id: torch.Tensor, cond_t: torch.Tensor,
+          dtype=torch.float32) -> torch.Tensor:
+    """One AR step: consume sample ids x_id [B] and the cond column
+    [B, n_cond]; writes the queues in place and returns logits [B, n_quant].
+    Every GEMM input is rounded to the compute ``dtype``; the residual
+    stream, the queues and the sums stay f32."""
+    rnd = _rounder(dtype)
     x = packed["embed"][x_id]  # [B, n_res]
+    cond_t = rnd(cond_t)
     skip = None
     for i, d in enumerate(cfg.dilations):
         buf = state.bufs[i]
         ptr = state.t % d
         x_prev = buf[:, :, ptr].clone()  # read before the write below
         buf[:, :, ptr] = x
-        xin = torch.cat([x_prev, x, cond_t], 1)
+        xin = torch.cat([rnd(x_prev), rnd(x), cond_t], 1)
         y = torch.addmm(packed["b_in"][i], xin, packed["w_in"][i])
         f, g = y.chunk(2, 1)
-        h = torch.tanh(f) * torch.sigmoid(g)
+        h = rnd(torch.tanh(f) * torch.sigmoid(g))
         rs = torch.addmm(packed["b_out"][i], h, packed["w_out"][i])
         res, s = rs[:, : cfg.n_res], rs[:, cfg.n_res :]
         skip = s if skip is None else skip + s
         x = x + res
-    h = torch.relu(skip)
-    h = torch.relu(torch.addmm(packed["post1_b"], h, packed["post1_w"]))
+    h = rnd(torch.relu(skip))
+    h = rnd(torch.relu(torch.addmm(packed["post1_b"], h, packed["post1_w"])))
     return torch.addmm(packed["post2_b"], h, packed["post2_w"])
 
 
@@ -135,9 +152,12 @@ def _draw(logits: torch.Tensor, temperature: float,
 def generate(wavenet: WaveNet, cfg: WaveNetConfig, state: GenState,
              cond: torch.Tensor, generator: torch.Generator | None = None,
              gc_ids: torch.Tensor | None = None, n_steps: int | None = None,
-             temperature: float = 1.0, return_logits: bool = False):
-    """Sample ``n_steps`` (default: the cond length) mu-law ids with the f32
-    cell, one eager step per sample.
+             temperature: float = 1.0, return_logits: bool = False,
+             dtype=torch.float32):
+    """Sample ``n_steps`` (default: the cond length) mu-law ids with the
+    cell, one eager step per sample: f32, or with ``dtype=torch.bfloat16``
+    the GEMMs' inputs rounded to bf16 and their sums kept in f32, as the
+    reference's ``dtype`` does.
 
     cond: [B, n_lc_out, T]; column p conditions the step that consumes the
     sample at position p (the training lattice).  The queues of ``state``
@@ -149,10 +169,10 @@ def generate(wavenet: WaveNet, cfg: WaveNetConfig, state: GenState,
         raise ValueError(f"n_steps={t_len} exceeds the {cond.shape[-1]} "
                          "conditioning columns provided")
     cond_tm = with_gc(wavenet, cfg, cond[..., :t_len], gc_ids).permute(2, 0, 1)
-    packed = pack_params(wavenet, cfg)
+    packed = pack_params(wavenet, cfg, dtype)
     st, ids, all_logits = state, [], []
     for j in range(t_len):
-        logits = _cell(packed, cfg, st, st.prev_id, cond_tm[j])
+        logits = _cell(packed, cfg, st, st.prev_id, cond_tm[j], dtype)
         nxt = _draw(logits, temperature, generator)
         st = GenState(st.bufs, nxt, st.t + 1)
         ids.append(nxt.to(torch.int32))

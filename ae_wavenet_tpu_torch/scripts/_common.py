@@ -1,10 +1,12 @@
 """What the instruments share: the device, the reference's synthetic
-fixture, the flagship config and the checkpoint step to read."""
+fixture, the flagship config, the checkpoint step to read, and the timing
+of the measuring scripts."""
 
 from __future__ import annotations
 
 import os
 import tempfile
+import time
 
 import torch
 
@@ -31,6 +33,32 @@ def setup(device: str) -> torch.device:
     numerics (TF32 off)."""
     set_reference_precision()
     return device_mod.resolve(device)
+
+
+def sync(device) -> None:
+    """Wait for the work queued on ``device`` (nothing to wait for on the
+    CPU): where the JAX scripts block on a result."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def timed(fn, iters: int, device, warmup: int = 1) -> float:
+    """Seconds per ``fn()`` call: ``warmup`` calls, then ``iters`` calls on
+    the host clock between two synchronisations of ``device``."""
+    for _ in range(warmup):
+        fn()
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    sync(device)
+    return (time.perf_counter() - t0) / iters
+
+
+def platform(device) -> str:
+    """The device's platform as JAX names it (``gpu`` for a CUDA card)."""
+    kind = torch.device(device).type
+    return "gpu" if kind == "cuda" else kind
 
 
 def fixture(prefix: str, style: str = "v2", n_clips: int = 32,

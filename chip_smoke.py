@@ -141,7 +141,22 @@ power limit:
    --bottlenecks zero,vq``, 8 steps a twin: each exits 0 with the JAX
    script's record keys, every value finite, the launch counters at 0
    before each and exact after it (K1 and K2 in training and eval); the
-   phase's seconds.
+   phase's seconds;
+13. measures (the measuring scripts, ``ae_wavenet_tpu_torch/scripts``, each
+   through its ``main``) at the flagship width, cut in iterations and steps
+   only: first the VQ kernel at every shape of ``bench_vq``'s sweep (N =
+   4,096 and 16,384, K = 512, 4,096 and 8,192) and the three sampler
+   kernels at B = 128 (64 greedy steps), each held to its plain version
+   and timed beside its bound; then ``bench_gated`` and ``ablate_step``
+   at 2 iterations (the kernel paths within 0.02 and 0.05 of the plain
+   forward), ``bench_vq`` (the sweep, the train step at 3 + 5 steps with
+   the VQ kernel off and on), ``bench_gen`` at B = 128 (bf16, int8) and
+   B = 64 (int4), 256 steps, and one eager record at 64, ``bench_mfcc``,
+   ``bench_ckpt --flagship``, ``bench_chassis --steps 8``,
+   ``probe_dispatch`` at K = 8, ``convergence_ab`` over 40 steps (mean
+   |dCE| <= 0.03, max <= 0.15) and ``train_curves`` at 40 steps a family:
+   each exits 0 with the JAX script's record keys, every value finite, the
+   launch counters at 0 before each and exact after it.
 
 ``python3 chip_smoke.py --mesh-cards``, on a machine with 2 or 4 cards,
 builds the kernels and runs ``--mesh`` over every card on NCCL (new 3 +
@@ -154,7 +169,7 @@ mode (phase 6's), with no checks: run from an unpacked older commit with
 this file beside it, it times that commit's kernels in the same call.
 
 Then one JSON line describing the ten kernels (each with its launches on
-its paths, phases 9 to 12 included, its error against the plain version,
+its paths, phases 9 to 13 included, its error against the plain version,
 its time beside the plain version's and the card's bound for the same
 work; the single-layer
 backward's row carries its recompute mode's numbers beside it), and as the
@@ -223,6 +238,43 @@ DIAG_STEPS = 8          # each twin of diag_vq, diag_vae and gain_ab
 INSTR_SAMPLES = 1000    # free-running samples of long_run's probe
 ROLLOUT_SAMPLES = 500   # of each other rollout (the eager sampler's steps cost
                         # ~3-7 ms on the host; the log-mel distance needs 400)
+MEASURE_ITERS = 2       # phase 13: bench_gated's and ablate_step's timed calls
+MEASURE_VQ_TRAIN_ITERS = 5  # bench_vq's timed steps, after its 3 warm-up steps
+MEASURE_GEN_BATCH = 128  # K4-K6 held to plain at bench_gen_r5's largest batch
+MEASURE_HELD_T = 64     # greedy steps of that check
+MEASURE_GEN_STEPS = 256  # bench_gen's steps a launch
+MEASURE_SCAN_STEPS = 64  # its eager record's (a few ms a step on the host)
+CONV_STEPS = 40         # convergence_ab, the JAX script's default
+MEASURE_CURVE_STEPS = 40  # train_curves, each family
+STACK_ABS_TOL = 0.02    # bench_gated: pairs against the plain bf16 forward
+STACK_FULL_ABS_TOL = 0.05  # and the whole-stack kernel (one-ulp flips over 20 layers)
+# the JAX scripts' record keys (scripts/bench_*.py, probe_dispatch.py,
+# convergence_ab.py) and ablate_step's line labels
+BENCH_GATED_KEYS = {"config", "full_fusion_applied", "xla_fwd_ms", "pallas_fwd_ms",
+                    "full_fusion_fwd_ms", "xla_fwd_samples_per_sec",
+                    "pallas_fwd_samples_per_sec", "full_fusion_fwd_samples_per_sec",
+                    "speedup", "full_fusion_speedup_vs_pairs", "max_abs_diff",
+                    "full_fusion_max_abs_diff"}
+VQ_OP_KEYS = {"bench", "n", "k", "d", "tile_n", "xla_us", "pallas_us", "speedup"}
+VQ_STEP_KEYS = {"bench", "vq_use_pallas", "batch", "n_win", "step_ms",
+                "samples_per_sec_per_chip"}
+GEN_SCAN_KEYS = {"path", "platform", "batch", "dtype", "gen_steps", "wall_s",
+                 "samples_per_sec_per_stream", "rtf_16k", "aggregate_samples_per_sec",
+                 "compile_s"}
+MFCC_KEYS = [{"bench", "path", "batch", "wav_samples", "frames_per_call", "us_per_call",
+              "frames_per_sec", "audio_samples_per_sec"},
+             {"bench", "path", "frames_per_sec", "audio_samples_per_sec", "device_speedup"},
+             {"bench", "path", "train_samples_per_sec_assumed", "frames_per_sec_needed",
+              "isolated_capacity_fraction"}]
+CKPT_KEYS = {"metric", "params_mb", "blocking_save_sec", "async_save_return_sec",
+             "async_final_drain_sec", "pause_reduction"}
+PROBE_KEYS = {"k", "batch", "n_win", "rtt_scalar_get_ms", "assemble_block_ms",
+              "block_mbytes", "put_block_ms", "dispatch_ms", "block_compute_rest_ms",
+              "compute_sps", "metrics_fetch_ms"}
+ABLATE_LABELS = ("cond fwd", "cond fwd+bwd", "dec fwd", "dec fwd+bwd", "loss fwd",
+                 "loss fwd+bwd")
+CONV_KEYS = {"steps", "xla_first_last", "pallas_first_last", "max_abs_ce_diff",
+             "mean_abs_ce_diff"}
 # NVIDIA H100 SXM data sheet: dense peaks and the memory rate
 PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
@@ -2197,6 +2249,268 @@ def phase_instruments(card: str, dev, tmp: str) -> dict:
     return {"launches": launches, "seconds": secs}
 
 
+@contextlib.contextmanager
+def _environ(**kw):
+    """The environment variables ``kw`` (None: unset) for a block, restored
+    after: how a user passes a measuring script its sizes."""
+    old = {k: os.environ.get(k) for k in kw}
+    try:
+        for k, v in kw.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = str(v)
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def measure_kernels(card: str, dev) -> dict:
+    """K9 at every shape of ``bench_vq``'s sweep and K4-K6 at B = 128, each
+    against its plain version and timed beside its bound, before the
+    scripts run them (these launches are comparisons, not the path's).
+    -> {"vq_by_n": {"N (K=k)": row}, "by_batch": {mode: row at B = 128}}."""
+    import torch
+
+    from ae_wavenet_tpu_torch.models.wavenet import WaveNet
+    from ae_wavenet_tpu_torch.ops import fastgen_cuda as fc
+    from ae_wavenet_tpu_torch.ops import vq_cuda as vq
+    from ae_wavenet_tpu_torch.scripts import bench_vq
+    from ae_wavenet_tpu_torch.utils.config import WaveNetConfig
+
+    out: dict = {"vq_by_n": {}, "by_batch": {}}
+    gen = torch.Generator().manual_seed(13)
+    d = bench_vq.D
+    for k in bench_vq.SWEEP_K:
+        for n in bench_vq.SWEEP_N:
+            z = torch.randn(n, d, generator=gen).to(dev)
+            e = torch.randn(k, d, generator=gen).to(dev)
+            got = vq.vq_lookup_fused(z, e)
+            want = vq.vq_lookup_reference(z, e)
+            why = bench_vq.disagreement(z, e, got, want)
+            check(not why, f"[measures] vq N={n} K={k}: " + "; ".join(why))
+            err = float((got[3] - want[3]).abs().max())
+            n_diff = int((got[0] != want[0]).sum())
+            k_ms = cuda_ms(lambda: vq.vq_lookup_fused(z, e), VQ_TIMING_REPS)
+            p_ms = cuda_ms(lambda: vq.vq_lookup_reference(z, e), VQ_TIMING_REPS)
+            b_ms, by = bound(tensor_bytes(z, e, got), {"f32": 2 * n * k * d})
+            print(f"[measures] vq N={n} K={k} D={d}: held to the plain version ({n_diff} "
+                  f"codes differ, near-ties; rows exact, counts exact, sums max|d| "
+                  f"{err:.4g}); kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+                  f"{b_ms:.5f} ms by {by} ({100 * b_ms / k_ms:.1f}%) | {card}")
+            out["vq_by_n"][f"{n} (K={k})"] = {"ms": k_ms, "plain_ms": p_ms,
+                                             "bound_ms": b_ms, "bound_by": by,
+                                             "max_abs_err": err}
+            del z, e, got, want
+
+    wcfg = WaveNetConfig()  # bench_gen's decoder
+    wn = WaveNet(wcfg, gen)
+    with torch.no_grad():
+        wn.post2["w"].mul_(POST2_SCALE)
+    wn = wn.to(dev)
+    rf = sum(wcfg.dilations)
+    n_cond = wcfg.n_lc_out + wcfg.n_global_embed
+    b = MEASURE_GEN_BATCH
+    ring = (torch.randn(rf, b, wcfg.n_res, generator=gen) * 0.5).to(dev, torch.bfloat16)
+    prev = torch.randint(0, wcfg.n_quant, (b,), generator=gen).to(dev)
+    cnd = (torch.randn(b, n_cond, GREEDY_T, generator=gen) * 0.3).to(dev)
+    tol = {"bf16": LOGIT_REL_TOL, "int8": Q_LOGIT_REL_TOL, "int4": Q_LOGIT_REL_TOL}
+    for name in ("bf16", "int8", "int4"):
+        mode = None if name == "bf16" else name
+        pk = fc.PACKERS[mode](wn, wcfg)
+        got = fc.generate_fused(pk, wcfg, ring.clone(), prev, 3, cnd[..., :MEASURE_HELD_T],
+                                9, 0.0, debug_logits=True, quantized=mode)
+        want = fc.generate_fused_reference(pk, wcfg, ring.clone(), prev, 3,
+                                           cnd[..., :MEASURE_HELD_T], 9, 0.0,
+                                           debug_logits=True, quantized=mode)
+        torch.cuda.synchronize()
+        agree, max_abs = compare(got[0], got[3], want[0], want[3])
+        rel = max_abs / float(want[3].abs().max())
+        check(bool(torch.isfinite(got[3]).all()) and rel < tol[name]
+              and sum(agree) >= MEASURE_HELD_T * b // 2,
+              f"[measures] {name} B={b}: logits {rel:.4g} of max (tol {tol[name]}), "
+              f"greedy steps agreeing {sum(agree)} of {MEASURE_HELD_T * b}")
+        k_ms = cuda_ms(lambda: fc.generate_fused(
+            pk, wcfg, ring, prev, 0, cnd, 5, 1.0, quantized=mode), 3) / GREEDY_T
+        p_ms = cuda_ms(lambda: fc.generate_fused_reference(
+            pk, wcfg, ring, prev, 0, cnd[..., :PLAIN_T], 5, 1.0, quantized=mode),
+            1) / PLAIN_T
+        b_ms, by = sampler_bound(pk, wcfg, fc.device_plan(wcfg, mode, dev), b, mode)
+        print(f"[measures] {name} B={b}: {MEASURE_HELD_T} greedy steps held to the plain "
+              f"version (logits {rel:.4g} of max over each row's agreeing prefix, tol "
+              f"{tol[name]}; {sum(agree)} of {MEASURE_HELD_T * b} row-steps agree); "
+              f"kernel {k_ms:.4f} ms/step at T={GREEDY_T} a launch, plain {p_ms:.4f} "
+              f"ms/step, bound {b_ms:.5f} ms/step by {by} ({100 * b_ms / k_ms:.2f}%) "
+              f"| {card}")
+        out["by_batch"][name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                                 "bound_by": by, "max_abs_err": max_abs}
+        del pk, got, want
+    return out
+
+
+def phase_measures(card: str, dev, tmp: str) -> dict:
+    """The measuring scripts (``ae_wavenet_tpu_torch/scripts``) at the
+    flagship width, each through its ``main`` as a user runs it, cut in
+    iterations and steps only: ``bench_gated`` and ``ablate_step`` at 2
+    iterations, ``bench_vq``'s whole sweep with the train step at 3 + 5
+    steps, ``bench_gen`` at bench_gen_r5's batches (bf16 and int8 at B =
+    128, int4 at B = 64) 256 steps each and one eager record at 64 steps,
+    ``bench_mfcc``, ``bench_ckpt --flagship``, ``bench_chassis --steps 8``,
+    ``probe_dispatch`` at K = 8, ``convergence_ab`` over 40 steps (its gate
+    enforced) and ``train_curves`` at 40 steps a family.  First K9 at every
+    sweep shape and K4-K6 at B = 128 against their plain versions
+    (``measure_kernels``).  Each script exits 0, prints the JAX script's
+    keys with every value finite, and launches exactly the kernels its path
+    gives."""
+    from ae_wavenet_tpu_torch.ops import gated
+    from ae_wavenet_tpu_torch.scripts import (ablate_step, bench_chassis, bench_ckpt,
+                                              bench_gated, bench_gen, bench_mfcc,
+                                              bench_vq, convergence_ab, probe_dispatch,
+                                              train_curves)
+    from ae_wavenet_tpu_torch.utils.config import WaveNetConfig
+
+    t_phase = time.perf_counter()
+    with f32_numerics():
+        kern = measure_kernels(card, dev)
+    pairs = len(gated.stack_dils(WaveNetConfig())) // 2
+    launches: dict = {}
+    secs: dict = {}
+
+    def run(script, argv, expect, label=None, **env):
+        with _environ(**env):
+            recs, text, got, s = _instrument(script, argv, expect, card)
+        for k, v in got.items():
+            if k != "plain":
+                launches[k] = launches.get(k, 0) + v
+        name = label or script.__name__.rsplit(".", 1)[-1]
+        secs[name] = round(s, 1)
+        return recs, text
+
+    def steps(n):
+        """K1 and K2 launches of n training steps on the pair schedule."""
+        return {"gated_pair_fused": pairs * n, "gated_pair_bwd": pairs * n}
+
+    def keys(name, recs, want):
+        check(len(recs) == len(want), f"{name}: {len(recs)} records, expected "
+              f"{len(want)}: {recs}")
+        for r, w in zip(recs, want):
+            check(set(r) == set(w), f"{name}: keys {sorted(r)}, the JAX script's "
+                  f"{sorted(w)}")
+
+    # bench_gated: each forward once for the check, then 1 + MEASURE_ITERS
+    calls = 2 + MEASURE_ITERS
+    recs, _ = run(bench_gated, ["--iters", str(MEASURE_ITERS)],
+                  {"gated_pair_fused": pairs * calls, "gated_stack_fused": calls})
+    keys("bench_gated", recs, [BENCH_GATED_KEYS])
+    g = recs[0]
+    check(g["max_abs_diff"] < STACK_ABS_TOL and g["full_fusion_max_abs_diff"]
+          < STACK_FULL_ABS_TOL, f"bench_gated: max |d| {g['max_abs_diff']} (pairs, tol "
+          f"{STACK_ABS_TOL}), {g['full_fusion_max_abs_diff']} (K7, tol "
+          f"{STACK_FULL_ABS_TOL})")
+    print(f"[measures] bench_gated --iters {MEASURE_ITERS}: {json.dumps(g)} | {card}")
+
+    # bench_vq: the sweep, then 3 + 5 steps with the VQ kernel off and on
+    n_shapes = len(bench_vq.SWEEP_K) * len(bench_vq.SWEEP_N)
+    per_shape = 1 + bench_vq.OP_WARMUP + bench_vq.OP_ITERS
+    old = bench_vq.TRAIN_ITERS
+    bench_vq.TRAIN_ITERS = MEASURE_VQ_TRAIN_ITERS
+    try:
+        n_steps = 2 * (bench_vq.TRAIN_WARMUP + bench_vq.TRAIN_ITERS)
+        recs, _ = run(bench_vq, [], {**steps(n_steps), "plain": n_shapes * per_shape,
+                                     "vq_lookup_fused": n_shapes * per_shape
+                                     + n_steps // 2}, BENCH_BATCH=None, BENCH_NWIN=None)
+    finally:
+        bench_vq.TRAIN_ITERS = old
+    keys("bench_vq", recs, [VQ_OP_KEYS] * n_shapes + [VQ_STEP_KEYS] * 2
+         + [{"bench", "pallas_over_xla"}])
+    for r in recs:
+        print(f"[measures] bench_vq: {json.dumps(r)} | {card}")
+
+    # bench_gen at the TPU record's batches, then one eager record
+    gen_keys = {"path", "batch", "gen_steps", "vmem_dil_max", "wall_s",
+                "samples_per_sec_per_stream", "rtf_16k", "aggregate_samples_per_sec"}
+    gen_recs = []
+    for label, batch, env in (("bf16", 128, {}), ("int8", 128, {"GEN_INT8": 1}),
+                              ("int4", 64, {"GEN_INT4": 1})):
+        recs, _ = run(bench_gen, [], {label: 4}, f"bench_gen_{label}_b{batch}",
+                      GEN_BATCH=batch, GEN_STEPS=MEASURE_GEN_STEPS, GEN_SKIP_SCAN=1,
+                      GEN_INT8=env.get("GEN_INT8"), GEN_INT4=env.get("GEN_INT4"),
+                      GEN_DTYPE=None)
+        keys(f"bench_gen {label}", recs, [gen_keys])
+        gen_recs += recs
+    recs, _ = run(bench_gen, [], {"bf16": 4}, "bench_gen_scan", GEN_BATCH=None,
+                  GEN_STEPS=MEASURE_SCAN_STEPS, GEN_SKIP_SCAN=None, GEN_INT8=None,
+                  GEN_INT4=None, GEN_DTYPE=None)
+    keys("bench_gen scan", recs, [GEN_SCAN_KEYS, gen_keys])
+    gen_recs += recs
+    for r in gen_recs:
+        print(f"[measures] bench_gen: {json.dumps(r)} | {card}")
+
+    recs, _ = run(bench_mfcc, [], {}, MFCC_BATCH=None, MFCC_T=None, MFCC_TRAIN_SPS=None)
+    keys("bench_mfcc", recs, MFCC_KEYS)
+    print(f"[measures] bench_mfcc: {json.dumps(recs)} | {card}")
+
+    recs, _ = run(bench_ckpt, ["--flagship", "--repeats", "1"], {})
+    keys("bench_ckpt", recs, [CKPT_KEYS])
+    print(f"[measures] bench_ckpt --flagship --repeats 1: {json.dumps(recs[0])} | {card}")
+
+    chassis_steps = 8
+    recs, _ = run(bench_chassis, ["--steps", str(chassis_steps)],
+                  steps(bench_chassis.WARMUP + chassis_steps))
+    keys("bench_chassis", recs, [{"metric", "value", "config"}])
+    print(f"[measures] bench_chassis --steps {chassis_steps}: {json.dumps(recs[0])} "
+          f"| {card}")
+
+    # probe_dispatch at K = 8: 6 blocks, then Chassis.train at K = 1, 8, 16
+    k = 8
+    e2e = sum(2 * kk + max(3 * kk, 24 - 24 % kk) for kk in (1, k, 2 * k))
+    recs, _ = run(probe_dispatch, [], steps(6 * k + e2e), PROBE_TINY=None,
+                  BENCH_BATCH=None, BENCH_NWIN=None, BENCH_STEPS_PER_CALL=k)
+    keys("probe_dispatch", recs, [PROBE_KEYS | {f"e2e_{m}_k{kk}" for m in ("sps", "frac")
+                                                for kk in (1, k, 2 * k)}])
+    print(f"[measures] probe_dispatch: {json.dumps(recs[0])} | {card}")
+
+    # ablate_step: the decoder's and the loss's forward and backward on pairs
+    calls = 2 + MEASURE_ITERS
+    _, text = run(ablate_step, ["--iters", str(MEASURE_ITERS)],
+                  {"gated_pair_fused": 4 * pairs * calls, "gated_pair_bwd": 2 * pairs * calls})
+    lines = text.strip().splitlines()
+    check(len(lines) == 7 and lines[0] == "pallas_stack=True b8 x 24000"
+          and [ln.split(" ms:")[0] for ln in lines[1:]] == list(ABLATE_LABELS),
+          f"ablate_step printed {lines}")
+    print(f"[measures] ablate_step --iters {MEASURE_ITERS}: " + "; ".join(lines) + f" | {card}")
+
+    recs, _ = run(convergence_ab, ["--steps", str(CONV_STEPS)], steps(CONV_STEPS))
+    keys("convergence_ab", recs, [CONV_KEYS])
+    c = recs[0]
+    check(c["mean_abs_ce_diff"] <= convergence_ab.MEAN_LIMIT
+          and c["max_abs_ce_diff"] <= convergence_ab.MAX_LIMIT,
+          f"convergence_ab: {c} outside mean {convergence_ab.MEAN_LIMIT} / max "
+          f"{convergence_ab.MAX_LIMIT}")
+    print(f"[measures] convergence_ab --steps {CONV_STEPS}: {json.dumps(c)} (limits: mean "
+          f"{convergence_ab.MEAN_LIMIT}, max {convergence_ab.MAX_LIMIT}) | {card}")
+
+    out = os.path.join(tmp, "training_curves_torch.json")
+    run(train_curves, ["--out", out], {}, CURVE_STEPS=MEASURE_CURVE_STEPS)
+    with open(out) as f:
+        curves = json.load(f)
+    check(list(curves) == ["ae", "vq", "vae"] and all(
+        set(v) == {"steps", "recon_ce", "extra", "eval_recon_ce_holdout"} and _finite(v)
+        for v in curves.values()), f"train_curves wrote {curves}")
+    print(f"[measures] train_curves at {MEASURE_CURVE_STEPS} steps a family: " + "; ".join(
+        f"{kind} train CE {v['recon_ce'][-1]} holdout {v['eval_recon_ce_holdout']}"
+        for kind, v in curves.items()) + f" | {card}")
+
+    total = time.perf_counter() - t_phase
+    print(f"[measures] phase 13 in {total:.1f} s (scripts: {json.dumps(secs)}); "
+          f"launches {launches} | {card}")
+    return {"launches": launches, "seconds": total, **kern}
+
+
 def _timed_grad_mean(events: list, nbytes: list):
     """A stand-in for ``Mesh.mean_`` that records CUDA events around each
     gradient all-reduce (the many-tensor call) and its bytes."""
@@ -3081,10 +3395,15 @@ def main() -> int:
         par = phase_parallel(card, dev, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         instr = phase_instruments(card, dev, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        meas = phase_measures(card, dev, tmp)
 
     def extra(name: str) -> int:
-        """Phases 9 to 12's launches of one kernel."""
-        return sum(p["launches"].get(name, 0) for p in (inv, gate, par, instr))
+        """Phases 9 to 13's launches of one kernel."""
+        return sum(p["launches"].get(name, 0) for p in (inv, gate, par, instr, meas))
+
+    for mode, row in meas["by_batch"].items():
+        k[mode]["by_batch"][MEASURE_GEN_BATCH] = row
 
     fastgen = "ae_wavenet_tpu_torch/csrc/fastgen.cu"
     replaces = {"bf16": "ae_wavenet_tpu/ops/fastgen_pallas.py:612",
@@ -3119,6 +3438,7 @@ def main() -> int:
     vq_train = {n: x for n, x in v["training step"].items() if n != "n"}
     vq_by_n = {x["n"]: {n: y for n, y in x.items() if n not in ("n", "max_abs_err")}
                for x in v.values()}
+    vq_by_n.update(meas["vq_by_n"])
     kernels.append({
         "name": "vq_lookup", "route": "cuda",
         "source": "ae_wavenet_tpu_torch/csrc/vq.cu",
@@ -3126,7 +3446,7 @@ def main() -> int:
         "launches": s["launches"]["vq"] + t["launches"]["vq_lookup_fused"]
         + e["launches"] + extra("vq_lookup_fused"), **vq_train, "library_ms": None,
         "n": v["training step"]["n"], "by_n": vq_by_n})
-    print(f"[smoke] phases 1-12 in {time.perf_counter() - t_start:.1f} s | {card}")
+    print(f"[smoke] phases 1-13 in {time.perf_counter() - t_start:.1f} s | {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -69,6 +69,16 @@ def test_port_imports_no_jax():
             "ae_wavenet_tpu_torch.scripts.gain_ab, "
             "ae_wavenet_tpu_torch.scripts.compare_runs, "
             "ae_wavenet_tpu_torch.scripts.gain_scaling, "
+            "ae_wavenet_tpu_torch.scripts.bench_gated, "
+            "ae_wavenet_tpu_torch.scripts.bench_vq, "
+            "ae_wavenet_tpu_torch.scripts.bench_gen, "
+            "ae_wavenet_tpu_torch.scripts.bench_mfcc, "
+            "ae_wavenet_tpu_torch.scripts.bench_ckpt, "
+            "ae_wavenet_tpu_torch.scripts.bench_chassis, "
+            "ae_wavenet_tpu_torch.scripts.probe_dispatch, "
+            "ae_wavenet_tpu_torch.scripts.ablate_step, "
+            "ae_wavenet_tpu_torch.scripts.convergence_ab, "
+            "ae_wavenet_tpu_torch.scripts.train_curves, "
             "chip_smoke; "
             "bad = [m for m in sys.modules "
             "       if m.split('.')[0] in ('jax', 'ae_wavenet_tpu', 'scripts')]; "

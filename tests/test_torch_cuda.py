@@ -246,6 +246,18 @@ def test_kernel_partly_resident_matches_plain(cuda_device, mode, n_blocks):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", [None, "int8"])
+def test_kernel_at_batch_128_matches_plain(cuda_device, mode):
+    """B = 128 at the ``chorowski`` widths, 64 steps (``scripts/bench_gen.py``'s
+    batch: every GEMM in two passes of 64 rows) against the plain version,
+    at the flagship's tolerances."""
+    from ae_wavenet_tpu_torch.utils.config import chorowski_config
+
+    _held_to_plain(cuda_device, chorowski_config().wavenet, mode, 128, 64, seed=8,
+                   primed=False, tol=FLAGSHIP_TOL[mode])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mode", [None, "int8", "int4"])
 def test_kernel_gives_the_same_bits_twice(cuda_device, mode):
     """Fixed-order sums: a second launch on the same inputs gives the same
@@ -281,7 +293,8 @@ def _kernels_of(fn) -> list:
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,k,d", [(512, 128, 64), (301, 128, 64), (37, 100, 30),
                                    (5, 700, 8), (1, 512, 64), (27, 512, 64),
-                                   (640, 512, 64), (4099, 512, 64)])
+                                   (640, 512, 64), (4099, 512, 64),
+                                   (4096, 4096, 64), (16384, 8192, 64)])
 def test_vq_kernel_matches_plain_version(cuda_device, n, k, d):
     """Codes equal except on near-ties (under 1% of rows, each with a
     relative distance gap under 1e-5), quant the codebook rows bit for bit,
@@ -289,7 +302,9 @@ def test_vq_kernel_matches_plain_version(cuda_device, n, k, d):
     ragged N, K above one pass of the block and a D off the 16-byte path;
     one row, the serving request's 27 and the training step's 640 latents
     at the flagship K and D, and N past one chunk of the statistics' scan;
-    one device operation per call, with and without the statistics."""
+    ``scripts/bench_vq.py``'s largest codebooks (K = 4,096 at N = 4,096,
+    K = 8,192 at N = 16,384: every warp owns several codes); one device
+    operation per call, with and without the statistics."""
     gen = torch.Generator().manual_seed(n)
     z = (torch.randn(n, d, generator=gen) * 0.5).to(cuda_device)
     e = (torch.randn(k, d, generator=gen) / d ** 0.5).to(cuda_device)
