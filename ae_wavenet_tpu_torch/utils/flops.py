@@ -20,20 +20,20 @@ from __future__ import annotations
 from ae_wavenet_tpu_torch.models.common import WindowSpec
 from ae_wavenet_tpu_torch.utils.config import RunConfig
 
-# Peak dense bf16 FLOP/s of one chip, from the vendors' data sheets: the
-# TPU generations of the reference's table, and the NVIDIA H100 SXM.
-PEAK_BF16_FLOPS = {
-    "v4": 275e12,
-    "v5e": 197e12,
-    "v5p": 459e12,
-    "v6e": 918e12,
-    "h100": 989e12,
-}
+# Peak dense bf16 FLOP/s (without sparsity) of the NVIDIA H100 variants,
+# from NVIDIA's H100 data sheet, by a part of the name CUDA reports for the
+# card; the first part found in the name decides.
+H100_PEAK_BF16_FLOPS = (
+    ("pcie", 756e12),   # "NVIDIA H100 PCIe"
+    ("nvl", 835e12),    # "NVIDIA H100 NVL"
+    ("sxm", 989e12),    # "NVIDIA H100 SXM5 94GB"
+    ("hbm3", 989e12),   # "NVIDIA H100 80GB HBM3", the SXM part
+)
 
 
 def peak_bf16_flops(device_kind: str | None = None) -> float | None:
-    """Peak bf16 FLOP/s for ``device_kind`` (default: the name of CUDA card
-    0), or None when it is unknown or there is no card."""
+    """Peak dense bf16 FLOP/s for ``device_kind`` (default: the name of CUDA
+    card 0), or None when the card is unknown or there is no card."""
     if device_kind is None:
         import torch
 
@@ -41,12 +41,9 @@ def peak_bf16_flops(device_kind: str | None = None) -> float | None:
             return None
         device_kind = torch.cuda.get_device_name(0)
     dk = device_kind.lower().replace(" ", "")
-    if "v5lite" in dk:
-        return PEAK_BF16_FLOPS["v5e"]
-    for k, v in sorted(PEAK_BF16_FLOPS.items(), reverse=True):
-        if k in dk:
-            return v
-    return None
+    if "h100" not in dk:
+        return None
+    return next((v for part, v in H100_PEAK_BF16_FLOPS if part in dk), None)
 
 
 def _mm(t: int, cout: int, cin: int, k: int = 1) -> int:

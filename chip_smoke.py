@@ -156,7 +156,17 @@ power limit:
    ``probe_dispatch`` at K = 8, ``convergence_ab`` over 40 steps (mean
    |dCE| <= 0.03, max <= 0.15) and ``train_curves`` at 40 steps a family:
    each exits 0 with the JAX script's record keys, every value finite, the
-   launch counters at 0 before each and exact after it.
+   launch counters at 0 before each and exact after it;
+14. bench (``ae_wavenet_tpu_torch/bench.py``, the port of ``bench.py``):
+   its functions in this process at the defaults (pairs; B = 4, n_win =
+   48,000, 20 compute-only steps after 3 warm-up, ``Chassis.train`` at K =
+   8 for 16 + 24 steps) and under BENCH_FULL_FUSION=1 BENCH_BWD_GROUP=5,
+   the launch counters at 0 before each and exact after it (10 K1 and 10
+   K2, or 1 K7 and 4 K8, in each of 63 steps; no plain version), then
+   ``python -m ae_wavenet_tpu_torch.bench`` as a subprocess: each line has
+   ``bench.py``'s keys, the e2e headline, 15.36 TFLOP a step, MFU in (0,
+   1.05] and e2e/compute in (0, 1.10]; the compute rate beside phase 13's
+   ``probe_dispatch``.
 
 ``python3 chip_smoke.py --mesh-cards``, on a machine with 2 or 4 cards,
 builds the kernels and runs ``--mesh`` over every card on NCCL (new 3 +
@@ -169,7 +179,7 @@ mode (phase 6's), with no checks: run from an unpacked older commit with
 this file beside it, it times that commit's kernels in the same call.
 
 Then one JSON line describing the ten kernels (each with its launches on
-its paths, phases 9 to 13 included, its error against the plain version,
+its paths, phases 9 to 14 included, its error against the plain version,
 its time beside the plain version's and the card's bound for the same
 work; the single-layer
 backward's row carries its recompute mode's numbers beside it), and as the
@@ -246,6 +256,14 @@ MEASURE_GEN_STEPS = 256  # bench_gen's steps a launch
 MEASURE_SCAN_STEPS = 64  # its eager record's (a few ms a step on the host)
 CONV_STEPS = 40         # convergence_ab, the JAX script's default
 MEASURE_CURVE_STEPS = 40  # train_curves, each family
+BENCH_ITERS, BENCH_K = 20, 8  # phase 14: the bench's defaults (BENCH_ITERS, _STEPS_PER_CALL)
+BENCH_KNOBS = ("BENCH_BATCH", "BENCH_NWIN", "BENCH_ITERS", "BENCH_AUX_WEIGHT",
+               "BENCH_PALLAS_STACK", "BENCH_FULL_FUSION", "BENCH_BWD_GROUP",
+               "BENCH_STEPS_PER_CALL", "BENCH_E2E")
+BENCH_TFLOP = 15.36     # the step's count at the defaults (utils/flops.py), 2 places
+BENCH_MFU_MAX = 1.05
+BENCH_E2E_MAX = 1.10    # e2e over compute-only: two timings of the same steps
+BENCH_CLI_TIMEOUT_S = 300
 STACK_ABS_TOL = 0.02    # bench_gated: pairs against the plain bf16 forward
 STACK_FULL_ABS_TOL = 0.05  # and the whole-stack kernel (one-ulp flips over 20 layers)
 # the JAX scripts' record keys (scripts/bench_*.py, probe_dispatch.py,
@@ -307,11 +325,10 @@ def check(ok: bool, what: str) -> None:
 
 
 def card_line() -> str:
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True, timeout=60)
-    check(r.returncode == 0, f"nvidia-smi failed: {r.stderr.strip()}")
-    return r.stdout.strip().splitlines()[0]
+    """The card's name and power limit as nvidia-smi reports them."""
+    from ae_wavenet_tpu_torch.utils.device import card_line as line
+
+    return line("cuda")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -2472,7 +2489,8 @@ def phase_measures(card: str, dev, tmp: str) -> dict:
                   BENCH_BATCH=None, BENCH_NWIN=None, BENCH_STEPS_PER_CALL=k)
     keys("probe_dispatch", recs, [PROBE_KEYS | {f"e2e_{m}_k{kk}" for m in ("sps", "frac")
                                                 for kk in (1, k, 2 * k)}])
-    print(f"[measures] probe_dispatch: {json.dumps(recs[0])} | {card}")
+    probe = recs[0]
+    print(f"[measures] probe_dispatch: {json.dumps(probe)} | {card}")
 
     # ablate_step: the decoder's and the loss's forward and backward on pairs
     calls = 2 + MEASURE_ITERS
@@ -2508,7 +2526,124 @@ def phase_measures(card: str, dev, tmp: str) -> dict:
     total = time.perf_counter() - t_phase
     print(f"[measures] phase 13 in {total:.1f} s (scripts: {json.dumps(secs)}); "
           f"launches {launches} | {card}")
-    return {"launches": launches, "seconds": total, **kern}
+    return {"launches": launches, "seconds": total, "probe": probe, **kern}
+
+
+def bench_keys() -> list:
+    """The keys of the JAX bench's line: the dict of the last ``json.dumps``
+    call in ``bench.py`` beside this file, read with ast."""
+    import ast
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "bench.py")) as f:
+        tree = ast.parse(f.read())
+    dicts = [n.args[0] for n in ast.walk(tree)
+             if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
+             and n.func.attr == "dumps" and n.args and isinstance(n.args[0], ast.Dict)]
+    check(bool(dicts), "bench.py has no json.dumps({...}) line")
+    return [k.value for k in max(dicts, key=lambda d: d.lineno).keys]
+
+
+def _bench_held(label: str, rec: dict, keys: list) -> None:
+    """A bench line at the defaults: the JAX bench's keys, the e2e headline,
+    the step's FLOP count, MFU and the e2e fraction in their bands, every
+    number finite."""
+    check(set(rec) == set(keys), f"bench {label}: keys {sorted(rec)}, bench.py's "
+          f"{sorted(keys)}")
+    check(rec["headline"] == "e2e" and rec["steps_per_call"] == BENCH_K
+          and rec["metric"] == "train_audio_samples_per_sec_per_chip",
+          f"bench {label}: {rec}")
+    check(_finite(rec) and rec["value"] > 0 and rec["compute_only_value"] > 0,
+          f"bench {label}: {rec}")
+    check(round(rec["model_tflops_per_step"], 2) == BENCH_TFLOP,
+          f"bench {label}: {rec['model_tflops_per_step']} TFLOP a step, expected "
+          f"{BENCH_TFLOP}")
+    check(rec["mfu"] is not None and 0 < rec["mfu"] <= BENCH_MFU_MAX,
+          f"bench {label}: mfu {rec['mfu']} outside (0, {BENCH_MFU_MAX}]")
+    check(0 < rec["e2e_fraction"] <= BENCH_E2E_MAX,
+          f"bench {label}: e2e_fraction {rec['e2e_fraction']} outside (0, "
+          f"{BENCH_E2E_MAX}]")
+
+
+def _bench_text(rec: dict) -> str:
+    """The line's rates as step times at the defaults' B x n_win."""
+    n = TRAIN_B * TRAIN_WIN
+    return (f"compute-only {rec['compute_only_value']} samples/s = "
+            f"{n / rec['compute_only_value'] * 1e3:.1f} ms a step, e2e {rec['value']} = "
+            f"{n / rec['value'] * 1e3:.1f} ms a step, e2e/compute {rec['e2e_fraction']}, "
+            f"{rec['achieved_tflops_per_chip']} TFLOP/s, MFU {rec['mfu']}")
+
+
+def phase_bench(card: str, dev, probe: dict | None = None) -> dict:
+    """``ae_wavenet_tpu_torch/bench.py`` at the flagship width: (a) its
+    functions at the defaults (pairs; B = 4, n_win = 48,000, 20 iterations,
+    K = 8), (b) again under BENCH_FULL_FUSION=1 BENCH_BWD_GROUP=5 (the
+    whole-stack path), the launch counters at 0 before each and exact after
+    it (3 + 20 + 2K + 24 = 63 steps); (c) ``python -m
+    ae_wavenet_tpu_torch.bench`` as a subprocess at the defaults: rc 0, the
+    line last on stdout, the card's line on stderr.  Each line has the JAX
+    bench's keys (``bench_keys``), the e2e headline, 15.36 TFLOP a step and
+    MFU in (0, 1.05].  ``probe``: phase 13's ``probe_dispatch`` record, whose
+    compute rate the bench's is printed beside."""
+    import torch
+
+    from ae_wavenet_tpu_torch import bench
+    from ae_wavenet_tpu_torch.ops import gated
+    from ae_wavenet_tpu_torch.utils.config import WaveNetConfig
+
+    t_phase = time.perf_counter()
+    keys = bench_keys()
+    n_layers = len(gated.stack_dils(WaveNetConfig()))
+    steps = bench.WARMUP + BENCH_ITERS + 2 * BENCH_K + bench.e2e_steps(BENCH_ITERS, BENCH_K)
+    check(steps == 63 and n_layers % GROUP == 0, f"{steps} steps, {n_layers} layers")
+    runs = [("pairs (defaults)", {}, {"gated_pair_fused": n_layers // 2 * steps,
+                                      "gated_pair_bwd": n_layers // 2 * steps}),
+            (f"whole stack (BENCH_FULL_FUSION=1 BENCH_BWD_GROUP={GROUP})",
+             {"BENCH_FULL_FUSION": 1, "BENCH_BWD_GROUP": GROUP},
+             {"gated_stack_fused": steps, "gated_group_bwd": n_layers // GROUP * steps})]
+    launches: dict = {}
+    recs = {}
+    for label, env, want in runs:
+        with _environ(**{**dict.fromkeys(BENCH_KNOBS), **env}), f32_numerics():
+            cfg = bench.bench_config(os.environ)
+            _zero_counts()
+            t0 = time.perf_counter()
+            rec = bench.measure(cfg, dev, iters=BENCH_ITERS, k=BENCH_K)
+            torch.cuda.synchronize()
+            secs, got = time.perf_counter() - t0, _counts()
+        check(got == _expect(**want), f"bench {label}: launches {got}, expected "
+              f"{_expect(**want)}")
+        _bench_held(label, rec, keys)
+        for k, v in want.items():
+            launches[k] = launches.get(k, 0) + v
+        recs[label] = rec
+        print(f"[bench] {label}, in process: {json.dumps(rec)}; {_bench_text(rec)}; "
+              f"{steps} steps, launches {want}, plain 0; {secs:.1f} s | {card}")
+    if probe is not None:
+        rec = recs[runs[0][0]]
+        print(f"[bench] pairs compute-only over probe_dispatch's compute_sps (phase 13, "
+              f"same path and shape): {rec['compute_only_value'] / probe['compute_sps']:.4f}; "
+              f"e2e over its e2e_sps_k{BENCH_K}: "
+              f"{rec['value'] / probe[f'e2e_sps_k{BENCH_K}']:.4f} | {card}")
+
+    t0 = time.perf_counter()
+    env = {k: v for k, v in os.environ.items() if k not in BENCH_KNOBS}
+    r = subprocess.run([sys.executable, "-m", "ae_wavenet_tpu_torch.bench"],
+                       cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                       capture_output=True, text=True, timeout=BENCH_CLI_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    out = r.stdout.strip().splitlines()
+    check(r.returncode == 0 and out and out[-1].startswith("{"),
+          f"python -m ae_wavenet_tpu_torch.bench: rc {r.returncode}, stdout "
+          f"{r.stdout[-2000:]!r}, stderr {r.stderr[-2000:]!r}")
+    rec = json.loads(out[-1])
+    _bench_held("CLI", rec, keys)
+    check(card in r.stderr.splitlines(), f"bench CLI: the card's line {card!r} not on "
+          f"its stderr {r.stderr[-1000:]!r}")
+    print(f"[bench] python -m ae_wavenet_tpu_torch.bench: rc 0, {json.dumps(rec)}; "
+          f"{_bench_text(rec)}; stderr's card line {card!r}; {secs:.1f} s | {card}")
+    total = time.perf_counter() - t_phase
+    print(f"[bench] phase 14 in {total:.1f} s; launches {launches} | {card}")
+    return {"launches": launches, "seconds": total, "records": {**recs, "CLI": rec}}
 
 
 def _timed_grad_mean(events: list, nbytes: list):
@@ -3397,10 +3532,12 @@ def main() -> int:
         instr = phase_instruments(card, dev, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         meas = phase_measures(card, dev, tmp)
+    bench_ph = phase_bench(card, dev, meas["probe"])
 
     def extra(name: str) -> int:
-        """Phases 9 to 13's launches of one kernel."""
-        return sum(p["launches"].get(name, 0) for p in (inv, gate, par, instr, meas))
+        """Phases 9 to 14's launches of one kernel."""
+        return sum(p["launches"].get(name, 0)
+                   for p in (inv, gate, par, instr, meas, bench_ph))
 
     for mode, row in meas["by_batch"].items():
         k[mode]["by_batch"][MEASURE_GEN_BATCH] = row
@@ -3446,7 +3583,7 @@ def main() -> int:
         "launches": s["launches"]["vq"] + t["launches"]["vq_lookup_fused"]
         + e["launches"] + extra("vq_lookup_fused"), **vq_train, "library_ms": None,
         "n": v["training step"]["n"], "by_n": vq_by_n})
-    print(f"[smoke] phases 1-13 in {time.perf_counter() - t_start:.1f} s | {card}")
+    print(f"[smoke] phases 1-14 in {time.perf_counter() - t_start:.1f} s | {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -79,6 +79,7 @@ def test_port_imports_no_jax():
             "ae_wavenet_tpu_torch.scripts.ablate_step, "
             "ae_wavenet_tpu_torch.scripts.convergence_ab, "
             "ae_wavenet_tpu_torch.scripts.train_curves, "
+            "ae_wavenet_tpu_torch.bench, "
             "chip_smoke; "
             "bad = [m for m in sys.modules "
             "       if m.split('.')[0] in ('jax', 'ae_wavenet_tpu', 'scripts')]; "

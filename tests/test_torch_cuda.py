@@ -984,3 +984,50 @@ def test_quality_quantized_on_the_card_matches_the_cpu(cuda_device, tmp_path,
         assert sil <= 1e-4 * rw["spectral_l2_vs_silence"], mode
         if agree == g.shape[-1]:
             assert abs(rg["spectral_l2"] - rw["spectral_l2"]) <= 1e-4 * rw["spectral_l2"]
+
+
+# ------------------------------------------------------------------ the bench
+
+BENCH_GATED = ("gated_pair_fused", "gated_layer_fused", "gated_stack_fused",
+               "gated_pair_bwd", "gated_layer_bwd", "gated_group_bwd")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule,per_step", [
+    ("pairs", {"gated_pair_fused": 4, "gated_pair_bwd": 4}),
+    ("whole_stack", {"gated_stack_fused": 1, "gated_group_bwd": 2})])
+def test_bench_on_card_goes_through_the_gated_kernels(cuda_device, schedule, per_step):
+    """``bench.measure`` at a narrow stack (GCFG's widths, 8 layers; the
+    tiny encoder) on the card, B = 1 x 2,000, 2 iterations, K = 2: a
+    complete record with the e2e headline, MFU where the card's peak is
+    known, and in each of the run's 15 steps every gated kernel launched
+    as the schedule gives it (the whole stack: BENCH_FULL_FUSION=1 with
+    groups of 4) and no plain version at all."""
+    from ae_wavenet_tpu_torch import bench
+    from ae_wavenet_tpu_torch.utils.config import tiny_config
+
+    base = bench.bench_config({} if schedule == "pairs" else
+                              {"BENCH_FULL_FUSION": "1", "BENCH_BWD_GROUP": "4"})
+    cfg = dataclasses.replace(
+        base, encoder=tiny_config().encoder,
+        bottleneck=dataclasses.replace(base.bottleneck, n_dim=16, vq_k=32),
+        wavenet=dataclasses.replace(GCFG, use_pallas_stack=True,
+                                    gated_full_fusion=base.wavenet.gated_full_fusion,
+                                    gated_bwd_group=base.wavenet.gated_bwd_group),
+        train=dataclasses.replace(base.train, batch_sz=1, n_win=2000))
+    wrappers = [getattr(tgc, n) for n in BENCH_GATED]
+    plain = [getattr(tgt, n + "_reference") for n in BENCH_GATED]
+    before = [f.launches for f in wrappers + plain]
+    rec = bench.measure(cfg, cuda_device, iters=2, k=2)
+    torch.cuda.synchronize()
+    ran = [f.launches - b for f, b in zip(wrappers + plain, before)]
+    steps = bench.WARMUP + 2 + 2 * 2 + bench.e2e_steps(2, 2)
+    assert steps == 15
+    assert ran[:len(wrappers)] == [per_step.get(n, 0) * steps for n in BENCH_GATED]
+    assert ran[len(wrappers):] == [0] * len(plain)
+    assert rec["headline"] == "e2e" and rec["steps_per_call"] == 2
+    for key in ("value", "compute_only_value", "e2e_fraction", "model_tflops_per_step"):
+        assert np.isfinite(rec[key]) and rec[key] > 0, (key, rec)
+    peak = bench.peak_of(cuda_device)
+    assert (rec["mfu"] is None) == (peak is None)
+    assert rec["mfu"] is None or 0 <= rec["mfu"] <= 1.05

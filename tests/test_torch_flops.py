@@ -76,9 +76,9 @@ def test_inverter_count_differs_from_jax_where_the_graphs_differ():
 
 
 @pytest.mark.parametrize("name,want", [
-    ("NVIDIA H100 80GB HBM3", 989e12), ("NVIDIA H100 PCIe", 989e12),
-    ("TPU v5 lite", 197e12), ("TPU v5p", 459e12), ("TPU v4", 275e12),
-    ("NVIDIA A100-SXM4-80GB", None)])
+    ("NVIDIA H100 80GB HBM3", 989e12), ("NVIDIA H100 PCIe", 756e12),
+    ("NVIDIA H100 NVL", 835e12), ("NVIDIA H100 SXM5 94GB", 989e12),
+    ("TPU v5 lite", None), ("NVIDIA A100-SXM4-80GB", None)])
 def test_peak_lookup(name, want):
     assert tflops.peak_bf16_flops(name) == want
 
