@@ -10,9 +10,10 @@ autoregressive error is captured, which teacher-forced CE cannot see):
   log-mel spectrograms (audio/mfcc framing, before the DCT) of the
   reconstruction and the source segment.
 
-The rollout is the eager f32 sampler ``ops/fastgen.generate`` (it returns
-the per-step logits); the lattice is ``models/common.prime_for_generation``'s,
-shared with ``reconstruct``.
+The rollout is the f32 sampler ``ops/fastgen.generate`` (on the card a CUDA
+graph replayed once a sample, the counterpart of the reference's jitted
+scan; it returns the per-step logits); the lattice is
+``models/common.prime_for_generation``'s, shared with ``reconstruct``.
 """
 
 from __future__ import annotations
@@ -71,7 +72,7 @@ def _score_rollout(prep, model, cfg, wav_i16, spk, generator, temperature,
     """One rollout at ``temperature`` and its scores."""
     wcfg = cfg.wavenet
     n, start = prep.n, prep.start
-    # the eager sampler writes the queues in place: roll a copy, so a sweep
+    # the sampler writes the queues in place: roll a copy, so a sweep
     # starts every temperature from the same primed state
     state = fastgen.GenState(tuple(b.clone() for b in prep.state.bufs),
                              prep.state.prev_id, prep.state.t)

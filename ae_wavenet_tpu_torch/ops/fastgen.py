@@ -4,20 +4,31 @@ Counterpart of ``ae_wavenet_tpu.ops.fastgen`` (Fast WaveNet,
 arXiv:1611.09482): each dilated layer keeps a queue of its last
 ``dilation`` input activations, so one new sample costs one matmul pass
 through the stack.  This module holds the state, the plain f32 cell,
-:func:`prime`, which warms the queues on real context, and the eager f32
+:func:`prime`, which warms the queues on real context, and the f32
 samplers :func:`generate` (the quality eval's rollout and the fused
 sampler's oracle) and :func:`generate_naive` (the O(receptive field) per
 sample oracle).  The fused sampler runs in ``ops/fastgen_cuda.py``.
 
 State layout per layer l: buf [B, n_res, d_l] f32 holding the layer's input
 activation at positions t-1 .. t-d_l (circular, index t mod d_l), as in the
-reference.  Unlike the reference's pure functions, the cell and
-:func:`prime` update the buffers in place: a flagship batch of 64 holds
+reference.  Unlike the reference's pure functions, :func:`prime` and
+:func:`generate` update the buffers in place: a flagship batch of 64 holds
 200 MB of them.
+
+The reference runs :func:`prime` and :func:`generate` as jitted
+``lax.scan``s of the cell (``ae_wavenet_tpu/ops/fastgen.py:135-210``).  Here
+one step (:func:`_cell` and what follows it) reads every input from device
+tensors, the step counters included, so on a CUDA device it is captured
+once as a CUDA graph and replayed once a step: the counterpart of the
+compiled scan, with the same kernels and so the same bits as the step
+called in a Python loop.  That loop runs on the CPU, and on the card only
+when asked for with ``eager=True`` (the graph's plain version).  A capture
+or replay that fails raises; nothing falls back to the loop on the card.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import NamedTuple, Tuple
 
 import torch
@@ -72,33 +83,131 @@ def pack_params(wavenet: WaveNet, cfg: WaveNetConfig, dtype=torch.float32) -> di
     }
 
 
-def _cell(packed: dict, cfg: WaveNetConfig, state: GenState,
-          x_id: torch.Tensor, cond_t: torch.Tensor,
-          dtype=torch.float32) -> torch.Tensor:
-    """One AR step: consume sample ids x_id [B] and the cond column
-    [B, n_cond]; writes the queues in place and returns logits [B, n_quant].
-    Every GEMM input is rounded to the compute ``dtype``; the residual
-    stream, the queues and the sums stay f32."""
+def _ring(bufs) -> torch.Tensor:
+    """The queues [B, n_res, d_l] as one buffer [sum d_l, B, n_res]: layer
+    l's slot s at row off_l + s, off_l = d_0 + ... + d_(l-1)."""
+    return torch.cat([b.permute(2, 0, 1) for b in bufs], 0)
+
+
+def _unring(ring: torch.Tensor, bufs, cfg: WaveNetConfig) -> None:
+    """Write :func:`_ring`'s buffer back into the queues, in place."""
+    for b, r in zip(bufs, ring.split(list(cfg.dilations), 0)):
+        b.copy_(r.permute(1, 2, 0))
+
+
+class _Loop:
+    """One call's state on its device; every input a step reads is a tensor
+    here, so one step can be captured and replayed:
+
+    ring     [sum d_l, B, n_res] f32, every layer's queue (:func:`_ring`);
+    offs, dils  [L] int64, each layer's first row in ``ring`` and dilation;
+    ctr      [2] int64, the ring phase t and the call's step j, advanced by
+             the step itself;
+    cond_tm  [T, B, n_cond], the cond column of each step;
+    and what :func:`prime` or :func:`generate` adds (the AR inputs, the
+    draws, the outputs)."""
+
+    WRITTEN = ("ring", "ctr", "prev")  # what a step writes besides its outputs' row j
+
+    def __init__(self, cfg: WaveNetConfig, state: GenState, cond_tm: torch.Tensor):
+        dev = cond_tm.device
+        d = torch.tensor(cfg.dilations, dtype=torch.long)
+        self.dils = d.to(dev)
+        self.offs = (torch.cumsum(d, 0) - d).to(dev)
+        self.ring = _ring(state.bufs)
+        self.ctr = torch.tensor([state.t, 0], dtype=torch.long, device=dev)
+        self.cond_tm = cond_tm
+
+    def scratch(self) -> "_Loop":
+        """A copy whose step leaves this loop's queues, counters and AR input
+        as they are (the warm-up before a capture); it writes row 0 of the
+        shared outputs, which step 0 writes again."""
+        c = copy.copy(self)
+        for k in self.WRITTEN:
+            if hasattr(self, k):
+                setattr(c, k, getattr(self, k).clone())
+        return c
+
+
+def _cell(packed: dict, cfg: WaveNetConfig, loop: _Loop, x_id: torch.Tensor,
+          dtype=torch.float32, head: bool = True) -> torch.Tensor | None:
+    """One AR step at ``loop``'s counters: consume sample ids x_id [B] and
+    the cond column of step j, write every queue at slot t mod d_l in place
+    and return logits [B, n_quant].  Every layer's read comes before any
+    write (each layer reads and writes only its own queue, at one slot), so
+    the reads are one gather at the start and the writes one scatter at the
+    end.  Every GEMM input is rounded to the compute ``dtype``; the residual
+    stream, the queues and the sums stay f32.  Without ``head`` (prime,
+    whose logits are discarded) neither the skip sums, the post-net nor the
+    last layer, which only they read, is computed: the queues get the same
+    bits.  The counters are left for the caller to advance."""
     rnd = _rounder(dtype)
-    x = packed["embed"][x_id]  # [B, n_res]
-    cond_t = rnd(cond_t)
+    n_layers = len(cfg.dilations)
+    t, j = loop.ctr[:1], loop.ctr[1:]
+    slot = loop.offs + torch.remainder(t, loop.dils)
+    x_prev = loop.ring.index_select(0, slot)  # [L, B, n_res]
+    xs = torch.empty_like(x_prev)             # every layer's input, this step
+    x = torch.index_select(packed["embed"], 0, x_id, out=xs[0])
+    cond_t = rnd(loop.cond_tm.index_select(0, j)[0])
     skip = None
-    for i, d in enumerate(cfg.dilations):
-        buf = state.bufs[i]
-        ptr = state.t % d
-        x_prev = buf[:, :, ptr].clone()  # read before the write below
-        buf[:, :, ptr] = x
-        xin = torch.cat([rnd(x_prev), rnd(x), cond_t], 1)
+    for i in range(n_layers if head else n_layers - 1):
+        xin = torch.cat([rnd(x_prev[i]), rnd(x), cond_t], 1)
         y = torch.addmm(packed["b_in"][i], xin, packed["w_in"][i])
         f, g = y.chunk(2, 1)
         h = rnd(torch.tanh(f) * torch.sigmoid(g))
         rs = torch.addmm(packed["b_out"][i], h, packed["w_out"][i])
         res, s = rs[:, : cfg.n_res], rs[:, cfg.n_res :]
-        skip = s if skip is None else skip + s
-        x = x + res
+        if head:
+            skip = s if skip is None else skip + s
+        if i + 1 < n_layers:
+            x = torch.add(x, res, out=xs[i + 1])
+    loop.ring.index_copy_(0, slot, xs)
+    if not head:
+        return None
     h = rnd(torch.relu(skip))
     h = rnd(torch.relu(torch.addmm(packed["post1_b"], h, packed["post1_w"])))
     return torch.addmm(packed["post2_b"], h, packed["post2_w"])
+
+
+def _capture(make_step, loop: _Loop) -> torch.cuda.CUDAGraph:
+    """``make_step(loop)`` captured once as a CUDA graph, after one warm-up
+    step on a scratch copy of the loop on the capture stream (cuBLAS and
+    the allocator initialise there, outside the capture).  Other threads
+    (a training run's loader) may use the card meanwhile."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        make_step(loop.scratch())()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    # the outer stream context gives the caller back its stream where a
+    # failed capture raises from the graph context's exit before its own
+    with torch.cuda.stream(side), torch.cuda.graph(
+            graph, stream=side, capture_error_mode="thread_local"):
+        make_step(loop)()
+    return graph
+
+
+def _run(counted, make_step, loop: _Loop, n_steps: int, eager: bool,
+         refill=None, chunk: int = 0) -> None:
+    """``n_steps`` steps of ``make_step(loop)``: on a CUDA device, unless
+    ``eager``, one captured step replayed ``n_steps`` times; else the step
+    called in a Python loop.  ``refill()`` runs before step j wherever
+    j % ``chunk`` == 0.  Counts ``counted.graph_replays`` and
+    ``counted.eager_steps``."""
+    graph = None
+    if loop.ring.is_cuda and not eager and n_steps:
+        graph = _capture(make_step, loop)
+    step = make_step(loop)
+    for j in range(n_steps):
+        if refill is not None and j % chunk == 0:
+            refill()
+        if graph is None:
+            step()
+            counted.eager_steps += 1
+        else:
+            graph.replay()
+            counted.graph_replays += 1
 
 
 def with_gc(wavenet: WaveNet, cfg: WaveNetConfig, cond: torch.Tensor,
@@ -114,38 +223,76 @@ def with_gc(wavenet: WaveNet, cfg: WaveNetConfig, cond: torch.Tensor,
     return torch.cat([cond, g], 1)
 
 
+def _by_step(wavenet, cfg, cond, gc_ids) -> torch.Tensor:
+    """cond [B, n_lc_out, T] with the speaker embedding, time-major
+    [T, B, n_cond]."""
+    return with_gc(wavenet, cfg, cond, gc_ids).permute(2, 0, 1).contiguous()
+
+
 @torch.no_grad()
 def prime(wavenet: WaveNet, cfg: WaveNetConfig, state: GenState,
           ids: torch.Tensor, cond: torch.Tensor,
-          gc_ids: torch.Tensor | None = None) -> GenState:
+          gc_ids: torch.Tensor | None = None, eager: bool = False) -> GenState:
     """Warm the queues with known samples (teacher context), in place.
 
     ids: [B, T0] real samples at positions [t, t+T0).  The first T0-1 are
     consumed through the stack (their logits discarded); the LAST one is
     left as ``prev_id`` so the next generation step consumes it.
-    cond: [B, n_lc_out, >= T0-1] columns for the consumed positions.
-    """
+    cond: [B, n_lc_out, >= T0-1] columns for the consumed positions.  On a
+    CUDA device the step is a CUDA graph replayed T0-1 times (``eager``:
+    the same step in a Python loop)."""
     t0 = ids.shape[-1]
-    cond_tm = with_gc(wavenet, cfg, cond[..., : t0 - 1], gc_ids).permute(2, 0, 1)
     packed = pack_params(wavenet, cfg)
-    st = state
-    for j in range(t0 - 1):
-        _cell(packed, cfg, st, ids[:, j], cond_tm[j])
-        st = GenState(st.bufs, ids[:, j], st.t + 1)
-    return GenState(st.bufs, ids[:, -1], st.t)
+    loop = _Loop(cfg, state, _by_step(wavenet, cfg, cond[..., : t0 - 1], gc_ids))
+    loop.ids = ids[:, : t0 - 1].t().contiguous()
+
+    def make_step(lp):
+        def step():
+            _cell(packed, cfg, lp, lp.ids.index_select(0, lp.ctr[1:])[0], head=False)
+            lp.ctr.add_(1)
+        return step
+
+    _run(prime, make_step, loop, t0 - 1, eager)
+    _unring(loop.ring, state.bufs, cfg)
+    return GenState(state.bufs, ids[:, -1], state.t + t0 - 1)
+
+
+prime.graph_replays = 0
+prime.eager_steps = 0
+
+#: the most bytes of uniforms :func:`generate` draws at once: a rollout
+#: whose T x B x n_quant f32 would take more draws them in chunks of steps
+DRAW_CHUNK_BYTES = 256 << 20
+
+
+def _pick(logits: torch.Tensor, u: torch.Tensor, temperature: float) -> torch.Tensor:
+    """A categorical draw from softmax(logits / temperature) by Gumbel-max
+    on the uniforms u (logits' shape)."""
+    g = -torch.log(-torch.log(u.clamp_min(1e-20)))
+    return torch.argmax(logits / temperature + g, -1)
 
 
 def _draw(logits: torch.Tensor, temperature: float,
           generator: torch.Generator | None) -> torch.Tensor:
-    """Next ids [B] from logits [B, Q]: argmax at temperature 0, else a
-    categorical draw from softmax(logits / temperature) by Gumbel-max, the
-    uniforms taken from ``generator`` on its own device."""
+    """Next ids [B] from logits [B, Q]: argmax at temperature 0, else
+    :func:`_pick` on uniforms taken from ``generator`` on its own device."""
     if temperature == 0.0:
         return torch.argmax(logits, -1)
     u_dev = logits.device if generator is None else generator.device
-    u = torch.rand(logits.shape, generator=generator, device=u_dev).to(logits.device)
-    g = -torch.log(-torch.log(u.clamp_min(1e-20)))
-    return torch.argmax(logits / temperature + g, -1)
+    u = torch.rand(logits.shape, generator=generator, device=u_dev)
+    return _pick(logits, u.to(logits.device), temperature)
+
+
+def _draws(generator: torch.Generator | None, n_steps: int, chunk: int,
+           shape: tuple, device):
+    """The uniforms of ``n_steps`` draws of ``shape``, ``chunk`` steps at a
+    time: yields [c, *shape] on ``generator``'s device (``device``'s
+    default generator when None).  One chunk from a CPU generator holds the
+    numbers of its steps drawn one by one, as :func:`_draw` draws them."""
+    u_dev = device if generator is None else generator.device
+    for j in range(0, n_steps, chunk):
+        c = min(chunk, n_steps - j)
+        yield torch.rand((c, *shape), generator=generator, device=u_dev)
 
 
 @torch.no_grad()
@@ -153,11 +300,14 @@ def generate(wavenet: WaveNet, cfg: WaveNetConfig, state: GenState,
              cond: torch.Tensor, generator: torch.Generator | None = None,
              gc_ids: torch.Tensor | None = None, n_steps: int | None = None,
              temperature: float = 1.0, return_logits: bool = False,
-             dtype=torch.float32):
+             dtype=torch.float32, eager: bool = False):
     """Sample ``n_steps`` (default: the cond length) mu-law ids with the
-    cell, one eager step per sample: f32, or with ``dtype=torch.bfloat16``
-    the GEMMs' inputs rounded to bf16 and their sums kept in f32, as the
-    reference's ``dtype`` does.
+    cell: f32, or with ``dtype=torch.bfloat16`` the GEMMs' inputs rounded to
+    bf16 and their sums kept in f32, as the reference's ``dtype`` does.  On
+    a CUDA device the step is a CUDA graph replayed once a sample
+    (``eager``: the same step in a Python loop).  Every step's uniforms are
+    drawn from ``generator`` before its chunk of steps (:func:`_draws`, at
+    most DRAW_CHUNK_BYTES a chunk), the same numbers on either path.
 
     cond: [B, n_lc_out, T]; column p conditions the step that consumes the
     sample at position p (the training lattice).  The queues of ``state``
@@ -168,18 +318,49 @@ def generate(wavenet: WaveNet, cfg: WaveNetConfig, state: GenState,
     if t_len > cond.shape[-1]:
         raise ValueError(f"n_steps={t_len} exceeds the {cond.shape[-1]} "
                          "conditioning columns provided")
-    cond_tm = with_gc(wavenet, cfg, cond[..., :t_len], gc_ids).permute(2, 0, 1)
     packed = pack_params(wavenet, cfg, dtype)
-    st, ids, all_logits = state, [], []
-    for j in range(t_len):
-        logits = _cell(packed, cfg, st, st.prev_id, cond_tm[j], dtype)
-        nxt = _draw(logits, temperature, generator)
-        st = GenState(st.bufs, nxt, st.t + 1)
-        ids.append(nxt.to(torch.int32))
-        if return_logits:
-            all_logits.append(logits)
-    out = (torch.stack(ids, 1), st)
-    return out + (torch.stack(all_logits, 2),) if return_logits else out
+    loop = _Loop(cfg, state, _by_step(wavenet, cfg, cond[..., :t_len], gc_ids))
+    dev, b, q = cond.device, state.prev_id.shape[0], cfg.n_quant
+    loop.prev = state.prev_id.to(device=dev, dtype=torch.long, copy=True)
+    loop.ids = torch.empty(t_len, b, dtype=torch.long, device=dev)
+    loop.logits = torch.empty(t_len, b, q, device=dev) if return_logits else None
+    refill, chunk = None, 0
+    if temperature != 0.0:
+        chunk = max(1, min(t_len, DRAW_CHUNK_BYTES // (4 * b * q)))
+        loop.u = torch.zeros(chunk, b, q, device=dev)
+        draws = _draws(generator, t_len, chunk, (b, q), dev)
+
+        def refill():
+            u = next(draws)
+            loop.u[: u.shape[0]].copy_(u)
+
+    def make_step(lp):
+        def step():
+            logits = _cell(packed, cfg, lp, lp.prev, dtype)
+            j = lp.ctr[1:]
+            if temperature == 0.0:
+                nxt = torch.argmax(logits, -1)
+            else:
+                u = lp.u.index_select(0, torch.remainder(j, chunk))[0]
+                nxt = _pick(logits, u, temperature)
+            lp.ids.index_copy_(0, j, nxt[None])
+            if return_logits:
+                lp.logits.index_copy_(0, j, logits[None])
+            lp.prev.copy_(nxt)
+            lp.ctr.add_(1)
+        return step
+
+    _run(generate, make_step, loop, t_len, eager, refill, chunk)
+    _unring(loop.ring, state.bufs, cfg)
+    out = (loop.ids.t().to(torch.int32),
+           GenState(state.bufs, loop.prev, state.t + t_len))
+    if return_logits:
+        return out + (loop.logits.permute(1, 2, 0).contiguous(),)
+    return out
+
+
+generate.graph_replays = 0
+generate.eager_steps = 0
 
 
 @torch.no_grad()

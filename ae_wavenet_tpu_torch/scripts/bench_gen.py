@@ -4,11 +4,12 @@ factor).
 Counterpart of the JAX package's ``scripts/bench_gen.py``, its two arms
 mapped onto the port:
 
-* "xla_scan" times the plain formulation, the eager sampler
-  ``ops/fastgen.generate`` (one cell step per sample; ``GEN_DTYPE=bf16``
+* "xla_scan" times the plain formulation, the sampler
+  ``ops/fastgen.generate`` (one cell step per sample, replayed as a CUDA
+  graph on the card as the reference's scan is jitted; ``GEN_DTYPE=bf16``
   rounds every GEMM input to bf16 and sums in f32, as the reference's
   ``dtype`` does).  Its ``compile_s`` is the first call's seconds: nothing
-  is compiled here;
+  is compiled here, and every call captures its step anew;
 * "pallas_fused" (``_int8`` with ``GEN_INT8=1``, ``_int4`` with
   ``GEN_INT4=1``) times the hand-written sampler,
   ``ops/fastgen_cuda.generate_auto`` (K4, K5, K6: ``csrc/fastgen.cu``),
@@ -17,7 +18,7 @@ mapped onto the port:
   only.
 
 Environment: ``GEN_BATCH`` (64), ``GEN_STEPS`` (4096), ``GEN_DTYPE``
-(``bf16``), ``GEN_SKIP_SCAN`` (``1`` skips the eager record), ``GEN_INT8``,
+(``bf16``), ``GEN_SKIP_SCAN`` (``1`` skips the "xla_scan" record), ``GEN_INT8``,
 ``GEN_INT4``.  Each record is the best of three calls after a warm-up, the
 host clock around a call that ends in a synchronisation of the device.
 
@@ -70,7 +71,7 @@ def main(argv=None) -> int:
     state = fastgen.init_state(cfg, batch, device=device)
 
     def fresh() -> fastgen.GenState:
-        """The start state again: the eager sampler writes its queues in place."""
+        """The start state again: the sampler writes its queues in place."""
         return fastgen.GenState(tuple(b.clone() for b in state.bufs),
                                 state.prev_id.clone(), state.t)
 

@@ -9,7 +9,8 @@ Counterpart of the JAX package's ``scripts/eval_quality.py``: one JSON
 line per clip and a summary line, with its keys.  ``--divergence`` sweeps
 the sampling temperature and buckets free NLL by rollout position
 (``eval/quality.divergence_report``) in place of the single-temperature
-record.  The rollout is the eager f32 sampler (``ops/fastgen.generate``).
+record.  The rollout is the f32 sampler (``ops/fastgen.generate``, a CUDA
+graph replayed once a sample on the card).
 """
 
 from __future__ import annotations

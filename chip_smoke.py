@@ -45,7 +45,12 @@ power limit:
    an export-format checkpoint, then ``reconstruct`` on a batch of 64 clips,
    then the CLI with ``--int8`` and with ``--int4`` on a checkpoint whose
    config has ``vq_use_pallas=True``; the launch counters are set to 0
-   before each run and show which kernels it went through;
+   before each run and show which kernels it went through, and that prime
+   ran as a CUDA graph (2,046 replays a request, no eager step); then
+   prime and the f32 rollout (``ops/fastgen``, CUDA graphs) against the
+   same step in the eager loop at the flagship width, B = 1 and 64: the
+   rings, and 256 rollout steps' ids and logits at temperature 0 and 1,
+   bit for bit, each path's seconds (``serve_graph``);
 6. train-kernels: the six gated-stack kernels (``csrc/gated.cu``: one
    layer, a pair, the whole stack forward; one layer in both modes, a pair,
    a group of layers backward; all on the Hopper core) against their plain
@@ -88,7 +93,9 @@ power limit:
    whole-stack schedule's step beside the pairs step of the same run, and
    the step's time split from CUDA events around its parts in 3 steps of
    one ``Chassis`` run, for the main and the whole-stack path;
-8. eval: ``cli/eval.py --quality`` on the checkpoint that run wrote;
+8. eval: ``cli/eval.py --quality`` on the checkpoint that run wrote (its
+   prime and rollout as CUDA graphs; from here on every exact launch check
+   also holds the eager step loop of prime and the rollout at 0);
 9. inverter: ``python -m ae_wavenet_tpu_torch.cli.preprocess --synthetic``
    writes the reference's v2 fixture (8 clips); the train CLI runs ``new
    --preset chorowski --model mfcc_inverter --pallas-stack --frame-norm
@@ -173,6 +180,11 @@ builds the kernels and runs ``--mesh`` over every card on NCCL (new 3 +
 resume 1 steps, the first step against one card at the same global
 batch) and the halo stack over the cards.
 
+``python3 chip_smoke.py --serve-times`` builds the kernels and only times
+the serving path (the CLI's B = 1 request twice, ``reconstruct`` at B =
+64, ``bench_gen`` at B = 64), with no checks: run from an unpacked older
+commit with this file beside it, it times that commit's prime.
+
 ``python3 chip_smoke.py --kernel-times`` builds the kernels and only times
 the VQ lookup (phase 4's numbers) and the single-layer backward's recompute
 mode (phase 6's), with no checks: run from an unpacked older commit with
@@ -215,6 +227,9 @@ SAMPLE_T = 2048         # steps of the sampling test at B = 8
 MIN_DRAWS = 8 * SAMPLE_T  # draws of a sampling test, at any batch
 CLI_SAMPLES = 4000      # B = 1 request
 BATCH = 64              # batched request
+GRAPH_T = 256           # rollout steps of the graph-against-eager check
+GRAPH_RTOL = 1e-6       # its fallback where the bits differ (the cause printed)
+SERVE_TIMES_STEPS = 512  # bench_gen's steps in --serve-times
 Q_BIG_BATCH = 136       # past the earlier cluster design's 120-row bound
 # ms per generated step of the earlier (cluster) design at B = 1 / 8 / 64,
 # PERF.md (NVIDIA H100 80GB HBM3, 700 W)
@@ -1075,12 +1090,7 @@ def phase_serve(card: str, dev, data: str, tmp: str) -> dict:
     print(f"[serve] fixture: two chorowski checkpoints in "
           f"{time.perf_counter() - t0:.1f} s | {card}")
 
-    def zero_counts():
-        for f in (fc.generate_fused_reference, vq.vq_lookup_fused,
-                  vq.vq_lookup_reference):
-            f.launches = 0
-        for name in ("launches", "launches_int8", "launches_int4"):
-            setattr(fc.generate_fused, name, 0)
+    rf = sum(cfg.wavenet.dilations)
 
     def counts() -> dict:
         return {"bf16": fc.generate_fused.launches,
@@ -1088,12 +1098,13 @@ def phase_serve(card: str, dev, data: str, tmp: str) -> dict:
                 "int4": fc.generate_fused.launches_int4,
                 "vq": vq.vq_lookup_fused.launches,
                 "plain": fc.generate_fused_reference.launches
-                + vq.vq_lookup_reference.launches}
+                + vq.vq_lookup_reference.launches, **_graph_counts()}
 
     def run_cli(ckpt_path: str, *flags) -> tuple[dict, str]:
         """One request through the generate CLI with the counters set to 0
-        just before and read just after: -> (launches, the timing line)."""
-        zero_counts()
+        just before and read just after: -> (launches and prime's graph
+        replays, the timing line)."""
+        _zero_counts()
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             rc = cli.main(["--ckpt", ckpt_path, "--data", data, "--clip", "0",
@@ -1120,7 +1131,8 @@ def phase_serve(card: str, dev, data: str, tmp: str) -> dict:
     got1, line = run_cli(ckpt)
     print(f"{line} | {card}")
     k1, p1 = got1["bf16"], got1["plain"]
-    check(got1 == {"bf16": 1, "int8": 0, "int4": 0, "vq": 0, "plain": 0},
+    check(got1 == {"bf16": 1, "int8": 0, "int4": 0, "vq": 0, "plain": 0,
+                   "prime": rf, "rollout": 0, "eager": 0},
           f"bf16 CLI launches {got1}")
 
     ds = PackedDataset(data)
@@ -1128,10 +1140,14 @@ def phase_serve(card: str, dev, data: str, tmp: str) -> dict:
     spk = torch.from_numpy(ds.speakers[:BATCH].astype(np.int64)).to(dev)
     model = ae.init(cfg, torch.Generator().manual_seed(1), dev).eval()
     timings: dict = {}
+    g0 = _graph_counts()
     ids, start = ae.reconstruct(model, cfg, torch.from_numpy(wav64).to(dev), spk,
                                 torch.Generator().manual_seed(2), temperature=1.0,
                                 n_samples=BATCH_SAMPLES, timings=timings)
     torch.cuda.synchronize()
+    g64 = {k: v - g0[k] for k, v in _graph_counts().items()}
+    check(g64 == {"prime": rf, "rollout": 0, "eager": 0},
+          f"reconstruct B={BATCH}: prime's graph replays / eager steps {g64}")
     k64 = fc.generate_fused.launches - k1
     p64 = fc.generate_fused_reference.launches - p1
     check(tuple(ids.shape) == (BATCH, BATCH_SAMPLES), f"ids shape {tuple(ids.shape)}")
@@ -1146,7 +1162,8 @@ def phase_serve(card: str, dev, data: str, tmp: str) -> dict:
     check(k1 >= 1 and k64 >= 1, f"kernel launches: CLI {k1}, batch {k64}")
     check(p1 == 0 and p64 == 0, f"plain version ran: CLI {p1}, batch {p64}")
     print(f"[serve] kernel launches: CLI {k1}, batch {k64}; plain version "
-          f"launches: {p1 + p64} | {card}")
+          f"launches: {p1 + p64}; prime as a CUDA graph: {got1['prime']} and "
+          f"{g64['prime']} replays, no eager step | {card}")
     del model
 
     # quantized serving from the checkpoint that asks for the fused VQ lookup:
@@ -1154,12 +1171,106 @@ def phase_serve(card: str, dev, data: str, tmp: str) -> dict:
     launches = {"bf16": k1 + k64, "vq": 0}
     for mode in ("int8", "int4"):
         got, line = run_cli(ckpt_vq, "--" + mode)
-        want = {"bf16": 0, "int8": 0, "int4": 0, "vq": 1, "plain": 0, mode: 1}
+        want = {"bf16": 0, "int8": 0, "int4": 0, "vq": 1, "plain": 0, mode: 1,
+                "prime": rf, "rollout": 0, "eager": 0}
         check(got == want, f"--{mode} CLI launches {got}, expected {want}")
         print(f"{line} | {card}")
         launches[mode] = got[mode]
         launches["vq"] += got["vq"]
+    with f32_numerics():
+        serve_graph(card, dev)
     return {"launches": launches}
+
+
+def serve_graph(card: str, dev) -> None:
+    """Prime and the f32 rollout as CUDA graphs against the same step in a
+    Python loop (``eager=True``, the graph's plain version): the flagship
+    decoder (seeded random weights) at B = 1 and B = BATCH, primed on rf + 1
+    context ids through the graph, the loop and the graph again (every
+    ring and the last ids bit for bit), then GRAPH_T rollout steps from the
+    graph's state at temperature 0 and 1 with one seeded generator each way
+    (ids equal, logits bit for bit); where bits differ, within GRAPH_RTOL
+    with the difference printed.  The counters: each graph call T replays
+    and no eager step, each loop T eager steps and no replay.  Prints each
+    path's seconds."""
+    import torch
+
+    from ae_wavenet_tpu_torch.models.wavenet import WaveNet
+    from ae_wavenet_tpu_torch.ops import fastgen as fg
+    from ae_wavenet_tpu_torch.utils.config import chorowski_config
+
+    wcfg = chorowski_config().wavenet
+    rf = sum(wcfg.dilations)
+    gen = torch.Generator().manual_seed(11)
+    wn = WaveNet(wcfg, gen).to(dev)
+    with torch.no_grad():
+        wn.post2["w"].mul_(POST2_SCALE)  # informative logits: draws that depend on them
+
+    def held(label, got, want) -> str:
+        """Bit for bit, or within GRAPH_RTOL of max |want| (-> what held)."""
+        if torch.equal(got, want):
+            return "bit for bit"
+        rel = float((got - want).abs().max() / want.abs().max())
+        check(rel <= GRAPH_RTOL, f"graph vs eager {label}: max rel diff {rel:.3g}")
+        print(f"[serve] graph vs eager {label}: not bit for bit, max rel diff "
+              f"{rel:.3g} | {card}")
+        return f"within {rel:.3g}"
+
+    def timed(fn, want_counts):
+        _zero_graph_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = _graph_counts()
+        check(got == want_counts, f"graph counters {got}, expected {want_counts}")
+        return out, secs
+
+    def copy(st):
+        return fg.GenState(tuple(b.clone() for b in st.bufs), st.prev_id.clone(), st.t)
+
+    for b in (1, BATCH):
+        ctx = torch.randint(0, wcfg.n_quant, (b, rf + 1), generator=gen).to(dev)
+        cond = (torch.randn(b, wcfg.n_lc_out, rf + GRAPH_T, generator=gen) * 0.3).to(dev)
+        spk = torch.randint(0, wcfg.n_speakers, (b,), generator=gen).to(dev)
+
+        def prime(eager):
+            return fg.prime(wn, wcfg, fg.init_state(wcfg, b, device=dev), ctx, cond, spk,
+                            eager=eager)
+
+        graph = {"prime": rf, "rollout": 0, "eager": 0}
+        g_st, g_s = timed(lambda: prime(False), graph)
+        e_st, e_s = timed(lambda: prime(True), {"prime": 0, "rollout": 0, "eager": rf})
+        g2_st, g2_s = timed(lambda: prime(False), graph)
+        check(g_st.t == e_st.t == rf and torch.equal(g_st.prev_id, e_st.prev_id),
+              f"B={b}: primed phase {g_st.t} / {e_st.t} or last ids differ")
+        rings = [held(f"B={b} ring {i}", g.bufs[i], e.bufs[i])
+                 for g, e in ((g_st, e_st), (g2_st, e_st)) for i in range(len(g.bufs))]
+        print(f"[serve] prime B={b}, {rf} steps: graph {g_s:.3f} s (with its capture), "
+              f"{g2_s:.3f} s again; eager {e_s:.3f} s ({e_s / g2_s:.1f}x); rings "
+              f"{'bit for bit' if set(rings) == {'bit for bit'} else rings} | {card}")
+        for temp in (0.0, 1.0):
+            def roll(eager):
+                return fg.generate(wn, wcfg, copy(g_st), cond[..., rf:],
+                                   torch.Generator().manual_seed(5), gc_ids=spk,
+                                   temperature=temp, return_logits=True, eager=eager)
+
+            (g_ids, _, g_lg), gr_s = timed(lambda: roll(False), {
+                "prime": 0, "rollout": GRAPH_T, "eager": 0})
+            (e_ids, _, e_lg), er_s = timed(lambda: roll(True), {
+                "prime": 0, "rollout": 0, "eager": GRAPH_T})
+            same = (g_ids == e_ids).all(0)
+            check(bool(same.all()), f"B={b} T={temp}: graph and eager ids differ from "
+                  f"step {int(same.logical_not().int().argmax())}")
+            check(bool(torch.isfinite(g_lg).all()), f"B={b} T={temp}: non-finite logits")
+            lg = held(f"B={b} T={temp} logits", g_lg, e_lg)
+            print(f"[serve] rollout B={b}, T={temp}, {GRAPH_T} steps (f32, logits kept): "
+                  f"graph {GRAPH_T / gr_s:.1f} samples/s a stream ({gr_s:.3f} s), eager "
+                  f"{GRAPH_T / er_s:.1f} ({er_s:.3f} s, {er_s / gr_s:.1f}x); ids equal, "
+                  f"logits {lg}; {len(set(g_ids.flatten().tolist()))} distinct ids "
+                  f"| {card}")
+        del g_st, e_st, g2_st
 
 
 def cuda_s(fn) -> float:
@@ -1797,6 +1908,7 @@ def phase_eval(card: str, data: str, ckpt_dir: str) -> dict:
     from ae_wavenet_tpu_torch.ops import vq_cuda as vq
 
     vq.vq_lookup_fused.launches = vq.vq_lookup_reference.launches = 0
+    _zero_graph_counts()
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
@@ -1818,11 +1930,15 @@ def phase_eval(card: str, data: str, ckpt_dir: str) -> dict:
     n_vq, n_plain = vq.vq_lookup_fused.launches, vq.vq_lookup_reference.launches
     check(n_vq == EVAL_BATCHES + 1 and n_plain == 0,
           f"eval: VQ kernel launches {n_vq} (expected {EVAL_BATCHES + 1}), plain {n_plain}")
+    graph = _graph_counts()
+    check(graph["eager"] == 0 and graph["prime"] > 0 and graph["rollout"] >= EVAL_SAMPLES,
+          f"eval: prime's and the rollout's graph replays / eager steps {graph}")
     print(f"[eval] {json.dumps(ev)} | {card}")
     print(f"[eval] {json.dumps(q)} | {card}")
     print(f"[eval] cli/eval.py --quality: {EVAL_BATCHES} eval batches and "
           f"{EVAL_SAMPLES} free-running samples in {secs:.1f} s; VQ kernel launches "
-          f"{n_vq}, plain {n_plain} | {card}")
+          f"{n_vq}, plain {n_plain}; graph replays: prime {graph['prime']}, rollout "
+          f"{graph['rollout']}, no eager step | {card}")
     return {"launches": n_vq}
 
 
@@ -1840,6 +1956,25 @@ def _zero_counts() -> None:
     gc.gated_layer_bwd.launches_recompute = 0
     for name in ("launches", "launches_int8", "launches_int4"):
         setattr(fc.generate_fused, name, 0)
+    _zero_graph_counts()
+
+
+def _zero_graph_counts() -> None:
+    """prime's and generate's graph replays and eager steps to 0."""
+    from ae_wavenet_tpu_torch.ops import fastgen as fg
+
+    for f in (fg.prime, fg.generate):
+        f.graph_replays = f.eager_steps = 0
+
+
+def _graph_counts() -> dict:
+    """Steps since _zero_graph_counts of prime and of the f32 rollout
+    (``generate``) replayed as CUDA graphs, and of either one in the eager
+    step loop (none on the card outside phase 5's plain comparison)."""
+    from ae_wavenet_tpu_torch.ops import fastgen as fg
+
+    return {"prime": fg.prime.graph_replays, "rollout": fg.generate.graph_replays,
+            "eager": fg.prime.eager_steps + fg.generate.eager_steps}
 
 
 def _counts() -> dict:
@@ -1857,13 +1992,16 @@ def _counts() -> dict:
     got["plain"] = (sum(getattr(gated, n + "_reference").launches for n in GATED)
                     + vq.vq_lookup_reference.launches
                     + fc.generate_fused_reference.launches)
+    got["eager"] = _graph_counts()["eager"]
     return got
 
 
 def _expect(**kw) -> dict:
-    """_counts() of a run that launched only the kernels given."""
+    """_counts() of a run that launched only the kernels given (and ran no
+    eager step loop of prime or the rollout)."""
     return {**dict.fromkeys(GATED, 0), "gated_layer_bwd_recompute": 0,
-            "vq_lookup_fused": 0, "bf16": 0, "int8": 0, "int4": 0, "plain": 0, **kw}
+            "vq_lookup_fused": 0, "bf16": 0, "int8": 0, "int4": 0, "plain": 0,
+            "eager": 0, **kw}
 
 
 def phase_inverter(card: str, dev, tmp: str) -> dict:
@@ -3488,6 +3626,63 @@ def kernel_times(card: str, dev) -> None:
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {card}")
 
 
+def serve_times(card: str, dev) -> None:
+    """``--serve-times``: the B = 1 request through the generate CLI twice
+    (encode, prime and generate seconds), ``reconstruct`` at B = BATCH, and
+    ``bench_gen``'s records at B = BATCH over SERVE_TIMES_STEPS steps (the
+    bf16 rollout of ``ops/fastgen.generate`` and K4); no checks, so that an
+    older commit's package can be timed with the same code."""
+    import numpy as np
+    import torch
+
+    from ae_wavenet_tpu_torch.cli import generate as cli
+    from ae_wavenet_tpu_torch.data.dataset import PackedDataset, make_synthetic_dataset
+    from ae_wavenet_tpu_torch.models import autoencoder as ae
+    from ae_wavenet_tpu_torch.ops import _build
+    from ae_wavenet_tpu_torch.scripts import bench_gen
+    from ae_wavenet_tpu_torch.training.weights import save_export
+    from ae_wavenet_tpu_torch.utils.config import chorowski_config
+
+    t0 = time.perf_counter()
+    _build.load()
+    print(f"[times] build {time.perf_counter() - t0:.2f} s, package "
+          f"{os.path.dirname(_build.CSRC)} | {card}")
+    cfg = chorowski_config()
+    with f32_numerics(), tempfile.TemporaryDirectory() as tmp:
+        data, ckpt, out = (os.path.join(tmp, n) for n in ("synth", "model.pt", "out.wav"))
+        make_synthetic_dataset(data, n_clips=BATCH, n_speakers=8,
+                               clip_len=(12400, 14000), seed=0)
+        save_export(ckpt, ae.init(cfg, torch.Generator().manual_seed(1), "cpu"), cfg, 0)
+        for r in range(2):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                cli.main(["--ckpt", ckpt, "--data", data, "--clip", "0", "--n-samples",
+                          str(CLI_SAMPLES), "--temperature", "1.0", "--device", str(dev),
+                          "--out", out])
+            m = re.search(r"encode [\d.]+ s, prime [\d.]+ s, generate [\d.]+ s",
+                          buf.getvalue())
+            print(f"[times] CLI B=1, {CLI_SAMPLES} samples, request {r + 1}: "
+                  f"{m.group(0) if m else buf.getvalue()} | {card}")
+        ds = PackedDataset(data)
+        wav = np.stack([ds.clip(i, BATCH_WAV_LEN) for i in range(BATCH)])
+        spk = torch.from_numpy(ds.speakers[:BATCH].astype(np.int64)).to(dev)
+        model = ae.init(cfg, torch.Generator().manual_seed(1), dev).eval()
+        timings: dict = {}
+        ae.reconstruct(model, cfg, torch.from_numpy(wav).to(dev), spk,
+                       torch.Generator().manual_seed(2), temperature=1.0,
+                       n_samples=BATCH_SAMPLES, timings=timings)
+        torch.cuda.synchronize()
+        print(f"[times] reconstruct B={BATCH}, {BATCH_SAMPLES} samples: "
+              f"{', '.join(f'{k} {v:.3f} s' for k, v in timings.items())} | {card}")
+        del model
+        buf = io.StringIO()
+        with _environ(GEN_BATCH=BATCH, GEN_STEPS=SERVE_TIMES_STEPS), \
+                contextlib.redirect_stdout(buf):
+            bench_gen.main(["--device", str(dev)])
+        for line in buf.getvalue().splitlines():
+            print(f"[times] bench_gen {line} | {card}")
+
+
 def main() -> int:
     import torch
 
@@ -3500,6 +3695,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     if sys.argv[1:] == ["--kernel-times"]:
         kernel_times(card, dev)
+        return 0
+    if sys.argv[1:] == ["--serve-times"]:
+        serve_times(card, dev)
         return 0
     if sys.argv[1:2] == ["--train-rank"]:
         return train_rank(sys.argv[2:])

@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain versions, on the card: the sampler
 (bf16, int8 and int4 weights), the fused VQ lookup, the gated training
-stack, the MFCC inverter's path through them, and the int8 quality gate.
+stack, the MFCC inverter's path through them, and the int8 quality gate;
+and prime and the f32 rollout replayed as CUDA graphs against the same
+step in the eager loop.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip.  The file
 imports no jax, so on a machine with the card and without JAX it runs
@@ -1031,3 +1033,119 @@ def test_bench_on_card_goes_through_the_gated_kernels(cuda_device, schedule, per
     peak = bench.peak_of(cuda_device)
     assert (rec["mfu"] is None) == (peak is None)
     assert rec["mfu"] is None or 0 <= rec["mfu"] <= 1.05
+
+
+# ------------------------------- prime and the f32 rollout as CUDA graphs
+
+def _graph_case(dev, cfg, batch, n, seed=0):
+    """Seeded weights with informative logits, rf + 1 context ids, and
+    cond for the context and ``n`` rollout steps."""
+    gen = torch.Generator().manual_seed(seed)
+    wn = twn.WaveNet(cfg, gen)
+    with torch.no_grad():
+        wn.post2["w"].mul_(50.0)
+    rf = sum(cfg.dilations)
+    ctx = torch.randint(0, cfg.n_quant, (batch, rf + 1), generator=gen).to(dev)
+    cond = (torch.randn(batch, cfg.n_lc_out, rf + n, generator=gen) * 0.3).to(dev)
+    spk = torch.randint(0, cfg.n_speakers, (batch,), generator=gen).to(dev)
+    return wn.to(dev), ctx, cond, spk
+
+
+def _graph_counts():
+    return (tfg.prime.graph_replays, tfg.prime.eager_steps,
+            tfg.generate.graph_replays, tfg.generate.eager_steps)
+
+
+def _zero_graph_counts():
+    for f in (tfg.prime, tfg.generate):
+        f.graph_replays = f.eager_steps = 0
+
+
+def _copy(st):
+    return tfg.GenState(tuple(b.clone() for b in st.bufs), st.prev_id.clone(), st.t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,batch", [("scalar", 1), ("vector", 11),
+                                        ("chorowski", 1)])
+def test_graph_prime_matches_eager_bit_for_bit(cuda_device, name, batch):
+    """The graph replayed once a context sample against the same step in
+    the eager loop: every ring, the last ids and the phase bit for bit; the
+    graph's replay counter moves by rf and the loop's by rf."""
+    cfg = CFGS.get(name, WaveNetConfig())  # WaveNetConfig(): the chorowski decoder
+    rf = sum(cfg.dilations)
+    wn, ctx, cond, spk = _graph_case(cuda_device, cfg, batch, 0)
+    _zero_graph_counts()
+    got = tfg.prime(wn, cfg, tfg.init_state(cfg, batch, device=cuda_device), ctx, cond,
+                    spk)
+    assert _graph_counts() == (rf, 0, 0, 0)
+    want = tfg.prime(wn, cfg, tfg.init_state(cfg, batch, device=cuda_device), ctx, cond,
+                     spk, eager=True)
+    torch.cuda.synchronize()
+    assert _graph_counts() == (rf, rf, 0, 0)
+    assert got.t == want.t == rf and torch.equal(got.prev_id, want.prev_id)
+    for a, b in zip(got.bufs, want.bufs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temperature,dtype,on", [
+    (0.0, torch.float32, "cpu"), (1.0, torch.float32, "cpu"),
+    (1.0, torch.float32, "cuda"), (1.0, torch.bfloat16, "cuda")])
+def test_graph_generate_matches_eager(cuda_device, temperature, dtype, on):
+    """From one primed state with one seeded generator (on the host, as the
+    quality eval's, or on the card, as bench_gen's): the same ids, and the
+    logits, rings and last ids bit for bit; the replay counter moves by the
+    rollout's steps, and no eager step runs on the graph's side."""
+    n, batch = 48, 5
+    cfg = CFGS["vector"]
+    wn, ctx, cond, spk = _graph_case(cuda_device, cfg, batch, n, seed=1)
+    state = tfg.prime(wn, cfg, tfg.init_state(cfg, batch, device=cuda_device), ctx, cond,
+                      spk)
+    rf = sum(cfg.dilations)
+    runs = []
+    for eager in (False, True):
+        _zero_graph_counts()
+        runs.append(tfg.generate(wn, cfg, _copy(state), cond[..., rf:],
+                                 torch.Generator(device=on).manual_seed(3), gc_ids=spk,
+                                 temperature=temperature, return_logits=True,
+                                 dtype=dtype, eager=eager))
+        torch.cuda.synchronize()
+        assert _graph_counts() == ((0, 0, 0, n) if eager else (0, 0, n, 0))
+    (ids_g, st_g, lg_g), (ids_e, st_e, lg_e) = runs
+    assert ids_g.shape == (batch, n) and torch.equal(ids_g, ids_e)
+    assert torch.equal(lg_g, lg_e)
+    assert st_g.t == st_e.t == rf + n and torch.equal(st_g.prev_id, st_e.prev_id)
+    for a, b in zip(st_g.bufs, st_e.bufs):
+        assert torch.equal(a, b)
+    if temperature:
+        assert len(set(ids_g.flatten().tolist())) > 8
+
+
+@pytest.mark.cuda
+def test_graph_capture_failure_raises(cuda_device, monkeypatch):
+    """A host synchronisation planted in the step, refused while the stream
+    captures: prime raises, no step runs in the eager loop and none is
+    replayed; the caller's stream is its own again, and the next prime
+    captures and replays as before."""
+    cfg = CFGS["scalar"]
+    rf = sum(cfg.dilations)
+    wn, ctx, cond, spk = _graph_case(cuda_device, cfg, 2, 0)
+    cell = tfg._cell
+
+    def planted(*a, **kw):
+        out = cell(*a, **kw)
+        a[2].ctr.sum().item()  # a copy to the host and a wait
+        return out
+
+    stream = torch.cuda.current_stream()
+    monkeypatch.setattr(tfg, "_cell", planted)
+    _zero_graph_counts()
+    with pytest.raises(RuntimeError):
+        tfg.prime(wn, cfg, tfg.init_state(cfg, 2, device=cuda_device), ctx, cond, spk)
+    assert _graph_counts() == (0, 0, 0, 0)
+    assert torch.cuda.current_stream() == stream
+    monkeypatch.undo()
+    st = tfg.prime(wn, cfg, tfg.init_state(cfg, 2, device=cuda_device), ctx, cond, spk)
+    torch.cuda.synchronize()
+    assert _graph_counts() == (rf, 0, 0, 0) and st.t == rf
