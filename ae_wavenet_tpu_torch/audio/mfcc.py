@@ -75,9 +75,11 @@ def _dft_matrices(win_sz: int, n_fft: int):
     return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=8)
+@functools.cache
 def _constants(cfg: SpecConfig, device: str):
-    """Frontend matrices on ``device`` (built once per config and device)."""
+    """Frontend matrices on ``device`` (built once per config and device,
+    and never evicted: a captured training step, training/chassis.py, reads
+    them by address)."""
     cosm, sinm = _dft_matrices(cfg.win_sz, cfg.n_fft)
     arrays = {
         "window": np.hanning(cfg.win_sz + 1)[:-1].astype(np.float32),

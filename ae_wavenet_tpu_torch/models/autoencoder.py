@@ -144,6 +144,16 @@ def forward(model: AutoEncoder, cfg: RunConfig, spec: WindowSpec,
     return logits, targets, aux
 
 
+def draws(model: AutoEncoder, cfg: RunConfig, spec: WindowSpec, batch: int,
+          generator: torch.Generator, device) -> dict:
+    """One training step's random draws over ``batch`` windows, made up front
+    from ``generator`` (the bottleneck's ``draws``, at the encoder's latent
+    length for the window): :func:`forward` fed them as ``draws`` takes the
+    numbers it would draw from ``generator`` itself."""
+    tz = encoder.geometry(cfg.encoder).out_len(spec.n_frames)
+    return model.bottleneck.draws(batch, tz, generator, device)
+
+
 def loss_fn(model: AutoEncoder, cfg: RunConfig, spec: WindowSpec,
             wav_i16: torch.Tensor, spk: torch.Tensor, step, train: bool = True,
             generator: torch.Generator | None = None, draws: dict | None = None,

@@ -11,7 +11,11 @@ under the reference's ``bn_state`` names; ``train_apply(train=True)``
 updates them in place.  The random draws are optional inputs (``draws``:
 ``jitter_u`` [B, 1, Tz] uniforms, ``restart_idx`` [G, K] batch-vector
 indices, ``eps`` [B, D, Tz] normals), so a test can feed both packages
-the same numbers; absent ones come from ``generator``.
+the same numbers; absent ones come from ``generator``.  ``draws(b, tz,
+generator, device)`` makes a training call's draws up front, with the
+calls, order and shapes ``train_apply`` would make them in, so a step
+whose every input is a tensor (``training/chassis.py``) takes the same
+numbers.
 
 With ``cfg.vq_use_pallas`` (G = 1) the nearest codes, the looked-up rows and
 the EMA counts and sums come from the fused kernel ``ops/vq_cuda.py`` on the
@@ -58,6 +62,9 @@ class AEBottleneck(nn.Module):
     def train_apply(self, z, step, train, generator=None, draws=None, group=None):
         return z, {"bn_loss": z.new_zeros(())}
 
+    def draws(self, b, tz, generator, device) -> dict:
+        return {}
+
 
 class ZeroBottleneck(nn.Module):
     """The decoder sees all-zero local conditioning."""
@@ -67,6 +74,9 @@ class ZeroBottleneck(nn.Module):
 
     def train_apply(self, z, step, train, generator=None, draws=None, group=None):
         return torch.zeros_like(z), {"bn_loss": z.new_zeros(())}
+
+    def draws(self, b, tz, generator, device) -> dict:
+        return {}
 
 
 class VAEBottleneck(nn.Module):
@@ -83,6 +93,11 @@ class VAEBottleneck(nn.Module):
         """Posterior mean (no reparameterization draw in eval)."""
         return (torch.einsum("bdt,ed->bet", z, self.w_mu)
                 + self.b_mu[None, :, None])
+
+    def draws(self, b, tz, generator, device) -> dict:
+        """``eps`` [b, D, tz] normals."""
+        return {"eps": torch.randn((b, self.cfg.n_dim, tz), generator=generator,
+                                   device=device)}
 
     def train_apply(self, z, step, train, generator=None, draws=None, group=None):
         """Reparameterised draw (train), free-bits KL with its anneal
@@ -154,6 +169,17 @@ class VQBottleneck(nn.Module):
         EMA counts and sums are neither computed nor returned."""
         return vq_lookup_fused(zf.detach().float().contiguous(), self.codebook,
                                stats)
+
+    def draws(self, b, tz, generator, device) -> dict:
+        """``restart_idx`` [G, K] (with restarts), then ``jitter_u`` [b, 1,
+        tz] (with jitter)."""
+        cfg, out = self.cfg, {}
+        if cfg.vq_restart_thresh > 0.0:
+            out["restart_idx"] = torch.randint(0, b * tz, (self.groups, cfg.vq_k),
+                                               generator=generator, device=device)
+        if cfg.jitter_p > 0.0:
+            out["jitter_u"] = torch.rand((b, 1, tz), generator=generator, device=device)
+        return out
 
     def codes(self, z: torch.Tensor) -> torch.Tensor:
         """Nearest code per group: [G, B*T] (rows ordered (b, t))."""

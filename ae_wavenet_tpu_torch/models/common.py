@@ -7,6 +7,7 @@ Counterpart of ``ae_wavenet_tpu.models.common``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Callable, Tuple
 
@@ -101,6 +102,15 @@ def make_window_spec(cfg: RunConfig, chain: Chain, n_win: int | None,
     )
 
 
+@functools.cache
+def _dataset_stats(mean: tuple, var: tuple, device: str) -> tuple:
+    """The stored statistics as [C, 1] tensors on ``device``, made once: a
+    captured training step (training/chassis.py) reads them by address, so
+    they are never evicted."""
+    return (torch.tensor(mean, device=device)[:, None],
+            torch.tensor(var, device=device)[:, None])
+
+
 def normalize_frames(frames: torch.Tensor, n_ref: int | None = None,
                      spec=None) -> torch.Tensor:
     """Normalization of the MFCC stack, per ``spec.norm``: ``"window"``
@@ -111,8 +121,7 @@ def normalize_frames(frames: torch.Tensor, n_ref: int | None = None,
         if not spec.stats_mean:
             raise ValueError('spec.norm="dataset" but stats_mean/stats_var '
                              "are unset in the config")
-        mean = torch.tensor(spec.stats_mean, device=frames.device)[:, None]
-        var = torch.tensor(spec.stats_var, device=frames.device)[:, None]
+        mean, var = _dataset_stats(spec.stats_mean, spec.stats_var, str(frames.device))
         return (frames - mean) * torch.rsqrt(var + 1e-6)
     t = frames.shape[-1]
     ref = frames

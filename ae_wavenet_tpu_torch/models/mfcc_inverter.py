@@ -98,6 +98,12 @@ def forward(model: MfccInverter, cfg: RunConfig, spec: WindowSpec,
     return logits, ids[..., spec.tgt_b : spec.tgt_b + spec.n_win], {}
 
 
+def draws(model: MfccInverter, cfg: RunConfig, spec: WindowSpec, batch: int,
+          generator: torch.Generator, device) -> dict:
+    """The inverter's training step draws nothing."""
+    return {}
+
+
 def loss_fn(model: MfccInverter, cfg: RunConfig, spec: WindowSpec,
             wav_i16: torch.Tensor, spk: torch.Tensor, step=None, train: bool = True,
             generator: torch.Generator | None = None, draws: dict | None = None,

@@ -1,8 +1,8 @@
 """Model families by ``RunConfig.model_kind``.
 
 Counterpart of ``ae_wavenet_tpu.models.registry``.  Each family module has
-the same ``init``, ``loss_fn``, ``make_window_spec``, ``encode`` and
-``reconstruct``, so the chassis and the CLIs take either.
+the same ``init``, ``loss_fn``, ``draws``, ``make_window_spec``,
+``encode`` and ``reconstruct``, so the chassis and the CLIs take either.
 """
 
 from __future__ import annotations

@@ -12,7 +12,10 @@ Counterpart of ``ae_wavenet_tpu.training.chassis``:
   step's metrics.  The step's random draws (jitter, restarts, VAE eps)
   come from a generator seeded by (seed, step), so a resume continues the
   same stream; under data parallelism by (seed, step, rank) (the
-  reference folds the replica index into the key).
+  reference folds the replica index into the key).  They are drawn up
+  front and every input of the step is a device tensor, so on the card the
+  step is one CUDA graph replayed K times a call: the counterpart of the
+  reference's one jitted step and its K-step ``lax.scan`` (``:110-124``).
 * :class:`Chassis` (``:150``): holdout split, ``train`` (one metrics
   fetch per log point, async ``ckpt_every`` saves with keep-last-N and
   keep-best retention, SIGTERM/SIGINT save and stop, a profiler trace of
@@ -43,11 +46,14 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import inspect
 import os
 import signal
 import sys
 import threading
 import time
+import weakref
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -68,7 +74,15 @@ from ae_wavenet_tpu_torch.utils.logging import MetricsLogger
 
 class Adam:
     """optax ``chain([clip_by_global_norm(c)], adam|adamw(lr))`` on a
-    module's parameters (f32 moments on the parameters' device)."""
+    module's parameters (f32 moments on the parameters' device).  The bias
+    corrections change every update: they are computed on the host as
+    optax computes them (:meth:`corrections`) and reach :meth:`update` as a
+    device tensor, so an update can be captured in a CUDA graph.  The
+    learning rate stays a host float (``alpha`` of the last add, fused into
+    one FMA on the card; a tensor there would round twice): a schedule is
+    piecewise constant, and a step program captures one graph per value.
+    ``programs`` holds :func:`train_step`'s step programs for these
+    parameters; a load drops them."""
 
     def __init__(self, named_params, cfg: TrainConfig):
         self.cfg = cfg
@@ -77,6 +91,7 @@ class Adam:
         self.nu = {k: torch.zeros_like(p) for k, p in self.params.items()}
         self.count = 0          # scale_by_adam's count
         self.sched_count = 0    # the LR schedule's count (piecewise LR only)
+        self.programs: dict = {}
 
     def lr(self, count: int) -> float:
         t = self.cfg
@@ -85,11 +100,39 @@ class Adam:
         k = sum(count >= b for b in t.lr_boundaries)
         return t.lr_values[k]
 
+    def corrections(self, k: int, device) -> torch.Tensor:
+        """The next ``k`` updates' bias corrections 1 - b1^t, 1 - b2^t (f32
+        powers, as optax), [k, 2] f32 on the host, in the form the update
+        on ``device`` applies them: on a CUDA device their reciprocals,
+        taken in double precision, by which it multiplies; on the CPU the
+        corrections, by which it divides.  That is how PyTorch divides by a
+        host float on each, so the update is bit for bit the one that took
+        them as host floats.  The counts move only by :meth:`advance`."""
+        t = self.cfg
+        f32 = torch.tensor([t.adam_b1, t.adam_b2], dtype=torch.float32)
+        bc = torch.stack([1.0 - f32 ** (self.count + i + 1) for i in range(k)])
+        if torch.device(device).type == "cuda":
+            return (1.0 / bc.double()).float()
+        return bc
+
+    def rates(self, k: int = 1) -> list:
+        """The next ``k`` updates' learning rates."""
+        return [self.lr(self.sched_count + i) for i in range(k)]
+
+    def advance(self, k: int = 1) -> None:
+        """Count ``k`` updates done (the state's counts)."""
+        self.count += k
+        if self.cfg.lr_boundaries:
+            self.sched_count += k
+
     @torch.no_grad()
-    def step(self, grads: dict) -> torch.Tensor:
+    def update(self, grads: dict, bc: torch.Tensor, lr: float) -> torch.Tensor:
         """Update the parameters in place from ``grads`` ({name: tensor or
-        None}, None = zero).  Returns the global norm of the raw grads.
-        Multi-tensor (``torch._foreach_*``) ops: a few launches per step."""
+        None}, None = zero) with ``bc`` [2], one row of :meth:`corrections`
+        on the parameters' device, at the learning rate ``lr`` (``alpha`` of
+        the last add); the counts are left to :meth:`advance`.  Returns the
+        global norm of the raw grads.  Multi-tensor (``torch._foreach_*``)
+        ops: a few launches an update."""
         t = self.cfg
         names = list(self.params)
         ps = [self.params[k] for k in names]
@@ -99,25 +142,28 @@ class Adam:
         if t.grad_clip > 0:
             keep = norm < t.grad_clip
             gs = [torch.where(keep, g, (g / norm) * t.grad_clip) for g in gs]
-        self.count += 1
-        f32 = torch.tensor([t.adam_b1, t.adam_b2], dtype=torch.float32)
-        bc1, bc2 = (1.0 - f32 ** self.count).tolist()
-        lr = self.lr(self.sched_count)
-        if t.lr_boundaries:
-            self.sched_count += 1
+        bc1, bc2 = bc[0], bc[1]
+        scale = torch._foreach_mul if ps[0].is_cuda else torch._foreach_div
         mu = [self.mu[k] for k in names]
         nu = [self.nu[k] for k in names]
         torch._foreach_mul_(mu, t.adam_b1)
         torch._foreach_add_(mu, gs, alpha=1.0 - t.adam_b1)
         torch._foreach_mul_(nu, t.adam_b2)
         torch._foreach_add_(nu, torch._foreach_mul(gs, gs), alpha=1.0 - t.adam_b2)
-        den = torch._foreach_div(nu, bc2)
+        den = scale(nu, bc2)
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, t.adam_eps)
-        u = torch._foreach_div(torch._foreach_div(mu, bc1), den)
+        u = torch._foreach_div(scale(mu, bc1), den)
         if t.weight_decay > 0:
             torch._foreach_add_(u, ps, alpha=t.weight_decay)
         torch._foreach_add_(ps, u, alpha=-lr)
+        return norm
+
+    def step(self, grads: dict) -> torch.Tensor:
+        """One update; returns the global norm of the raw grads."""
+        dev = next(iter(self.params.values())).device
+        norm = self.update(grads, self.corrections(1, dev)[0].to(dev), self.rates(1)[0])
+        self.advance(1)
         return norm
 
     # optax's state names (training/torch_compat.flatten_named)
@@ -140,6 +186,9 @@ class Adam:
         return out
 
     def load_named(self, named: dict) -> None:
+        """The state from ``named``, copied into the moments' own storages (a
+        captured step reads them by address); the step programs are
+        dropped."""
         pre = self._prefix()
         weights.check_merge(
             {k: v.shape for k, v in self.named_state().items()},
@@ -149,9 +198,10 @@ class Adam:
         for k, p in self.params.items():
             for slot, store in (("mu", self.mu), ("nu", self.nu)):
                 v = torch.as_tensor(named[f"{pre}.0.{slot}.{k}"]).float()
-                store[k] = v.reshape(p.shape).to(p.device)
+                store[k].copy_(v.reshape(p.shape))
         if self._sched_name():
             self.sched_count = int(named[self._sched_name()])
+        self.programs.clear()
 
 
 def step_generator(seed: int, step: int, device, mesh=None) -> torch.Generator:
@@ -162,41 +212,244 @@ def step_generator(seed: int, step: int, device, mesh=None) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(s)
 
 
-def mean_metrics(metrics: dict, mesh) -> dict:
-    """0-d metric tensors averaged over the ranks (one collective)."""
-    keys = list(metrics)
-    vec = torch.stack([metrics[k].float().reshape(()) for k in keys])
-    mesh.mean_([vec])
-    return dict(zip(keys, vec.unbind()))
+WARMUP_STEPS = 1  # eager steps on the capture stream before a capture
+
+
+def _launch_counts() -> dict:
+    """{(function, attribute): count} of every launch counter of the
+    kernels a training step can run and of their plain versions."""
+    from ae_wavenet_tpu_torch.ops import gated, gated_cuda, vq_cuda
+
+    out = {}
+    for mod in (gated, gated_cuda, vq_cuda):
+        for f in vars(mod).values():
+            if inspect.isfunction(f):
+                out.update(((f, a), v) for a, v in vars(f).items()
+                           if a.startswith("launches"))
+    return out
+
+
+class _Captured(NamedTuple):
+    """One capture of a step program's step at one learning rate: the graph,
+    the step's metrics vector and the parameters' gradients it writes (at
+    fixed addresses in its pool), and what one replay launches of each
+    counted kernel."""
+    graph: object
+    out: torch.Tensor
+    grads: dict
+    per_replay: dict
+
+
+class _StepProgram:
+    """One training step whose every input is a tensor on the step's
+    device, for calls of K steps at one batch shape:
+
+    wav [K, B, U], spk [K, B]   the call's batches (one copy each a call);
+    draws {name: [K, ...]}      each step's draws, made up front from its
+                                step generator (the family's ``draws``);
+    sc [K, 3] f32               each step's index (the bottlenecks' ramps
+                                read it) and :meth:`Adam.corrections`, one
+                                host-to-device copy a call;
+    j [1] int64                 the step within the call, advanced by the
+                                step itself.
+
+    The learning rate is the one host float a step takes (:class:`Adam`).
+    :meth:`run` plays the call's K steps: on a CUDA device without a mesh,
+    unless ``eager``, a CUDA graph of the step replayed once a step (one
+    capture per learning rate, made at its first call, :meth:`capture`),
+    the counterpart of the reference's jitted step and its K-step scan;
+    else the same step called in a Python loop.  The step returns its
+    metrics as one f32 vector (``keys``)."""
+
+    def __init__(self, model, opt: Adam, cfg: RunConfig, spec, wav, spk, k: int,
+                 mesh):
+        self.model, self.opt = model, weakref.proxy(opt)  # opt holds the program
+        self.cfg, self.spec, self.k, self.mesh = cfg, spec, k, mesh
+        self.family = registry.get(cfg.model_kind)
+        dev = wav.device
+        self.wav = torch.empty((k, *wav.shape[-2:]), dtype=wav.dtype, device=dev)
+        self.spk = torch.empty((k, spk.shape[-1]), dtype=spk.dtype, device=dev)
+        self.sc = torch.empty(k, 3, device=dev)
+        self.j = torch.zeros(1, dtype=torch.long, device=dev)
+        self.draws: dict | None = None
+        self.keys: list = []
+        self.rates: list = []
+        self.graphs: dict = {}  # learning rate -> _Captured
+
+    def load(self, wav, spk, step: int) -> None:
+        """The call's inputs: steps ``step`` .. ``step`` + K - 1."""
+        k, dev = self.k, self.wav.device
+        self.wav.copy_(wav.reshape(self.wav.shape))
+        self.spk.copy_(spk.reshape(self.spk.shape))
+        made = [self.family.draws(self.model, self.cfg, self.spec, self.wav.shape[1],
+                                  step_generator(self.cfg.train.seed, step + i, dev,
+                                                 self.mesh), dev) for i in range(k)]
+        if self.draws is None:
+            self.draws = {n: torch.empty((k, *v.shape), dtype=v.dtype, device=dev)
+                          for n, v in made[0].items()}
+        for n, buf in self.draws.items():
+            buf.copy_(torch.stack([m[n] for m in made]))
+        host = torch.cat([torch.arange(step, step + k, dtype=torch.float32)[:, None],
+                          self.opt.corrections(k, dev)], 1)
+        self.sc.copy_(host.pin_memory() if dev.type == "cuda" else host,
+                      non_blocking=True)
+        self.rates = self.opt.rates(k)
+        self.j.zero_()
+
+    def _row(self, t: torch.Tensor) -> torch.Tensor:
+        return t.index_select(0, self.j)[0]
+
+    def _step(self, lr: float) -> torch.Tensor:
+        """Step j of the call: loss, backward, (under a mesh the mean of the
+        gradients and of the metrics,) the update at ``lr``."""
+        params = self.opt.params
+        for p in params.values():
+            p.grad = None
+        sc = self._row(self.sc)
+        total, metrics = self.family.loss_fn(
+            self.model, self.cfg, self.spec, self._row(self.wav), self._row(self.spk),
+            sc[0], True, None, {n: self._row(v) for n, v in self.draws.items()},
+            group=self.mesh)
+        total.backward()
+        keys = list(metrics)
+        vec = torch.stack([metrics[n].detach().float().reshape(()) for n in keys])
+        if self.mesh is not None:
+            # loss and grads are local-batch means; equal shard sizes make the
+            # mean over the ranks exactly the global-batch mean
+            for p in params.values():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            self.mesh.mean_([p.grad for p in params.values()])
+            self.mesh.mean_([vec])
+        norm = self.opt.update({n: p.grad for n, p in params.items()}, sc[1:], lr)
+        self.j.add_(1)
+        self.keys = [*keys, "grad_norm"]
+        return torch.cat([vec, norm.float().reshape(1)])
+
+    def graphed(self, eager: bool) -> bool:
+        return self.wav.is_cuda and self.mesh is None and not eager
+
+    def capture_rates(self) -> None:
+        """A capture for each learning rate of the loaded call that has none;
+        the captures of rates it does not take are dropped first (a schedule
+        only moves on)."""
+        for lr in [lr for lr in self.graphs if lr not in self.rates]:
+            del self.graphs[lr]
+        for lr in dict.fromkeys(self.rates):
+            if lr not in self.graphs:
+                self.graphs[lr] = self.capture(lr)
+
+    def capture(self, lr: float) -> _Captured:
+        """WARMUP_STEPS eager steps on a side stream on the call's inputs
+        (cuBLAS, cuDNN, the kernels' attributes, the frontend's constants
+        and the allocator initialise there), the training state they write
+        restored after them, then the step at ``lr`` captured as a CUDA
+        graph on that stream (``thread_local``: the loader thread may copy
+        meanwhile).  The warm-up's launches count; the capture's record
+        what each replay launches.  A failed capture raises."""
+        dev = self.wav.device
+        written = [*self.opt.params.values(), *self.opt.mu.values(),
+                   *self.opt.nu.values(), *self.model.buffers()]
+        main, side = torch.cuda.current_stream(dev), torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side), torch.no_grad():
+            saved = [t.clone() for t in written]
+        try:
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP_STEPS):
+                    self._step(lr)
+        finally:
+            with torch.cuda.stream(side), torch.no_grad():
+                for t, v in zip(written, saved):
+                    t.copy_(v)
+                self.j.zero_()
+            for p in self.opt.params.values():
+                p.grad = None
+            main.wait_stream(side)
+            del saved
+        graph, before = torch.cuda.CUDAGraph(), _launch_counts()
+        try:
+            # the outer stream context gives the caller back its stream where
+            # a failed capture raises from the graph context's exit
+            with torch.cuda.stream(side), torch.cuda.graph(
+                    graph, stream=side, capture_error_mode="thread_local"):
+                out = self._step(lr)
+        finally:
+            after = _launch_counts()
+            for (f, a), n in before.items():
+                setattr(f, a, n)
+        self.counted.captures += 1
+        per_replay = {fa: after[fa] - n for fa, n in before.items() if after[fa] != n}
+        return _Captured(graph, out, {n: p.grad for n, p in self.opt.params.items()},
+                         per_replay)
+
+    def run(self, eager: bool) -> dict:
+        """The call's K steps -> the last step's metrics (0-d tensors)."""
+        if not self.graphed(eager):
+            for lr in self.rates:
+                vec = self._step(lr)
+            self.counted.eager_steps += self.k
+            return dict(zip(self.keys, vec.unbind()))
+        self.capture_rates()
+        for lr in self.rates:
+            self.graphs[lr].graph.replay()
+        self.counted.graph_replays += self.k
+        for lr in self.rates:
+            for (f, a), n in self.graphs[lr].per_replay.items():
+                setattr(f, a, getattr(f, a) + n)
+        last = self.graphs[self.rates[-1]]
+        for n, p in self.opt.params.items():
+            p.grad = last.grads[n]
+        return dict(zip(self.keys, last.out.clone().unbind()))
+
+
+def _program(model, opt: Adam, cfg: RunConfig, spec, wav, spk, k_steps: int,
+             mesh) -> _StepProgram:
+    key = (tuple(wav.shape), wav.dtype, str(wav.device), k_steps, cfg, spec, mesh)
+    if key not in opt.programs:
+        opt.programs[key] = _StepProgram(model, opt, cfg, spec, wav, spk, k_steps, mesh)
+    return opt.programs[key]
 
 
 def train_step(model, opt: Adam, cfg: RunConfig, spec, wav, spk, step: int,
-               k_steps: int = 1, mesh=None) -> dict:
+               k_steps: int = 1, mesh=None, eager: bool = False) -> dict:
     """One step (or K: wav/spk then carry a leading [K] axis and the
     metrics are the last step's).  Returns 0-d metric tensors, including
     ``grad_norm``.  On a ``mesh`` wav/spk are this rank's rows; the
-    parameters' ``.grad`` then hold the mean over the ranks."""
-    if k_steps > 1:
-        for i in range(k_steps):
-            m = train_step(model, opt, cfg, spec, wav[i], spk[i], step + i, mesh=mesh)
-        return m
-    gen = step_generator(cfg.train.seed, step, wav.device, mesh)
-    for p in opt.params.values():
-        p.grad = None
-    total, metrics = registry.get(cfg.model_kind).loss_fn(model, cfg, spec, wav, spk,
-                                                          step, True, gen, group=mesh)
-    total.backward()
-    metrics = {k: v.detach() for k, v in metrics.items()}
-    if mesh is not None:
-        # loss and grads are local-batch means; equal shard sizes make the
-        # mean over the ranks exactly the global-batch mean
-        for p in opt.params.values():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        mesh.mean_([p.grad for p in opt.params.values()])
-        metrics = mean_metrics(metrics, mesh)
-    metrics["grad_norm"] = opt.step({k: p.grad for k, p in opt.params.items()})
+    parameters' ``.grad`` then hold the mean over the ranks.
+
+    The step is a :class:`_StepProgram`, cached on ``opt`` by the batch
+    shape, K, the config (the schedule flags with it), the window spec and
+    the mesh.  On a CUDA device without a mesh it runs as a CUDA graph
+    replayed K times a call (captured once per learning rate);
+    ``eager=True`` runs the same step in a Python loop (the graph's plain
+    version), as the CPU always does.  Under a mesh
+    the step stays eager: a gloo collective cannot be captured, and NCCL's
+    capture is not yet checked.  A failed capture raises; nothing carries
+    on eagerly.  Counts ``train_step.graph_replays``, ``.eager_steps`` and
+    ``.captures``; a replay adds to each kernel's launch counter what its
+    capture recorded."""
+    prog = _program(model, opt, cfg, spec, wav, spk, k_steps, mesh)
+    prog.load(wav, spk, step)
+    metrics = prog.run(eager)
+    opt.advance(k_steps)
     return metrics
+
+
+train_step.graph_replays = train_step.eager_steps = train_step.captures = 0
+_StepProgram.counted = staticmethod(train_step)  # its counters, where a caller wraps it
+
+
+def prepare_step(model, opt: Adam, cfg: RunConfig, spec, wav, spk, step: int,
+                 k_steps: int = 1, mesh=None) -> None:
+    """Capture now what :func:`train_step` would capture at its first call
+    on these inputs (nothing where it would run eagerly, or has captured):
+    a profiled window then holds replays only.  The training state does not
+    move."""
+    prog = _program(model, opt, cfg, spec, wav, spk, k_steps, mesh)
+    if prog.graphed(False):
+        prog.load(wav, spk, step)
+        prog.capture_rates()
 
 
 def fetch(metrics: dict) -> dict:
@@ -326,9 +579,11 @@ class Chassis:
             self._unmet_saves = False
 
     def close(self) -> None:
-        """Wait for the saves and close the TensorBoard writer, if any."""
+        """Wait for the saves, close the TensorBoard writer, if any, and free
+        the captured steps (their graphs hold the step's device memory)."""
         self.wait_for_saves()
         self.logger.close()
+        self.opt.programs.clear()
 
     def resume(self, step: int | None = None) -> int:
         got, named, _cfg = ckpt_mod.load(self.ckpt_dir, step)
@@ -401,17 +656,20 @@ class Chassis:
                 stop["flag"] = True
             for sig in (signal.SIGTERM, signal.SIGINT):
                 old_handlers[sig] = signal.signal(sig, _handler)
-        # a trace of the first profile_steps steps (utils/profiling)
+        # a trace of the first profile_steps steps (utils/profiling), opened
+        # after the step's capture, so that it holds the replayed step
         prof_stack = contextlib.ExitStack()
         profiling = self.profile_steps > 0
-        if profiling:
-            self.profile_summary = prof_stack.enter_context(
-                prof_mod.trace(self.profile_dir))
         finished = False
         try:
             for s, (wav, spk) in device_batches(self._feed, self.step, n_steps,
                                                 self.device, block=kk,
                                                 stats=self.stats):
+                if profiling and self.step == start:
+                    prepare_step(self.model, self.opt, self.cfg, self.spec, wav, spk,
+                                 s, kk, self.mesh)
+                    self.profile_summary = prof_stack.enter_context(
+                        prof_mod.trace(self.profile_dir))
                 metrics = train_step(self.model, self.opt, self.cfg, self.spec,
                                      wav, spk, s, kk, self.mesh)
                 self.step = s + kk

@@ -84,10 +84,17 @@ power limit:
    first step's loss beside the main path's, the checkpoints that retention
    leaves), 2 steps of ``--gated-full-fusion`` alone (pair backward), and 2
    steps of the main path and 2 of the whole-stack path under
-   ``--profile-steps 2`` (device-busy share, device time by kernel name).  The
+   ``--profile-steps 2`` (device-busy share, device time by kernel name).
+   Every run trains through the captured step (``chassis.train_step``: one
+   capture a run, one replay a step, no eager step; the capture's warm-up
+   step launches the kernels once more).  The
    launch counters are set to 0 before each run and read after it: every
    gated kernel (the single-layer backward's recompute mode counted apart)
    must have launched exactly as its path says and no plain version at all.
+   Then 3 steps replayed from one capture against the same 3 steps run
+   eagerly, bit for bit (every metric, parameter, gradient, buffer, moment
+   and count), on the pairs (with the VQ kernel), single-layer and
+   whole-stack schedules at B = 4, n_win = 48,000.
    Median step time, samples/s and peak memory of each path (the
    single-layer path's beside the other three), each
    whole-stack schedule's step beside the pairs step of the same run, and
@@ -185,6 +192,13 @@ the serving path (the CLI's B = 1 request twice, ``reconstruct`` at B =
 64, ``bench_gen`` at B = 64), with no checks: run from an unpacked older
 commit with this file beside it, it times that commit's prime.
 
+``python3 chip_smoke.py --train-times`` builds the kernels and only times
+the main path's training step (``bench.py``'s defaults) replayed as a CUDA
+graph and run eagerly, in one process, graph, eager, eager, graph:
+compute-only and fetch-every-step ms, peak memory, the device-busy share and
+kernels a step under ``torch.profiler``; no checks: run from an unpacked
+older commit with this file beside it, it times that commit's step.
+
 ``python3 chip_smoke.py --kernel-times`` builds the kernels and only times
 the VQ lookup (phase 4's numbers) and the single-layer backward's recompute
 mode (phase 6's), with no checks: run from an unpacked older commit with
@@ -240,6 +254,9 @@ BATCH_WAV_LEN = 10200   # chorowski: cond frames for 2000 samples after rf
 STACK_B, STACK_T = 2, 4100       # phase 5 checks: 4100 = 64 * 64 + 4 (ragged)
 TRAIN_B, TRAIN_WIN = 4, 48000    # the training path's shape
 TRAIN_STEPS, RESUME_STEPS = 4, 2
+GRAPH_STEPS = 3          # phase 7: the captured step against the eager one
+TRAIN_TIMES_STEPS = 20   # --train-times: steps of each timed segment
+TRAIN_TIMES_PROFILED = 5  # and of its profiled window
 GROUP = 5               # layers per grouped backward on the whole-stack path
 EVAL_EVERY, CKPT_KEEP = 2, 2   # on the whole-stack path
 LOSS_TOL = 0.02         # first-step loss, whole-stack path vs main path
@@ -1518,12 +1535,14 @@ def _run_cli(argv) -> list[dict]:
     return recs
 
 
-def _path_run(argv, expect: dict, card: str, label: str):
-    """One CLI run with every launch counter set to 0 just before it and
-    read just after: each gated kernel and the VQ kernel must have launched
-    exactly ``expect[name]`` times (0 unless given) and no plain version at
-    all.  -> (train records, launches by kernel, the run's peak GiB, every
-    record)."""
+def _path_run(argv, expect: dict, card: str, label: str, steps: int):
+    """One CLI run of ``steps`` training steps with every launch counter
+    and the training step's counters set to 0 just before it and read just
+    after: the step captured once and replayed ``steps`` times, no eager
+    step; each gated kernel and the VQ kernel launched exactly
+    ``expect[name]`` times (0 unless given; the capture's warm-up step
+    counts, see ``_warm``) and no plain version at all.  -> (train records,
+    launches by kernel, the run's peak GiB, every record)."""
     import torch
 
     from ae_wavenet_tpu_torch.ops import gated, gated_cuda as gc
@@ -1536,6 +1555,7 @@ def _path_run(argv, expect: dict, card: str, label: str):
     for f in kernels + plain:
         f.launches = 0
     gc.gated_layer_bwd.launches_recompute = 0
+    _zero_train_counts()
     torch.cuda.reset_peak_memory_stats()
     recs = _run_cli(argv)
     torch.cuda.synchronize()
@@ -1543,11 +1563,124 @@ def _path_run(argv, expect: dict, card: str, label: str):
     got["gated_layer_bwd_recompute"] = gc.gated_layer_bwd.launches_recompute
     plain_runs = {f.__name__: f.launches for f in plain}
     peak = torch.cuda.max_memory_allocated() / 2**30
+    step = _train_counts()
+    check(step == {"replays": steps, "captures": 1, "eager": 0},
+          f"{label}: training step counters {step}, expected {steps} replays of one "
+          "capture and no eager step")
     check(got == expect, f"{label}: kernel launches {got}, expected {expect}")
     check(not any(plain_runs.values()), f"{label}: plain versions ran {plain_runs}")
-    print(f"[train] {label}: launches {got}; plain versions {plain_runs}; peak memory "
+    check(_barriers_at_zero(), f"{label}: the VQ kernel's grid barrier is not at zero")
+    print(f"[train] {label}: {step['replays']} replays of {step['captures']} captured "
+          f"step, {step['eager']} eager steps; launches {got} (the warm-up's "
+          f"{_warm()} step included); plain versions {plain_runs}; peak memory "
           f"{peak:.2f} GiB | {card}")
     return [r for r in recs if "loss" in r], got, peak, recs
+
+
+def _warm(steps: int = 0, captures: int = 1) -> int:
+    """``steps`` training steps run through ``captures`` captures: each
+    capture runs ``chassis.WARMUP_STEPS`` eager steps first (their launches
+    are real and counted; the training state is restored after them)."""
+    from ae_wavenet_tpu_torch.training import chassis
+
+    return steps + chassis.WARMUP_STEPS * captures
+
+
+def _zero_train_counts() -> None:
+    from ae_wavenet_tpu_torch.training import chassis
+
+    f = chassis.train_step
+    f.graph_replays = f.eager_steps = f.captures = 0
+
+
+def _train_counts() -> dict:
+    """The training step's replays, captures and eager steps since
+    ``_zero_train_counts``."""
+    from ae_wavenet_tpu_torch.training import chassis
+
+    f = chassis.train_step
+    return {"replays": f.graph_replays, "captures": f.captures, "eager": f.eager_steps}
+
+
+def _barriers_at_zero() -> bool:
+    """Every grid barrier of the VQ kernel with its arrival count back at
+    zero (csrc/vq.cu: the generation count moves on, the arrivals are
+    reset by the last block in)."""
+    import torch
+
+    from ae_wavenet_tpu_torch.ops import vq_cuda
+
+    torch.cuda.synchronize()
+    return all(int(b[0]) == 0 for b in vq_cuda._BARRIERS.values())
+
+
+def _train_state(model, opt) -> dict:
+    """Every parameter, buffer, moment, count and gradient of a training
+    state."""
+    return {**{f"model.{k}": v for k, v in model.state_dict().items()},
+            **opt.named_state(), **{f"grad.{k}": p.grad for k, p in opt.params.items()}}
+
+
+def graph_vs_eager(card: str, dev, cfg, data: str, label: str) -> dict:
+    """GRAPH_STEPS steps of ``chassis.train_step`` replayed from one capture
+    against the same steps with ``eager=True``, each from a fresh model of
+    one seed on the same TRAIN_B x TRAIN_WIN windows: every metric of every
+    step, then every parameter, gradient, buffer, moment and count, bit for
+    bit.  The graph's run: GRAPH_STEPS replays, one capture, no eager step,
+    and each kernel launched (GRAPH_STEPS + warm-up) / GRAPH_STEPS times as
+    often as in the eager run; no plain version; the VQ kernel's barrier at
+    zero.  -> the graph run's launches."""
+    import numpy as np
+    import torch
+
+    from ae_wavenet_tpu_torch.data.dataset import PackedDataset, WindowSampler
+    from ae_wavenet_tpu_torch.models import registry
+    from ae_wavenet_tpu_torch.training import chassis
+
+    fam = registry.get(cfg.model_kind)
+    spec = fam.make_window_spec(cfg)
+    sampler = WindowSampler(PackedDataset(data), spec.u_len, TRAIN_B, cfg.train.seed)
+    batches = [(torch.from_numpy(w).to(dev), torch.from_numpy(k.astype(np.int64)).to(dev))
+               for w, k in (sampler.batch_at(s) for s in range(GRAPH_STEPS))]
+    runs = []
+    with f32_numerics():
+        for eager in (False, True):
+            model = fam.init(cfg, torch.Generator().manual_seed(1), dev)
+            opt = chassis.Adam(model.named_parameters(), cfg.train)
+            _zero_counts()
+            _zero_train_counts()
+            t0 = time.perf_counter()
+            metrics = [chassis.train_step(model, opt, cfg, spec, w, k, s, eager=eager)
+                       for s, (w, k) in enumerate(batches)]
+            torch.cuda.synchronize()
+            runs.append((metrics, _train_state(model, opt), _counts(), _train_counts(),
+                         time.perf_counter() - t0))
+            del model, opt
+    (m_g, s_g, n_g, t_g, secs_g), (m_e, s_e, n_e, t_e, secs_e) = runs
+    moved = [f"step {i + 1} {k}" for i, (a, b) in enumerate(zip(m_g, m_e))
+             for k in b if not torch.equal(a[k], b[k])]
+    moved += [k for k in s_e if not torch.equal(s_g[k], s_e[k])]
+    check(not moved and list(m_g[0]) == list(m_e[0]) and s_g.keys() == s_e.keys(),
+          f"{label}: graph and eager differ in {moved[:20]}")
+    check(t_g == {"replays": GRAPH_STEPS, "captures": 1, "eager": 0}
+          and t_e == {"replays": 0, "captures": 0, "eager": GRAPH_STEPS},
+          f"{label}: training step counters {t_g} (graph), {t_e} (eager)")
+    kern = [k for k in n_e if k not in ("plain", "eager")]
+    check(any(n_e[k] for k in kern) and n_g["plain"] == n_e["plain"] == 0
+          and all(n_g[k] * GRAPH_STEPS == n_e[k] * _warm(GRAPH_STEPS) for k in kern),
+          f"{label}: launches {n_g} (graph) against {n_e} (eager)")
+    check(_barriers_at_zero(), f"{label}: the VQ kernel's grid barrier is not at zero")
+    used = {k: v for k, v in n_e.items() if v}
+    print(f"[train] graph against eager, {label} (B={TRAIN_B}, n_win={TRAIN_WIN}, "
+          f"{GRAPH_STEPS} steps from one seed): every metric of every step and every "
+          f"parameter, gradient, buffer, moment and count bit for bit "
+          f"({len(s_e)} tensors; losses {[round(float(m['loss']), 6) for m in m_g]}); "
+          f"graph {t_g['replays']} replays of {t_g['captures']} capture in {secs_g:.2f} s "
+          f"(the capture and its warm-up step included), eager {t_e['eager']} steps in "
+          f"{secs_e:.2f} s; launches eager {used}, graph with its warm-up "
+          f"{ {k: n_g[k] for k in used} } | {card}")
+    return {k: n_g[k] for k in used}
+
 
 
 class _Spans:
@@ -1582,11 +1715,14 @@ class _Spans:
 
 def step_split(cfg, data: str, dev, n_steps: int = 3) -> dict:
     """Where one training step's time goes, every number from the same
-    ``n_steps`` steps of ``Chassis.train`` (after one warm-up step): host
-    wall and loader wait per step, and device spans (CUDA events around
-    the calls, ms per step) of the whole step, the forward and loss, the
-    encoder, the upsampler, the stack's forward, the backward, the stack's
-    backward and the optimizer."""
+    ``n_steps`` steps of ``Chassis.train`` (after one warm-up step), the
+    step run eagerly (``train_step(eager=True)``: CUDA events cannot be
+    read inside a replayed graph; the same kernels): host wall and loader
+    wait per step, and device spans (CUDA events around the calls, ms per
+    step) of the whole step, the forward and loss, the encoder, the
+    upsampler, the stack's forward, the backward, the stack's backward and
+    the optimizer."""
+    import functools
     from unittest import mock
 
     import torch
@@ -1597,7 +1733,9 @@ def step_split(cfg, data: str, dev, n_steps: int = 3) -> dict:
     from ae_wavenet_tpu_torch.training import chassis
 
     ch = chassis.Chassis(cfg, data, device=dev, log_stream=io.StringIO())
-    ch.train(1)
+    eager = functools.partial(chassis.train_step, eager=True)
+    with mock.patch.object(chassis, "train_step", eager):
+        ch.train(1)
     ch.stats.clear()
     sp = _Spans()
     targets = [(chassis, "train_step", "step"), (ae, "loss_fn", "forward"),
@@ -1606,8 +1744,9 @@ def step_split(cfg, data: str, dev, n_steps: int = 3) -> dict:
                (gated, "run_forward", "stack forward"),
                (torch.Tensor, "backward", "backward"),
                (gated, "run_backward", "stack backward"),
-               (ch.opt, "step", "optimizer")]
+               (ch.opt, "update", "optimizer")]
     with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(chassis, "train_step", eager))
         for obj, attr, label in targets:
             stack.enter_context(mock.patch.object(obj, attr,
                                                   sp.wrap(label, getattr(obj, attr))))
@@ -1637,8 +1776,8 @@ def _print_split(cfg, data: str, dev, label: str, card: str) -> None:
     s = step_split(cfg, data, dev)
     fwd_rest = s["forward"] - s["encoder"] - s["upsampler"] - s["stack forward"]
     bwd_rest = s["backward"] - s["stack backward"]
-    print(f"[train] step split, {label} (B={TRAIN_B}, n_win={TRAIN_WIN}, 3 steps, ms "
-          f"per step; device spans from CUDA events): host step {s['host step']:.1f}, "
+    print(f"[train] step split, {label} (B={TRAIN_B}, n_win={TRAIN_WIN}, 3 eager steps, "
+          f"ms per step; device spans from CUDA events): host step {s['host step']:.1f}, "
           f"loader wait {s['loader wait']:.2f}; device step {s['step']:.1f} = forward "
           f"and loss {s['forward']:.1f} (encoder {s['encoder']:.1f}, upsampler "
           f"{s['upsampler']:.1f}, stack forward {s['stack forward']:.1f}, the rest "
@@ -1693,11 +1832,13 @@ def phase_train(card: str, dev, tmp: str) -> dict:
     t0 = time.perf_counter()
     new, n_new, peak_new, _ = _path_run(
         ["new", *shape, "--n-steps", str(TRAIN_STEPS), "--ckpt-dir", ckpt],
-        expect(n_layers // 2, 0, TRAIN_STEPS), card, "main path, new")
+        expect(n_layers // 2, 0, _warm(TRAIN_STEPS)), card, "main path, new",
+        TRAIN_STEPS)
     res, n_res, peak_res, _ = _path_run(
         ["resume", "--n-steps", str(RESUME_STEPS), "--data", data, "--log-every", "1",
          "--ckpt-dir", ckpt],
-        expect(n_layers // 2, 0, RESUME_STEPS), card, "main path, resume")
+        expect(n_layers // 2, 0, _warm(RESUME_STEPS)), card, "main path, resume",
+        RESUME_STEPS)
     wall = time.perf_counter() - t0
     peak = max(peak_new, peak_res)
     check([r["step"] for r in new] == list(range(1, TRAIN_STEPS + 1)),
@@ -1722,7 +1863,8 @@ def phase_train(card: str, dev, tmp: str) -> dict:
     alt, n_alt, peak_alt, _ = _path_run(
         ["new", *shape, "--no-gated-fuse-pairs", "--no-gated-save-y", "--n-steps",
          str(TRAIN_STEPS), "--ckpt-dir", os.path.join(tmp, "ckpt_alt")],
-        expect(0, n_layers, TRAIN_STEPS), card, "single-layer path, new")
+        expect(0, n_layers, _warm(TRAIN_STEPS)), card, "single-layer path, new",
+        TRAIN_STEPS)
     check(len(alt) == TRAIN_STEPS, f"single-layer run logged {len(alt)} steps")
     d_alt = abs(alt[0]["loss"] - new[0]["loss"])
     check(d_alt < LOSS_TOL, f"single-layer path: first-step loss {alt[0]['loss']} vs "
@@ -1741,9 +1883,9 @@ def phase_train(card: str, dev, tmp: str) -> dict:
     sy, n_sy, peak_sy, _ = _path_run(
         ["new", *shape, "--no-gated-fuse-pairs", "--n-steps", str(TRAIN_STEPS),
          "--ckpt-dir", os.path.join(tmp, "ckpt_sy")],
-        {"gated_layer_fused": n_layers * TRAIN_STEPS,
-         "gated_layer_bwd": n_layers * TRAIN_STEPS}, card,
-        "single-layer path with saved y, new")
+        {"gated_layer_fused": n_layers * _warm(TRAIN_STEPS),
+         "gated_layer_bwd": n_layers * _warm(TRAIN_STEPS)}, card,
+        "single-layer path with saved y, new", TRAIN_STEPS)
     check(len(sy) == TRAIN_STEPS, f"saved-y single-layer run logged {len(sy)} steps")
     d_sy = abs(sy[0]["loss"] - new[0]["loss"])
     check(d_sy < LOSS_TOL, f"saved-y single-layer path: first-step loss {sy[0]['loss']} "
@@ -1762,8 +1904,9 @@ def phase_train(card: str, dev, tmp: str) -> dict:
     fused, n_vq, _, _ = _path_run(
         ["new", *shape, "--vq-use-pallas", "--n-steps", str(VQ_TRAIN_STEPS),
          "--ckpt-dir", ckpt_vq],
-        {**expect(n_layers // 2, 0, VQ_TRAIN_STEPS), "vq_lookup_fused": VQ_TRAIN_STEPS},
-        card, "main path with --vq-use-pallas, new")
+        {**expect(n_layers // 2, 0, _warm(VQ_TRAIN_STEPS)),
+         "vq_lookup_fused": _warm(VQ_TRAIN_STEPS)},
+        card, "main path with --vq-use-pallas, new", VQ_TRAIN_STEPS)
     check(len(fused) == VQ_TRAIN_STEPS, f"--vq-use-pallas run logged {len(fused)} steps")
     d_loss = abs(fused[0]["loss"] - new[0]["loss"])
     check(d_loss < 1e-4, f"first-step loss with --vq-use-pallas {fused[0]['loss']} vs "
@@ -1783,17 +1926,17 @@ def phase_train(card: str, dev, tmp: str) -> dict:
 
     def expect_ws(steps: int, first: int) -> dict:
         evals = (first + steps) // EVAL_EVERY - first // EVAL_EVERY
-        return {"gated_stack_fused": steps + 8 * evals,
-                "gated_group_bwd": steps * n_layers // GROUP}
+        return {"gated_stack_fused": _warm(steps) + 8 * evals,
+                "gated_group_bwd": _warm(steps) * n_layers // GROUP}
 
     ws_new, n_ws, peak_ws, all_new = _path_run(
         ["new", *shape, "--gated-full-fusion", "--gated-bwd-group", str(GROUP),
          "--n-steps", str(TRAIN_STEPS), *runtime],
-        expect_ws(TRAIN_STEPS, 0), card, "whole-stack path, new")
+        expect_ws(TRAIN_STEPS, 0), card, "whole-stack path, new", TRAIN_STEPS)
     ws_res, n_ws_res, peak_ws_res, all_res = _path_run(
         ["resume", "--n-steps", str(RESUME_STEPS), "--data", data, "--log-every", "1",
          *runtime], expect_ws(RESUME_STEPS, TRAIN_STEPS), card,
-        "whole-stack path, resume")
+        "whole-stack path, resume", RESUME_STEPS)
     ce_ws = [r["recon_ce"] for r in ws_new + ws_res]
     check([r["step"] for r in ws_new + ws_res]
           == list(range(1, TRAIN_STEPS + RESUME_STEPS + 1)),
@@ -1834,8 +1977,8 @@ def phase_train(card: str, dev, tmp: str) -> dict:
     # full fusion alone: the whole-stack forward, the pair backward
     ff, n_ff, peak_ff, _ = _path_run(
         ["new", *shape, "--gated-full-fusion", "--n-steps", "3"],
-        {"gated_stack_fused": 3, "gated_pair_bwd": 3 * n_layers // 2}, card,
-        "--gated-full-fusion alone, new")
+        {"gated_stack_fused": _warm(3), "gated_pair_bwd": _warm(3) * n_layers // 2},
+        card, "--gated-full-fusion alone, new", 3)
     step_ff = _median_step(ff)
     print(f"[train] --gated-full-fusion alone: median step {step_ff * 1e3:.1f} ms -> "
           f"{TRAIN_B * TRAIN_WIN / step_ff:.0f} samples/s; peak memory {peak_ff:.2f} "
@@ -1856,7 +1999,7 @@ def phase_train(card: str, dev, tmp: str) -> dict:
         _, n, _, recs = _path_run(
             ["new", *shape, *argv, "--n-steps", "2", "--profile-steps", "2",
              "--profile-dir", os.path.join(tmp, prof_dir)], expect_n, card,
-            f"{label} under --profile-steps 2")
+            f"{label} under --profile-steps 2", 2)
         prof = [r["profile"] for r in recs if "profile" in r]
         check(len(prof) == 1 and any("profile_trace" in r for r in recs),
               f"profiled run printed {len(prof)} summaries")
@@ -1876,24 +2019,37 @@ def phase_train(card: str, dev, tmp: str) -> dict:
               f"{tops} | {card}")
         return n
 
-    n_prof_pairs = profiled([], expect(n_layers // 2, 0, 2), "main path (pairs)",
+    n_prof_pairs = profiled([], expect(n_layers // 2, 0, _warm(2)), "main path (pairs)",
                             ("wg_fwd_kernel", "wg_bwd_kernel", "wg_dw_kernel"),
                             "prof_pairs")
     n_prof = profiled(["--gated-full-fusion", "--gated-bwd-group", str(GROUP)],
-                      {"gated_stack_fused": 2, "gated_group_bwd": 2 * n_layers // GROUP},
+                      {"gated_stack_fused": _warm(2),
+                       "gated_group_bwd": _warm(2) * n_layers // GROUP},
                       "whole-stack path", ("wg_stack_kernel", "wg_group_kernel"),
                       "prof")
 
     cfg = dataclasses.replace(
         cfg, train=dataclasses.replace(cfg.train, batch_sz=TRAIN_B, n_win=TRAIN_WIN),
         wavenet=dataclasses.replace(cfg.wavenet, use_pallas_stack=True))
+    # the captured step against the eager one on every schedule (K9 on the
+    # pairs), at the flagship width
+    n_graph = [graph_vs_eager(card, dev, dataclasses.replace(
+        c, wavenet=dataclasses.replace(c.wavenet, **sched)), data, label)
+        for c, sched, label in (
+            (dataclasses.replace(cfg, bottleneck=dataclasses.replace(
+                cfg.bottleneck, vq_use_pallas=True)), {}, "pairs with the VQ kernel"),
+            (cfg, {"gated_fuse_pairs": False, "gated_save_y": False},
+             "single layers (recompute mode)"),
+            (cfg, {"gated_full_fusion": True, "gated_bwd_group": GROUP},
+             f"whole stack, groups of {GROUP}"))]
     _print_split(cfg, data, dev, "main path (pairs)", card)
     _print_split(dataclasses.replace(cfg, wavenet=dataclasses.replace(
         cfg.wavenet, gated_full_fusion=True, gated_bwd_group=GROUP)), data, dev,
         f"whole-stack path (full fusion, groups of {GROUP})", card)
-    runs = (n_new, n_res, n_alt, n_sy, n_vq, n_ws, n_ws_res, n_ff, n_prof_pairs, n_prof)
-    launches = {n: sum(r[n] for r in runs) for n in (*GATED, "gated_layer_bwd_recompute")}
-    launches["vq_lookup_fused"] = n_vq["vq_lookup_fused"]
+    runs = (n_new, n_res, n_alt, n_sy, n_vq, n_ws, n_ws_res, n_ff, n_prof_pairs, n_prof,
+            *n_graph)
+    launches = {n: sum(r.get(n, 0) for r in runs)
+                for n in (*GATED, "gated_layer_bwd_recompute", "vq_lookup_fused")}
     return {"launches": launches, "data": data, "ckpt_vq": ckpt_vq}
 
 
@@ -2033,17 +2189,17 @@ def phase_inverter(card: str, dev, tmp: str) -> dict:
     shape = ["--preset", "chorowski", "--model", "mfcc_inverter", "--pallas-stack",
              "--frame-norm", "dataset", "--batch-sz", str(TRAIN_B), "--n-win",
              str(TRAIN_WIN), "--data", data, "--log-every", "1"]
-    expect = {"gated_pair_fused": n_pairs * TRAIN_STEPS,
-              "gated_pair_bwd": n_pairs * TRAIN_STEPS}
+    expect = {"gated_pair_fused": n_pairs * _warm(TRAIN_STEPS),
+              "gated_pair_bwd": n_pairs * _warm(TRAIN_STEPS)}
     t0 = time.perf_counter()
     new, n_new, peak_new, _ = _path_run(
         ["new", *shape, "--n-steps", str(TRAIN_STEPS), "--ckpt-dir", ckpt], expect,
-        card, "inverter, new")
-    expect = {"gated_pair_fused": n_pairs * RESUME_STEPS,
-              "gated_pair_bwd": n_pairs * RESUME_STEPS}
+        card, "inverter, new", TRAIN_STEPS)
+    expect = {"gated_pair_fused": n_pairs * _warm(RESUME_STEPS),
+              "gated_pair_bwd": n_pairs * _warm(RESUME_STEPS)}
     res, n_res, peak_res, _ = _path_run(
         ["resume", "--n-steps", str(RESUME_STEPS), "--data", data, "--log-every", "1",
-         "--ckpt-dir", ckpt], expect, card, "inverter, resume")
+         "--ckpt-dir", ckpt], expect, card, "inverter, resume", RESUME_STEPS)
     wall = time.perf_counter() - t0
     last = TRAIN_STEPS + RESUME_STEPS
     check([r["step"] for r in new + res] == list(range(1, last + 1)),
@@ -2159,8 +2315,8 @@ def phase_gate(card: str, dev, tmp: str) -> dict:
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     sampled = _counts()
-    want = _expect(gated_pair_fused=n_pairs * quality.GATE_STEPS,
-                   gated_pair_bwd=n_pairs * quality.GATE_STEPS)
+    want = _expect(gated_pair_fused=n_pairs * _warm(quality.GATE_STEPS),
+                   gated_pair_bwd=n_pairs * _warm(quality.GATE_STEPS))
     check(seen["train"] == want, f"gate training: launches {seen['train']}, "
           f"expected {want}")
     check(sampled == _expect(bf16=1, int8=1, int4=1), f"gate sampling: launches "
@@ -2252,10 +2408,11 @@ def phase_instruments(card: str, dev, tmp: str) -> dict:
     eval_batches = 8  # Chassis.evaluate's default
 
     def trained(steps: int, evals: int, twins: int = 1) -> dict:
-        """K1 and K2 launches of ``twins`` runs of ``steps`` steps and
-        ``evals`` eval batches each, on the pair schedule."""
-        return {"gated_pair_fused": twins * pairs * (steps + evals),
-                "gated_pair_bwd": twins * pairs * steps}
+        """K1 and K2 launches of ``twins`` runs of ``steps`` steps (one
+        capture each) and ``evals`` eval batches each, on the pair
+        schedule."""
+        return {"gated_pair_fused": twins * pairs * (_warm(steps) + evals),
+                "gated_pair_bwd": twins * pairs * _warm(steps)}
 
     launches: dict = {}
 
@@ -2545,9 +2702,11 @@ def phase_measures(card: str, dev, tmp: str) -> dict:
         secs[name] = round(s, 1)
         return recs, text
 
-    def steps(n):
-        """K1 and K2 launches of n training steps on the pair schedule."""
-        return {"gated_pair_fused": pairs * n, "gated_pair_bwd": pairs * n}
+    def steps(n, captures=1):
+        """K1 and K2 launches of n training steps through ``captures``
+        captures on the pair schedule."""
+        return {"gated_pair_fused": pairs * _warm(n, captures),
+                "gated_pair_bwd": pairs * _warm(n, captures)}
 
     def keys(name, recs, want):
         check(len(recs) == len(want), f"{name}: {len(recs)} records, expected "
@@ -2575,9 +2734,10 @@ def phase_measures(card: str, dev, tmp: str) -> dict:
     bench_vq.TRAIN_ITERS = MEASURE_VQ_TRAIN_ITERS
     try:
         n_steps = 2 * (bench_vq.TRAIN_WARMUP + bench_vq.TRAIN_ITERS)
-        recs, _ = run(bench_vq, [], {**steps(n_steps), "plain": n_shapes * per_shape,
+        recs, _ = run(bench_vq, [], {**steps(n_steps, 2), "plain": n_shapes * per_shape,
                                      "vq_lookup_fused": n_shapes * per_shape
-                                     + n_steps // 2}, BENCH_BATCH=None, BENCH_NWIN=None)
+                                     + _warm(n_steps // 2)}, BENCH_BATCH=None,
+                      BENCH_NWIN=None)
     finally:
         bench_vq.TRAIN_ITERS = old
     keys("bench_vq", recs, [VQ_OP_KEYS] * n_shapes + [VQ_STEP_KEYS] * 2
@@ -2621,9 +2781,10 @@ def phase_measures(card: str, dev, tmp: str) -> dict:
           f"| {card}")
 
     # probe_dispatch at K = 8: 6 blocks, then Chassis.train at K = 1, 8, 16
+    # (four captures)
     k = 8
     e2e = sum(2 * kk + max(3 * kk, 24 - 24 % kk) for kk in (1, k, 2 * k))
-    recs, _ = run(probe_dispatch, [], steps(6 * k + e2e), PROBE_TINY=None,
+    recs, _ = run(probe_dispatch, [], steps(6 * k + e2e, 4), PROBE_TINY=None,
                   BENCH_BATCH=None, BENCH_NWIN=None, BENCH_STEPS_PER_CALL=k)
     keys("probe_dispatch", recs, [PROBE_KEYS | {f"e2e_{m}_k{kk}" for m in ("sps", "frac")
                                                 for kk in (1, k, 2 * k)}])
@@ -2641,6 +2802,7 @@ def phase_measures(card: str, dev, tmp: str) -> dict:
     print(f"[measures] ablate_step --iters {MEASURE_ITERS}: " + "; ".join(lines) + f" | {card}")
 
     recs, _ = run(convergence_ab, ["--steps", str(CONV_STEPS)], steps(CONV_STEPS))
+    # (its plain-stack twin's capture launches no kernel)
     keys("convergence_ab", recs, [CONV_KEYS])
     c = recs[0]
     check(c["mean_abs_ce_diff"] <= convergence_ab.MEAN_LIMIT
@@ -2733,6 +2895,7 @@ def phase_bench(card: str, dev, probe: dict | None = None) -> dict:
     n_layers = len(gated.stack_dils(WaveNetConfig()))
     steps = bench.WARMUP + BENCH_ITERS + 2 * BENCH_K + bench.e2e_steps(BENCH_ITERS, BENCH_K)
     check(steps == 63 and n_layers % GROUP == 0, f"{steps} steps, {n_layers} layers")
+    steps = _warm(steps, 2)  # compute_only's capture and the e2e chassis's
     runs = [("pairs (defaults)", {}, {"gated_pair_fused": n_layers // 2 * steps,
                                       "gated_pair_bwd": n_layers // 2 * steps}),
             (f"whole stack (BENCH_FULL_FUSION=1 BENCH_BWD_GROUP={GROUP})",
@@ -2744,18 +2907,23 @@ def phase_bench(card: str, dev, probe: dict | None = None) -> dict:
         with _environ(**{**dict.fromkeys(BENCH_KNOBS), **env}), f32_numerics():
             cfg = bench.bench_config(os.environ)
             _zero_counts()
+            _zero_train_counts()
             t0 = time.perf_counter()
             rec = bench.measure(cfg, dev, iters=BENCH_ITERS, k=BENCH_K)
             torch.cuda.synchronize()
-            secs, got = time.perf_counter() - t0, _counts()
+            secs, got, step = time.perf_counter() - t0, _counts(), _train_counts()
         check(got == _expect(**want), f"bench {label}: launches {got}, expected "
               f"{_expect(**want)}")
+        check(step == {"replays": 63, "captures": 2, "eager": 0},
+              f"bench {label}: training step counters {step}")
         _bench_held(label, rec, keys)
         for k, v in want.items():
             launches[k] = launches.get(k, 0) + v
         recs[label] = rec
         print(f"[bench] {label}, in process: {json.dumps(rec)}; {_bench_text(rec)}; "
-              f"{steps} steps, launches {want}, plain 0; {secs:.1f} s | {card}")
+              f"63 steps, {step['replays']} replays of {step['captures']} captures and "
+              f"{step['eager']} eager steps, launches {want} (the warm-up steps "
+              f"included), plain 0; {secs:.1f} s | {card}")
     if probe is not None:
         rec = recs[runs[0][0]]
         print(f"[bench] pairs compute-only over probe_dispatch's compute_sps (phase 13, "
@@ -3212,6 +3380,9 @@ def dp_step_check(dp: list, single: dict, f32: dict, bf16: dict, loss_dp: float,
 def phase_parallel(card: str, dev, tmp: str) -> dict:
     """Phase 11: data parallelism and the halo on the card (module
     docstring).  -> the pair kernels' and the VQ kernel's launches."""
+    import functools
+    from unittest import mock
+
     import torch
 
     from ae_wavenet_tpu_torch.data.dataset import make_synthetic_dataset
@@ -3330,10 +3501,13 @@ def phase_parallel(card: str, dev, tmp: str) -> dict:
             launches[k] += rr["dp"]["counts"][k] + rr["fault"]["counts"][k]
 
     def single_step(c):
+        # eager: vq_capture copies the latents to the host inside the step,
+        # which a capture refuses
         ch = chassis.Chassis(c, data, device=dev, log_stream=io.StringIO())
         _zero_counts()
         seen = []
-        with vq_capture(seen):
+        with vq_capture(seen), mock.patch.object(
+                chassis, "train_step", functools.partial(chassis.train_step, eager=True)):
             loss = ch.train(1)[-1]["loss"]
         torch.cuda.synchronize()
         check(len(seen) == 1, f"11(b) single process: {len(seen)} VQ lookups")
@@ -3415,7 +3589,8 @@ def phase_parallel(card: str, dev, tmp: str) -> dict:
         # without it
         plain_run, n_plain, _, _ = _path_run(
             ["new", *shape, "--n-steps", "2"],
-            {k: v for k, v in times(2).items() if k in launches}, card, "11(c) without a mesh")
+            {k: v for k, v in times(_warm(2)).items() if k in launches}, card,
+            "11(c) without a mesh", 2)
         for k in launches:
             launches[k] += n_plain[k]
         t0 = time.perf_counter()
@@ -3683,6 +3858,94 @@ def serve_times(card: str, dev) -> None:
             print(f"[times] bench_gen {line} | {card}")
 
 
+def train_times(card: str, dev) -> None:
+    """``--train-times``: the main path's step (``bench.py``'s defaults:
+    pairs, saved y, B = 4 x 48,000, its fixture, four batches on the card)
+    in one process, replayed as a CUDA graph and run eagerly
+    (``eager=True``), each on a fresh model of one seed, in the order graph,
+    eager, eager, graph: the compute-only ms a step (TRAIN_TIMES_STEPS steps
+    between two synchronisations, after 3 warm-up steps, the capture
+    among them), the median ms of a step followed by a metrics fetch,
+    the peak memory, and the device-busy share, kernels and copies a step
+    and window of TRAIN_TIMES_PROFILED fetched steps under torch.profiler,
+    and the digest of the training state after all those steps (equal
+    digests: bit-identical training); no checks, so that an older commit's
+    package, whose ``train_step`` runs only eagerly, is timed with the same
+    code ("eager" is then its step)."""
+    import gc
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from ae_wavenet_tpu_torch import bench
+    from ae_wavenet_tpu_torch.data.dataset import PackedDataset, WindowSampler
+    from ae_wavenet_tpu_torch.models import registry
+    from ae_wavenet_tpu_torch.ops import _build
+    from ae_wavenet_tpu_torch.parallel import mesh as mesh_mod
+    from ae_wavenet_tpu_torch.training import chassis
+    from ae_wavenet_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    _build.load()
+    print(f"[times] build {time.perf_counter() - t0:.2f} s, package "
+          f"{os.path.dirname(_build.CSRC)} | {card}")
+    graphed = "eager" in inspect.signature(chassis.train_step).parameters
+    cfg = bench.bench_config({})
+    fam, spec = registry.get(cfg.model_kind), bench.window_spec(cfg)
+    with f32_numerics(), tempfile.TemporaryDirectory() as tmp:
+        sampler = WindowSampler(PackedDataset(bench.fixture(os.path.join(tmp, "fx"), cfg)),
+                                spec.u_len, cfg.train.batch_sz, seed=0)
+        batches = [(torch.from_numpy(w).to(dev), torch.from_numpy(k.astype(np.int64)).to(dev))
+                   for w, k in (sampler.batch_at(s) for s in range(4))]
+        for mode in ("graph", "eager", "eager", "graph") if graphed else ("eager",) * 2:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            model = fam.init(cfg, torch.Generator().manual_seed(0), dev)
+            opt = chassis.Adam(model.named_parameters(), cfg.train)
+            kw = {"eager": mode == "eager"} if graphed else {}
+            n = [0]
+
+            def step():
+                w, k = batches[n[0] % len(batches)]
+                n[0] += 1
+                return chassis.train_step(model, opt, cfg, spec, w, k, n[0] - 1, **kw)
+
+            t0 = time.perf_counter()
+            for _ in range(3):
+                step()
+            torch.cuda.synchronize()
+            warm = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_TIMES_STEPS):
+                step()
+            torch.cuda.synchronize()
+            compute = (time.perf_counter() - t0) / TRAIN_TIMES_STEPS
+            fetched = []
+            for _ in range(TRAIN_TIMES_STEPS):
+                t0 = time.perf_counter()
+                chassis.fetch(step())
+                fetched.append(time.perf_counter() - t0)
+            with profiling.trace(os.path.join(tmp, f"prof_{mode}")) as prof:
+                for _ in range(TRAIN_TIMES_PROFILED):
+                    chassis.fetch(step())
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            busy = prof["device_busy_share"]
+            state = mesh_mod.digest({**model.state_dict(), **opt.named_state()})
+            print(f"[times] train step, {mode}: compute-only {compute * 1e3:.2f} ms a step "
+                  f"({TRAIN_TIMES_STEPS} steps; 3 warm-up steps in {warm:.2f} s), "
+                  f"with a fetch after every step median "
+                  f"{statistics.median(fetched) * 1e3:.2f} ms (min {min(fetched) * 1e3:.2f}, "
+                  f"max {max(fetched) * 1e3:.2f}); peak memory {peak:.3f} GiB; "
+                  f"profiled {TRAIN_TIMES_PROFILED} fetched steps: device busy "
+                  f"{'not seen' if busy is None else f'{busy * 100:.2f}%'} of "
+                  f"{prof['window_ms']:.1f} ms, "
+                  f"{prof['n_kernels'] / TRAIN_TIMES_PROFILED:.1f} kernels and copies "
+                  f"a step; state after {n[0]} steps {state[:16]} | {card}")
+            del model, opt, step
+
+
 def main() -> int:
     import torch
 
@@ -3698,6 +3961,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--serve-times"]:
         serve_times(card, dev)
+        return 0
+    if sys.argv[1:] == ["--train-times"]:
+        train_times(card, dev)
         return 0
     if sys.argv[1:2] == ["--train-rank"]:
         return train_rank(sys.argv[2:])

@@ -1,8 +1,8 @@
 """The CUDA kernels against their plain versions, on the card: the sampler
 (bf16, int8 and int4 weights), the fused VQ lookup, the gated training
 stack, the MFCC inverter's path through them, and the int8 quality gate;
-and prime and the f32 rollout replayed as CUDA graphs against the same
-step in the eager loop.
+and prime, the f32 rollout and the training step replayed as CUDA graphs
+against the same step in the eager loop.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip.  The file
 imports no jax, so on a machine with the card and without JAX it runs
@@ -12,6 +12,7 @@ without the JAX suite's conftest:
 """
 
 import dataclasses
+import io
 import os
 
 import numpy as np
@@ -868,8 +869,12 @@ def test_two_rank_step_on_one_card_matches_one_process(cuda_device, tmp_path):
     batch: loss within 1e-3 relative, and the codes and the EMA state by
     ``chip_smoke.vq_step_check`` (the encoder ran at another batch, so a
     latent near a tie may flip: each flip must be one, and the other codes
-    must match)."""
+    must match).  The one process's step runs eagerly: ``vq_capture`` copies
+    the latents to the host inside the step, which a graph capture refuses
+    (the graph is held to the eager step bit for bit below)."""
+    import functools
     import io
+    from unittest import mock
 
     import chip_smoke
     import torch_parallel_worker as worker
@@ -890,7 +895,8 @@ def test_two_rank_step_on_one_card_matches_one_process(cuda_device, tmp_path):
     ranks = worker.run_ranks(worker.card_dp_step, 2, 2, tcfg.to_json(cfg), prefix)
     one = chassis.Chassis(cfg, prefix, device=cuda_device, log_stream=io.StringIO())
     seen = []
-    with chip_smoke.vq_capture(seen):
+    with chip_smoke.vq_capture(seen), mock.patch.object(
+            chassis, "train_step", functools.partial(chassis.train_step, eager=True)):
         loss = one.train(1)[-1]["loss"]
     want = {k: v.detach().cpu() for k, v in one.model.state_dict().items()}
     pairs = len(cfg.wavenet.dilations) // 2
@@ -1002,9 +1008,12 @@ def test_bench_on_card_goes_through_the_gated_kernels(cuda_device, schedule, per
     """``bench.measure`` at a narrow stack (GCFG's widths, 8 layers; the
     tiny encoder) on the card, B = 1 x 2,000, 2 iterations, K = 2: a
     complete record with the e2e headline, MFU where the card's peak is
-    known, and in each of the run's 15 steps every gated kernel launched
-    as the schedule gives it (the whole stack: BENCH_FULL_FUSION=1 with
-    groups of 4) and no plain version at all."""
+    known, and in each of the run's 15 steps, and in the warm-up step of
+    each of its two captures (the compute-only loop's and the e2e
+    chassis's), every gated kernel launched as the schedule gives it (the
+    whole stack: BENCH_FULL_FUSION=1 with groups of 4) and no plain version
+    at all."""
+    from ae_wavenet_tpu_torch.training import chassis
     from ae_wavenet_tpu_torch import bench
     from ae_wavenet_tpu_torch.utils.config import tiny_config
 
@@ -1025,6 +1034,7 @@ def test_bench_on_card_goes_through_the_gated_kernels(cuda_device, schedule, per
     ran = [f.launches - b for f, b in zip(wrappers + plain, before)]
     steps = bench.WARMUP + 2 + 2 * 2 + bench.e2e_steps(2, 2)
     assert steps == 15
+    steps += 2 * chassis.WARMUP_STEPS
     assert ran[:len(wrappers)] == [per_step.get(n, 0) * steps for n in BENCH_GATED]
     assert ran[len(wrappers):] == [0] * len(plain)
     assert rec["headline"] == "e2e" and rec["steps_per_call"] == 2
@@ -1149,3 +1159,233 @@ def test_graph_capture_failure_raises(cuda_device, monkeypatch):
     st = tfg.prime(wn, cfg, tfg.init_state(cfg, 2, device=cuda_device), ctx, cond, spk)
     torch.cuda.synchronize()
     assert _graph_counts() == (rf, 0, 0, 0) and st.t == rf
+
+
+# -------------------------------------- the training step as a CUDA graph
+
+import chip_smoke  # noqa: E402
+from ae_wavenet_tpu_torch.models import registry as treg  # noqa: E402
+from ae_wavenet_tpu_torch.training import chassis as tch  # noqa: E402
+
+STEP_SCHEDULES = {"pairs": {},
+                  "single_layer": dict(gated_fuse_pairs=False, gated_save_y=False),
+                  "whole_stack": dict(gated_full_fusion=True, gated_bwd_group=4)}
+STEP_KERNELS = (*BENCH_GATED, "gated_layer_bwd_recompute", "vq_lookup_fused")
+TRAIN_STEP = tch.train_step  # its counters, where a test wraps it
+
+
+def _step_cfg(kind: str, schedule: str):
+    """GCFG's 8 layers in bf16 on the kernels under ``schedule``, the tiny
+    encoder, B = 2 x 2,000; a VQ bottleneck on the fused lookup (K9) with
+    restarts, jitter and its warm-up ramp, a VAE with its KL ramp, or the
+    MFCC inverter."""
+    from ae_wavenet_tpu_torch.utils.config import BottleneckConfig, tiny_config
+
+    base = tiny_config()
+    cfg = dataclasses.replace(
+        base, wavenet=dataclasses.replace(GCFG, use_pallas_stack=True,
+                                          **STEP_SCHEDULES[schedule]),
+        train=dataclasses.replace(base.train, batch_sz=2, n_win=2000,
+                                  compute_dtype="bfloat16", log_every=1))
+    if kind == "vq":
+        return dataclasses.replace(cfg, bottleneck=BottleneckConfig(
+            kind="vq", n_dim=16, vq_k=32, vq_restart_thresh=0.5, jitter_p=0.3,
+            vq_use_pallas=True, vq_warmup_steps=4), train=dataclasses.replace(
+                cfg.train, aux_frame_weight=1.0))
+    if kind == "vae":
+        return dataclasses.replace(cfg, bottleneck=BottleneckConfig(
+            kind="vae", n_dim=16, kl_anneal_steps=10))
+    return dataclasses.replace(
+        cfg, model_kind="mfcc_inverter",
+        wavenet=dataclasses.replace(cfg.wavenet, lc_upsample_strides=(5, 4, 4, 2),
+                                    lc_upsample_filters=(10, 8, 8, 4)))
+
+
+def _step_twins(cfg, dev, n_batches: int, k: int = 1):
+    """Two (model, optimizer) pairs from one seed, the window spec, and
+    ``n_batches`` seeded batches on the card ([k, B, ...] blocks for k > 1)."""
+    fam = treg.get(cfg.model_kind)
+    spec = fam.make_window_spec(cfg)
+    pairs = []
+    for _ in range(2):
+        model = fam.init(cfg, torch.Generator().manual_seed(0), dev)
+        pairs.append((model, tch.Adam(model.named_parameters(), cfg.train)))
+    rng = np.random.default_rng(0)
+    lead = (k,) if k > 1 else ()
+    b = cfg.train.batch_sz
+    batches = [(torch.from_numpy(rng.integers(-8000, 8000, (*lead, b, spec.u_len),
+                                              dtype=np.int16)).to(dev),
+                torch.from_numpy(rng.integers(0, cfg.wavenet.n_speakers,
+                                              (*lead, b))).to(dev))
+               for _ in range(n_batches)]
+    return spec, pairs, batches
+
+
+_train_state = chip_smoke._train_state  # every tensor of a training state
+
+
+def _same_bits(a: dict, b: dict) -> None:
+    assert a.keys() == b.keys()
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+def _step_counts() -> dict:
+    return {"replays": TRAIN_STEP.graph_replays, "eager": TRAIN_STEP.eager_steps,
+            "captures": TRAIN_STEP.captures,
+            **{n: getattr(tgc, n.removesuffix("_recompute")).launches_recompute
+               if n.endswith("_recompute") else
+               getattr(vq_cuda if n.startswith("vq") else tgc, n).launches
+               for n in STEP_KERNELS},
+            "plain": sum(getattr(tgt, n + "_reference").launches for n in BENCH_GATED)
+            + vq_cuda.vq_lookup_reference.launches}
+
+
+def _moved(before: dict) -> dict:
+    now = _step_counts()
+    return {k: now[k] - before[k] for k in now if now[k] != before[k]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", sorted(STEP_SCHEDULES))
+@pytest.mark.parametrize("kind", ["vq", "vae", "inverter"])
+def test_train_step_graph_matches_eager_bit_for_bit(cuda_device, kind, schedule):
+    """3 steps replayed from one capture against the same 3 steps called
+    eagerly (``eager=True``) from the same init and batches: every metric
+    of every step, then every parameter, gradient, buffer, moment and count
+    bit for bit.  The graph's run counts 3 replays, 1 capture and no eager
+    step, and launches each kernel (3 + WARMUP_STEPS) / 3 times as often as
+    the eager run; no plain version runs; K9's barrier is left at zero."""
+    cfg = _step_cfg(kind, schedule)
+    spec, ((mg, og), (me, oe)), batches = _step_twins(cfg, cuda_device, 3)
+    runs = []
+    for model, opt, eager in ((mg, og, False), (me, oe, True)):
+        before = _step_counts()
+        metrics = [tch.train_step(model, opt, cfg, spec, w, s, i, eager=eager)
+                   for i, (w, s) in enumerate(batches)]
+        torch.cuda.synchronize()
+        runs.append((metrics, _moved(before)))
+    (m_g, n_g), (m_e, n_e) = runs
+    for a, b in zip(m_g, m_e):
+        _same_bits(a, b)
+    _same_bits(_train_state(mg, og), _train_state(me, oe))
+    assert {k: n_g.pop(k) for k in ("replays", "captures")} == {"replays": 3,
+                                                                "captures": 1}
+    assert n_e.pop("eager") == 3 and "eager" not in n_g and "plain" not in n_e
+    w = tch.WARMUP_STEPS
+    assert n_g and {k: v * 3 for k, v in n_g.items()} == {
+        k: v * (3 + w) for k, v in n_e.items()}
+    assert ("vq_lookup_fused" in n_g) == (kind == "vq")
+    assert chip_smoke._barriers_at_zero()
+
+
+@pytest.mark.cuda
+def test_train_step_k_steps_a_call_are_k_replays(cuda_device):
+    """Two calls of K = 4 on [4, B, ...] blocks, with a learning-rate
+    boundary at step 6: 8 replays of two captures (the first call's rate,
+    then the second rate, inside the second call), bit for bit the same
+    calls run eagerly (the last step's metrics, the state after them)."""
+    cfg = _step_cfg("vq", "pairs")
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, lr_boundaries=(6,), lr_values=(3e-4, 1e-4)))
+    spec, ((mg, og), (me, oe)), batches = _step_twins(cfg, cuda_device, 2, k=4)
+    before = _step_counts()
+    got = [tch.train_step(mg, og, cfg, spec, w, s, 4 * i, 4)
+           for i, (w, s) in enumerate(batches)]
+    moved = _moved(before)
+    want = [tch.train_step(me, oe, cfg, spec, w, s, 4 * i, 4, eager=True)
+            for i, (w, s) in enumerate(batches)]
+    torch.cuda.synchronize()
+    assert (moved["replays"], moved["captures"], moved.get("eager", 0)) == (8, 2, 0)
+    for a, b in zip(got, want):
+        _same_bits(a, b)
+    _same_bits(_train_state(mg, og), _train_state(me, oe))
+    assert og.count == oe.count == og.sched_count == 8
+
+
+@pytest.mark.cuda
+def test_train_step_resume_recaptures_and_matches_eager(cuda_device, tmp_path,
+                                                        monkeypatch):
+    """``Chassis`` on the card: 2 steps, a save, 2 more (one capture, 4
+    replays, no eager step).  A fresh chassis resumed at the save trains
+    the 2 steps through a graph of its own, and another resumed one trains
+    them eagerly: both end bit for bit where the first did."""
+    import functools
+
+    from ae_wavenet_tpu_torch.data.dataset import make_synthetic_dataset
+
+    cfg = _step_cfg("vq", "pairs")
+    u_len = treg.get(cfg.model_kind).make_window_spec(cfg).u_len
+    data = str(tmp_path / "synth")
+    make_synthetic_dataset(data, n_clips=4, n_speakers=4,
+                           clip_len=(u_len + 1000, u_len + 3000), seed=0)
+    ckpt = str(tmp_path / "ck")
+
+    def chassis():
+        return tch.Chassis(cfg, data, ckpt_dir=ckpt, device=cuda_device,
+                           log_stream=io.StringIO())
+
+    before = _step_counts()
+    a = chassis()
+    a.train(2)
+    a.save()
+    hist_a = a.train(2)
+    moved = _moved(before)
+    assert (moved["replays"], moved["captures"], moved.get("eager", 0)) == (4, 1, 0)
+    ends = []
+    for eager in (False, True):
+        if eager:
+            monkeypatch.setattr(tch, "train_step",
+                                functools.partial(tch.train_step, eager=True))
+        before = _step_counts()
+        b = chassis()
+        assert b.resume(2) == 2
+        hist = b.train(2)
+        moved = _moved(before)
+        assert moved.get("eager", 0) == (2 if eager else 0)
+        assert moved.get("captures", 0) == (0 if eager else 1)
+        assert hist == [{**h, "samples_per_sec": g["samples_per_sec"]}
+                        for h, g in zip(hist_a, hist)]
+        ends.append(b)
+    for b in ends:
+        _same_bits({k: v for k, v in _train_state(b.model, b.opt).items()
+                    if not k.startswith("grad.")},
+                   {k: v for k, v in _train_state(a.model, a.opt).items()
+                    if not k.startswith("grad.")})
+    for ch in (a, *ends):
+        ch.close()
+
+
+@pytest.mark.cuda
+def test_train_step_capture_failure_raises(cuda_device, monkeypatch):
+    """A host synchronisation planted in the loss, refused while the stream
+    captures: the call raises, nothing is replayed or run eagerly, the
+    training state and the optimizer's counts are as before the call, the
+    caller's stream is its own again; without the fault the next call
+    captures, replays and matches an eager twin."""
+    cfg = _step_cfg("vq", "pairs")
+    spec, ((mg, og), (me, oe)), batches = _step_twins(cfg, cuda_device, 1)
+    fam = treg.get(cfg.model_kind)
+    loss_fn = fam.loss_fn
+
+    def planted(*a, **kw):
+        total, metrics = loss_fn(*a, **kw)
+        total.detach().sum().item()  # a copy to the host and a wait
+        return total, metrics
+
+    start = {k: v.clone() for k, v in _train_state(mg, og).items() if v is not None}
+    stream = torch.cuda.current_stream()
+    monkeypatch.setattr(fam, "loss_fn", planted)
+    before = _step_counts()
+    w, s = batches[0]
+    with pytest.raises(RuntimeError):
+        tch.train_step(mg, og, cfg, spec, w, s, 0)
+    moved = _moved(before)
+    assert not {"replays", "eager", "captures"} & set(moved)
+    assert torch.cuda.current_stream() == stream and og.count == 0
+    _same_bits({k: v for k, v in _train_state(mg, og).items() if k in start}, start)
+    monkeypatch.undo()
+    got = tch.train_step(mg, og, cfg, spec, w, s, 0)
+    want = tch.train_step(me, oe, cfg, spec, w, s, 0, eager=True)
+    _same_bits(got, want)
+    _same_bits(_train_state(mg, og), _train_state(me, oe))
