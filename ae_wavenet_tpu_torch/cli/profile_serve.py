@@ -94,7 +94,7 @@ def main(argv=None) -> int:
         prev = torch.randint(0, wcfg.n_quant, (b,), generator=gen).to(dev)
         phases = {
             "encode 1 s": lambda: ae.encode(model, cfg, wav),
-            f"prime {a.steps} steps": lambda: fg.prime(
+            f"prime {a.steps} positions": lambda: fg.prime(
                 model.wavenet, wcfg, fg.init_state(wcfg, b, device=dev), ids, cond),
             f"sampler ({mode or 'bf16'}) {a.steps} steps": lambda: fc.generate_fused(
                 packed, wcfg, ring, prev, 0, gcond, 5, 1.0, quantized=mode),

@@ -16,14 +16,19 @@ reference.  Unlike the reference's pure functions, :func:`prime` and
 200 MB of them.
 
 The reference runs :func:`prime` and :func:`generate` as jitted
-``lax.scan``s of the cell (``ae_wavenet_tpu/ops/fastgen.py:135-210``).  Here
-one step (:func:`_cell` and what follows it) reads every input from device
-tensors, the step counters included, so on a CUDA device it is captured
-once as a CUDA graph and replayed once a step: the counterpart of the
-compiled scan, with the same kernels and so the same bits as the step
-called in a Python loop.  That loop runs on the CPU, and on the card only
-when asked for with ``eager=True`` (the graph's plain version).  A capture
-or replay that fails raises; nothing falls back to the loop on the card.
+``lax.scan``s of the cell (``ae_wavenet_tpu/ops/fastgen.py:135-210``).
+:func:`prime` needs no scan: every input it writes to a queue is a function
+of known samples only, so it runs the context as one teacher-forced f32
+pass, layer by layer over all its positions at once (GEMMs of T x B rows),
+with the cell's arithmetic in another reduction order.  :func:`generate`
+feeds each step the sample the last one drew, so one step (:func:`_cell`
+and what follows it) reads every input from device tensors, the step
+counters included, and on a CUDA device is captured once as a CUDA graph
+and replayed once a step: the counterpart of the compiled scan, with the
+same kernels and so the same bits as the step called in a Python loop.
+That loop runs on the CPU, and on the card only when asked for with
+``eager=True`` (the graph's plain version).  A capture or replay that fails
+raises; nothing falls back to the loop on the card.
 """
 
 from __future__ import annotations
@@ -105,8 +110,8 @@ class _Loop:
     ctr      [2] int64, the ring phase t and the call's step j, advanced by
              the step itself;
     cond_tm  [T, B, n_cond], the cond column of each step;
-    and what :func:`prime` or :func:`generate` adds (the AR inputs, the
-    draws, the outputs)."""
+    and what :func:`generate` adds (the AR input, the draws, the
+    outputs)."""
 
     WRITTEN = ("ring", "ctr", "prev")  # what a step writes besides its outputs' row j
 
@@ -131,17 +136,15 @@ class _Loop:
 
 
 def _cell(packed: dict, cfg: WaveNetConfig, loop: _Loop, x_id: torch.Tensor,
-          dtype=torch.float32, head: bool = True) -> torch.Tensor | None:
+          dtype=torch.float32) -> torch.Tensor:
     """One AR step at ``loop``'s counters: consume sample ids x_id [B] and
     the cond column of step j, write every queue at slot t mod d_l in place
     and return logits [B, n_quant].  Every layer's read comes before any
     write (each layer reads and writes only its own queue, at one slot), so
     the reads are one gather at the start and the writes one scatter at the
     end.  Every GEMM input is rounded to the compute ``dtype``; the residual
-    stream, the queues and the sums stay f32.  Without ``head`` (prime,
-    whose logits are discarded) neither the skip sums, the post-net nor the
-    last layer, which only they read, is computed: the queues get the same
-    bits.  The counters are left for the caller to advance."""
+    stream, the queues and the sums stay f32.  The counters are left for
+    the caller to advance."""
     rnd = _rounder(dtype)
     n_layers = len(cfg.dilations)
     t, j = loop.ctr[:1], loop.ctr[1:]
@@ -151,20 +154,17 @@ def _cell(packed: dict, cfg: WaveNetConfig, loop: _Loop, x_id: torch.Tensor,
     x = torch.index_select(packed["embed"], 0, x_id, out=xs[0])
     cond_t = rnd(loop.cond_tm.index_select(0, j)[0])
     skip = None
-    for i in range(n_layers if head else n_layers - 1):
+    for i in range(n_layers):
         xin = torch.cat([rnd(x_prev[i]), rnd(x), cond_t], 1)
         y = torch.addmm(packed["b_in"][i], xin, packed["w_in"][i])
         f, g = y.chunk(2, 1)
         h = rnd(torch.tanh(f) * torch.sigmoid(g))
         rs = torch.addmm(packed["b_out"][i], h, packed["w_out"][i])
         res, s = rs[:, : cfg.n_res], rs[:, cfg.n_res :]
-        if head:
-            skip = s if skip is None else skip + s
+        skip = s if skip is None else skip + s
         if i + 1 < n_layers:
             x = torch.add(x, res, out=xs[i + 1])
     loop.ring.index_copy_(0, slot, xs)
-    if not head:
-        return None
     h = rnd(torch.relu(skip))
     h = rnd(torch.relu(torch.addmm(packed["post1_b"], h, packed["post1_w"])))
     return torch.addmm(packed["post2_b"], h, packed["post2_w"])
@@ -190,29 +190,25 @@ def _capture(make_step, loop: _Loop) -> torch.cuda.CUDAGraph:
 
 
 def _run(counted, make_step, loop: _Loop, n_steps: int, eager: bool,
-         refill=None, chunk: int = 0, spans: bool = False) -> None:
+         refill=None, chunk: int = 0) -> None:
     """``n_steps`` steps of ``make_step(loop)``: on a CUDA device, unless
     ``eager``, one captured step replayed ``n_steps`` times; else the step
     called in a Python loop.  ``refill()`` runs before step j wherever
     j % ``chunk`` == 0.  Counts ``counted.graph_replays`` and
-    ``counted.eager_steps``.  With ``spans``, the capture, its warm-up step
-    with it, is the span ``<counted>.capture``, the steps
-    ``<counted>.replay`` (one span around them all)."""
+    ``counted.eager_steps``."""
     graph = None
     if loop.ring.is_cuda and not eager and n_steps:
-        with span(counted.__name__ + ".capture", spans):
-            graph = _capture(make_step, loop)
+        graph = _capture(make_step, loop)
     step = make_step(loop)
-    with span(counted.__name__ + ".replay", spans):
-        for j in range(n_steps):
-            if refill is not None and j % chunk == 0:
-                refill()
-            if graph is None:
-                step()
-                counted.eager_steps += 1
-            else:
-                graph.replay()
-                counted.graph_replays += 1
+    for j in range(n_steps):
+        if refill is not None and j % chunk == 0:
+            refill()
+        if graph is None:
+            step()
+            counted.eager_steps += 1
+        else:
+            graph.replay()
+            counted.graph_replays += 1
 
 
 def with_gc(wavenet: WaveNet, cfg: WaveNetConfig, cond: torch.Tensor,
@@ -237,34 +233,55 @@ def _by_step(wavenet, cfg, cond, gc_ids) -> torch.Tensor:
 @torch.no_grad()
 def prime(wavenet: WaveNet, cfg: WaveNetConfig, state: GenState,
           ids: torch.Tensor, cond: torch.Tensor,
-          gc_ids: torch.Tensor | None = None, eager: bool = False) -> GenState:
+          gc_ids: torch.Tensor | None = None) -> GenState:
     """Warm the queues with known samples (teacher context), in place.
 
-    ids: [B, T0] real samples at positions [t, t+T0).  The first T0-1 are
-    consumed through the stack (their logits discarded); the LAST one is
+    ids: [B, T0] real samples at positions [t, t+T0).  The first T = T0-1
+    are consumed through the stack (no logits are made); the LAST one is
     left as ``prev_id`` so the next generation step consumes it.
-    cond: [B, n_lc_out, >= T0-1] columns for the consumed positions.  On a
-    CUDA device the step is a CUDA graph replayed T0-1 times (``eager``:
-    the same step in a Python loop)."""
-    t0 = ids.shape[-1]
+    cond: [B, n_lc_out, >= T0-1] columns for the consumed positions.
+
+    One teacher-forced pass, layer-major and time-major ([positions, B,
+    channels], GEMM row p*B + b): layer l's input at p - d_l, the cell's
+    left context at p, is row p of S = [queue in time order (positions
+    t-d_l .. t-1) ; the layer's T inputs], and the last d_l rows of S are
+    the queue's new contents, written at slot p mod d_l (T < d_l and any
+    phase t included).  Every layer but the last, whose output only the
+    skip sums read, runs the cell's f32 GEMMs on all T x B rows at once:
+    the work of T steps of :func:`_cell` without their head, in another
+    reduction order.  Counts ``prime.passes`` and ``prime.positions`` (B x
+    T a call)."""
+    b, n = ids.shape[0], ids.shape[-1] - 1
     with span("prime.pack"):
         packed = pack_params(wavenet, cfg)
-        loop = _Loop(cfg, state, _by_step(wavenet, cfg, cond[..., : t0 - 1], gc_ids))
-        loop.ids = ids[:, : t0 - 1].t().contiguous()
+        cond_rows = _by_step(wavenet, cfg, cond[..., :n], gc_ids).flatten(0, 1)
+    with span("prime.pass"):
+        x = packed["embed"].index_select(0, ids[:, :n].t().reshape(-1)).unflatten(0, (n, b))
+        last = len(cfg.dilations) - 1
+        for i, (d, buf) in enumerate(zip(cfg.dilations, state.bufs)):
+            ring = buf.permute(2, 0, 1)  # [d, B, n_res], position p at slot p mod d
+            seq = torch.cat([ring.roll(-(state.t % d), 0), x])
+            buf.copy_(seq[n:].roll((state.t + n) % d, 0).permute(1, 2, 0))
+            if i == last:
+                break
+            # the cell's one GEMM of [x_prev | x | cond] as three: a large
+            # GEMM of T x B rows sums each output over its K in sequence,
+            # and three shorter sums round less
+            w_prev, w_cur, w_cond = packed["w_in"][i].split(
+                [cfg.n_res, cfg.n_res, cond_rows.shape[1]])
+            y = torch.addmm(packed["b_in"][i], seq[:n].flatten(0, 1), w_prev)
+            y.addmm_(x.flatten(0, 1), w_cur).addmm_(cond_rows, w_cond)
+            f, g = y.chunk(2, 1)
+            rs = torch.addmm(packed["b_out"][i], torch.tanh(f) * torch.sigmoid(g),
+                             packed["w_out"][i])
+            x = x + rs[:, : cfg.n_res].unflatten(0, (n, b))
+    prime.passes += 1
+    prime.positions += b * n
+    return GenState(state.bufs, ids[:, -1], state.t + n)
 
-    def make_step(lp):
-        def step():
-            _cell(packed, cfg, lp, lp.ids.index_select(0, lp.ctr[1:])[0], head=False)
-            lp.ctr.add_(1)
-        return step
 
-    _run(prime, make_step, loop, t0 - 1, eager, spans=True)
-    _unring(loop.ring, state.bufs, cfg)
-    return GenState(state.bufs, ids[:, -1], state.t + t0 - 1)
-
-
-prime.graph_replays = 0
-prime.eager_steps = 0
+prime.passes = 0
+prime.positions = 0
 
 #: the most bytes of uniforms :func:`generate` draws at once: a rollout
 #: whose T x B x n_quant f32 would take more draws them in chunks of steps

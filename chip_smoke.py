@@ -46,11 +46,12 @@ power limit:
    then the CLI with ``--int8`` and with ``--int4`` on a checkpoint whose
    config has ``vq_use_pallas=True``; the launch counters are set to 0
    before each run and show which kernels it went through, and that prime
-   ran as a CUDA graph (2,046 replays a request, no eager step); then
-   prime and the f32 rollout (``ops/fastgen``, CUDA graphs) against the
-   same step in the eager loop at the flagship width, B = 1 and 64: the
-   rings, and 256 rollout steps' ids and logits at temperature 0 and 1,
-   bit for bit, each path's seconds (``serve_graph``);
+   ran as one pass a request (no eager step); then prime's one pass
+   against the step loop at the flagship width, B = 1 and 64 (the rings
+   within 1e-5), and the f32 rollout (``ops/fastgen``, a CUDA graph)
+   against the same step in the eager loop: 256 rollout steps' ids and
+   logits at temperature 0 and 1, bit for bit, each path's seconds
+   (``serve_graph``);
 6. train-kernels: the six gated-stack kernels (``csrc/gated.cu``: one
    layer, a pair, the whole stack forward; one layer in both modes, a pair,
    a group of layers backward; all on the Hopper core) against their plain
@@ -101,8 +102,8 @@ power limit:
    the step's time split from CUDA events around its parts in 3 steps of
    one ``Chassis`` run, for the main and the whole-stack path;
 8. eval: ``cli/eval.py --quality`` on the checkpoint that run wrote (its
-   prime and rollout as CUDA graphs; from here on every exact launch check
-   also holds the eager step loop of prime and the rollout at 0);
+   prime as one pass and its rollout as a CUDA graph; from here on every
+   exact launch check also holds the rollout's eager step loop at 0);
 9. inverter: ``python -m ae_wavenet_tpu_torch.cli.preprocess --synthetic``
    writes the reference's v2 fixture (8 clips); the train CLI runs ``new
    --preset chorowski --model mfcc_inverter --pallas-stack --frame-norm
@@ -216,6 +217,7 @@ last line
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import io
 import json
@@ -243,6 +245,7 @@ CLI_SAMPLES = 4000      # B = 1 request
 BATCH = 64              # batched request
 GRAPH_T = 256           # rollout steps of the graph-against-eager check
 GRAPH_RTOL = 1e-6       # its fallback where the bits differ (the cause printed)
+PRIME_TOL = 1e-5        # rtol = atol of prime's one pass against the exact rings
 SERVE_TIMES_STEPS = 512  # bench_gen's steps in --serve-times
 Q_BIG_BATCH = 136       # past the earlier cluster design's 120-row bound
 # ms per generated step of the earlier (cluster) design at B = 1 / 8 / 64,
@@ -1107,8 +1110,6 @@ def phase_serve(card: str, dev, data: str, tmp: str) -> dict:
     print(f"[serve] fixture: two chorowski checkpoints in "
           f"{time.perf_counter() - t0:.1f} s | {card}")
 
-    rf = sum(cfg.wavenet.dilations)
-
     def counts() -> dict:
         return {"bf16": fc.generate_fused.launches,
                 "int8": fc.generate_fused.launches_int8,
@@ -1119,8 +1120,8 @@ def phase_serve(card: str, dev, data: str, tmp: str) -> dict:
 
     def run_cli(ckpt_path: str, *flags) -> tuple[dict, str]:
         """One request through the generate CLI with the counters set to 0
-        just before and read just after: -> (launches and prime's graph
-        replays, the timing line)."""
+        just before and read just after: -> (launches and prime's passes,
+        the timing line)."""
         _zero_counts()
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
@@ -1149,7 +1150,7 @@ def phase_serve(card: str, dev, data: str, tmp: str) -> dict:
     print(f"{line} | {card}")
     k1, p1 = got1["bf16"], got1["plain"]
     check(got1 == {"bf16": 1, "int8": 0, "int4": 0, "vq": 0, "plain": 0,
-                   "prime": rf, "rollout": 0, "eager": 0},
+                   "prime": 1, "rollout": 0, "eager": 0},
           f"bf16 CLI launches {got1}")
 
     ds = PackedDataset(data)
@@ -1163,8 +1164,8 @@ def phase_serve(card: str, dev, data: str, tmp: str) -> dict:
                                 n_samples=BATCH_SAMPLES, timings=timings)
     torch.cuda.synchronize()
     g64 = {k: v - g0[k] for k, v in _graph_counts().items()}
-    check(g64 == {"prime": rf, "rollout": 0, "eager": 0},
-          f"reconstruct B={BATCH}: prime's graph replays / eager steps {g64}")
+    check(g64 == {"prime": 1, "rollout": 0, "eager": 0},
+          f"reconstruct B={BATCH}: prime's passes / eager steps {g64}")
     k64 = fc.generate_fused.launches - k1
     p64 = fc.generate_fused_reference.launches - p1
     check(tuple(ids.shape) == (BATCH, BATCH_SAMPLES), f"ids shape {tuple(ids.shape)}")
@@ -1179,8 +1180,8 @@ def phase_serve(card: str, dev, data: str, tmp: str) -> dict:
     check(k1 >= 1 and k64 >= 1, f"kernel launches: CLI {k1}, batch {k64}")
     check(p1 == 0 and p64 == 0, f"plain version ran: CLI {p1}, batch {p64}")
     print(f"[serve] kernel launches: CLI {k1}, batch {k64}; plain version "
-          f"launches: {p1 + p64}; prime as a CUDA graph: {got1['prime']} and "
-          f"{g64['prime']} replays, no eager step | {card}")
+          f"launches: {p1 + p64}; prime in one pass: {got1['prime']} and "
+          f"{g64['prime']} passes, no eager step | {card}")
     del model
 
     # quantized serving from the checkpoint that asks for the fused VQ lookup:
@@ -1189,7 +1190,7 @@ def phase_serve(card: str, dev, data: str, tmp: str) -> dict:
     for mode in ("int8", "int4"):
         got, line = run_cli(ckpt_vq, "--" + mode)
         want = {"bf16": 0, "int8": 0, "int4": 0, "vq": 1, "plain": 0, mode: 1,
-                "prime": rf, "rollout": 0, "eager": 0}
+                "prime": 1, "rollout": 0, "eager": 0}
         check(got == want, f"--{mode} CLI launches {got}, expected {want}")
         print(f"{line} | {card}")
         launches[mode] = got[mode]
@@ -1200,16 +1201,19 @@ def phase_serve(card: str, dev, data: str, tmp: str) -> dict:
 
 
 def serve_graph(card: str, dev) -> None:
-    """Prime and the f32 rollout as CUDA graphs against the same step in a
-    Python loop (``eager=True``, the graph's plain version): the flagship
-    decoder (seeded random weights) at B = 1 and B = BATCH, primed on rf + 1
-    context ids through the graph, the loop and the graph again (every
-    ring and the last ids bit for bit), then GRAPH_T rollout steps from the
-    graph's state at temperature 0 and 1 with one seeded generator each way
-    (ids equal, logits bit for bit); where bits differ, within GRAPH_RTOL
-    with the difference printed.  The counters: each graph call T replays
-    and no eager step, each loop T eager steps and no replay.  Prints each
-    path's seconds."""
+    """Prime's one pass against the step loop, and the f32 rollout as a CUDA
+    graph against the same step in a Python loop (``eager=True``, the
+    graph's plain version): the flagship decoder (seeded random weights) at
+    B = 1 and B = BATCH, primed on rf + 1 context ids by the pass, by the
+    rollout's step called once a context sample (its logits unused), by the
+    pass again and by the step in float64 (the phase and the last ids
+    equal; every ring within PRIME_TOL of the float64 loop's, and at B = 1
+    of the f32 loop's too), then GRAPH_T rollout steps from the pass's state at temperature
+    0 and 1 with one seeded generator each way (ids equal, logits bit for
+    bit); where bits differ, within GRAPH_RTOL with the difference printed.
+    The counters: each pass one pass over B x rf positions, each graph call
+    T replays and no eager step, each loop T eager steps and no replay.
+    Prints each path's seconds."""
     import torch
 
     from ae_wavenet_tpu_torch.models.wavenet import WaveNet
@@ -1244,7 +1248,7 @@ def serve_graph(card: str, dev) -> None:
         check(got == want_counts, f"graph counters {got}, expected {want_counts}")
         return out, secs
 
-    def copy(st):
+    def cloned(st):
         return fg.GenState(tuple(b.clone() for b in st.bufs), st.prev_id.clone(), st.t)
 
     for b in (1, BATCH):
@@ -1252,24 +1256,54 @@ def serve_graph(card: str, dev) -> None:
         cond = (torch.randn(b, wcfg.n_lc_out, rf + GRAPH_T, generator=gen) * 0.3).to(dev)
         spk = torch.randint(0, wcfg.n_speakers, (b,), generator=gen).to(dev)
 
-        def prime(eager):
-            return fg.prime(wn, wcfg, fg.init_state(wcfg, b, device=dev), ctx, cond, spk,
-                            eager=eager)
+        def prime():
+            st = fg.prime(wn, wcfg, fg.init_state(wcfg, b, device=dev), ctx, cond, spk)
+            check(fg.prime.positions == b * rf,
+                  f"B={b}: prime counted {fg.prime.positions} positions, not {b * rf}")
+            return st
 
-        graph = {"prime": rf, "rollout": 0, "eager": 0}
-        g_st, g_s = timed(lambda: prime(False), graph)
-        e_st, e_s = timed(lambda: prime(True), {"prime": 0, "rollout": 0, "eager": rf})
-        g2_st, g2_s = timed(lambda: prime(False), graph)
-        check(g_st.t == e_st.t == rf and torch.equal(g_st.prev_id, e_st.prev_id),
-              f"B={b}: primed phase {g_st.t} / {e_st.t} or last ids differ")
-        rings = [held(f"B={b} ring {i}", g.bufs[i], e.bufs[i])
-                 for g, e in ((g_st, e_st), (g2_st, e_st)) for i in range(len(g.bufs))]
-        print(f"[serve] prime B={b}, {rf} steps: graph {g_s:.3f} s (with its capture), "
-              f"{g2_s:.3f} s again; eager {e_s:.3f} s ({e_s / g2_s:.1f}x); rings "
-              f"{'bit for bit' if set(rings) == {'bit for bit'} else rings} | {card}")
+        @torch.no_grad()
+        def step_loop(model=wn, dtype=torch.float32):
+            state = fg.init_state(wcfg, b, device=dev)
+            state = fg.GenState(tuple(x.to(dtype) for x in state.bufs), state.prev_id, 0)
+            packed = fg.pack_params(model, wcfg)
+            loop = fg._Loop(wcfg, state, fg._by_step(model, wcfg, cond[..., :rf].to(dtype),
+                                                     spk))
+            for j in range(rf):
+                fg._cell(packed, wcfg, loop, ctx[:, j])
+                loop.ctr.add_(1)
+            fg._unring(loop.ring, state.bufs, wcfg)
+            return fg.GenState(state.bufs, ctx[:, -1], rf)
+
+        def error(st) -> float:
+            return max(float((x.double() - y).abs().max()) for x, y in zip(st.bufs, x_st.bufs))
+
+        def near(st, ref) -> bool:
+            return all(torch.allclose(x.to(y.dtype), y, rtol=PRIME_TOL, atol=PRIME_TOL)
+                       for x, y in zip(st.bufs, ref.bufs))
+
+        one_pass = {"prime": 1, "rollout": 0, "eager": 0}
+        g_st, g_s = timed(prime, one_pass)
+        e_st, e_s = timed(step_loop, {"prime": 0, "rollout": 0, "eager": 0})
+        g2_st, g2_s = timed(prime, one_pass)
+        x_st = step_loop(copy.deepcopy(wn).double(), torch.float64)
+        err_loop = error(e_st)
+        gap = max(float((x - y).abs().max()) for x, y in zip(g_st.bufs, e_st.bufs))
+        for g in (g_st, g2_st):
+            check(g.t == rf and torch.equal(g.prev_id, e_st.prev_id),
+                  f"B={b}: primed phase {g.t} / {rf} or last ids differ")
+            check(near(g, x_st), f"B={b}: the pass's rings lie {error(g):.3g} from the "
+                  f"float64 loop's (the f32 loop's {err_loop:.3g})")
+            check(b > 1 or near(g, e_st),
+                  f"B={b}: the pass's rings lie {gap:.3g} from the step loop's")
+        top = max(float(x.abs().max()) for x in e_st.bufs)
+        print(f"[serve] prime B={b}, {rf} positions: one pass {g_s:.4f} s, "
+              f"{g2_s:.4f} s again; step loop {e_s:.3f} s ({e_s / g2_s:.1f}x); rings "
+              f"within {gap:.3g} of the loop's (max |ring| {top:.3g}); from the "
+              f"float64 loop's: pass {error(g_st):.3g}, f32 loop {err_loop:.3g} | {card}")
         for temp in (0.0, 1.0):
             def roll(eager):
-                return fg.generate(wn, wcfg, copy(g_st), cond[..., rf:],
+                return fg.generate(wn, wcfg, cloned(g_st), cond[..., rf:],
                                    torch.Generator().manual_seed(5), gc_ids=spk,
                                    temperature=temp, return_logits=True, eager=eager)
 
@@ -2088,13 +2122,13 @@ def phase_eval(card: str, data: str, ckpt_dir: str) -> dict:
           f"eval: VQ kernel launches {n_vq} (expected {EVAL_BATCHES + 1}), plain {n_plain}")
     graph = _graph_counts()
     check(graph["eager"] == 0 and graph["prime"] > 0 and graph["rollout"] >= EVAL_SAMPLES,
-          f"eval: prime's and the rollout's graph replays / eager steps {graph}")
+          f"eval: prime's passes, the rollout's graph replays / eager steps {graph}")
     print(f"[eval] {json.dumps(ev)} | {card}")
     print(f"[eval] {json.dumps(q)} | {card}")
     print(f"[eval] cli/eval.py --quality: {EVAL_BATCHES} eval batches and "
           f"{EVAL_SAMPLES} free-running samples in {secs:.1f} s; VQ kernel launches "
-          f"{n_vq}, plain {n_plain}; graph replays: prime {graph['prime']}, rollout "
-          f"{graph['rollout']}, no eager step | {card}")
+          f"{n_vq}, plain {n_plain}; prime passes {graph['prime']}, rollout graph "
+          f"replays {graph['rollout']}, no eager step | {card}")
     return {"launches": n_vq}
 
 
@@ -2116,21 +2150,22 @@ def _zero_counts() -> None:
 
 
 def _zero_graph_counts() -> None:
-    """prime's and generate's graph replays and eager steps to 0."""
+    """prime's passes and positions, generate's graph replays and eager
+    steps to 0."""
     from ae_wavenet_tpu_torch.ops import fastgen as fg
 
-    for f in (fg.prime, fg.generate):
-        f.graph_replays = f.eager_steps = 0
+    fg.prime.passes = fg.prime.positions = 0
+    fg.generate.graph_replays = fg.generate.eager_steps = 0
 
 
 def _graph_counts() -> dict:
-    """Steps since _zero_graph_counts of prime and of the f32 rollout
-    (``generate``) replayed as CUDA graphs, and of either one in the eager
-    step loop (none on the card outside phase 5's plain comparison)."""
+    """Since _zero_graph_counts: prime's passes, and the f32 rollout's
+    (``generate``) steps replayed as a CUDA graph and in the eager step
+    loop (none on the card outside phase 5's plain comparison)."""
     from ae_wavenet_tpu_torch.ops import fastgen as fg
 
-    return {"prime": fg.prime.graph_replays, "rollout": fg.generate.graph_replays,
-            "eager": fg.prime.eager_steps + fg.generate.eager_steps}
+    return {"prime": fg.prime.passes, "rollout": fg.generate.graph_replays,
+            "eager": fg.generate.eager_steps}
 
 
 def _counts() -> dict:
@@ -2154,7 +2189,7 @@ def _counts() -> dict:
 
 def _expect(**kw) -> dict:
     """_counts() of a run that launched only the kernels given (and ran no
-    eager step loop of prime or the rollout)."""
+    eager step loop of the rollout)."""
     return {**dict.fromkeys(GATED, 0), "gated_layer_bwd_recompute": 0,
             "vq_lookup_fused": 0, "bf16": 0, "int8": 0, "int4": 0, "plain": 0,
             "eager": 0, **kw}

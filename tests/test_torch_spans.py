@@ -4,9 +4,9 @@ A span marks ``awt.<name>`` on the profiler's clock while a profiler
 records and is one shared no-op otherwise.  Under ``torch.profiler`` a
 tiny ``reconstruct`` and a tiny ``Chassis.train`` hold the spans the
 benchmark's readers and the trace's idle-gap labels read, nested as the
-program nests them; the same intervals land in ``profiling.SPANS``.  On
-the CPU prime and the training step run their eager loops, so no capture
-span appears.  Two gloo ranks hold ``awt.mesh.all_reduce`` inside the
+program nests them; the same intervals land in ``profiling.SPANS``.  Prime
+runs one pass and captures nothing; on the CPU the training step runs its
+eager loop, so no capture span appears.  Two gloo ranks hold ``awt.mesh.all_reduce`` inside the
 eager step, one span a call, and the all-reduce counts the flattened
 buffer's bytes.  Tiny widths, one torch thread, a few seconds.
 """
@@ -89,13 +89,14 @@ def served():
     wav = torch.from_numpy((3000 * rng.normal(size=(2, 8000))).astype(np.int16))
     spk = torch.tensor([1, 3])
     timings: dict = {}
-    before = fastgen.prime.eager_steps
+    before = (fastgen.prime.passes, fastgen.prime.positions)
     profiling.SPANS.clear()
     spans = _profiled(lambda: tae.reconstruct(model, cfg, wav, spk,
                                               torch.Generator().manual_seed(1), 1.0,
                                               12, timings))
     return {"spans": spans, "timings": timings, "recorded": list(profiling.SPANS),
-            "eager_steps": fastgen.prime.eager_steps - before}
+            "passes": fastgen.prime.passes - before[0],
+            "positions": fastgen.prime.positions - before[1], "rf": sum(cfg.wavenet.dilations)}
 
 
 @pytest.fixture(scope="module")
@@ -108,7 +109,7 @@ def trained(data):
 
 @pytest.mark.parametrize("name,parent", [
     ("serve.encode", None), ("serve.prime", None), ("serve.generate", None),
-    ("prime.pack", "serve.prime"), ("prime.replay", "serve.prime"),
+    ("prime.pack", "serve.prime"), ("prime.pass", "serve.prime"),
     ("sampler.pack", "serve.generate"), ("sampler.launch", "serve.generate"),
 ])
 def test_reconstruct_holds_its_spans_nested(served, name, parent):
@@ -117,14 +118,15 @@ def test_reconstruct_holds_its_spans_nested(served, name, parent):
 
 def test_reconstruct_on_the_cpu_primes_eagerly_without_a_capture_span(served):
     names = [n for n, _, _ in served["spans"]]
-    assert "prime.capture" not in names and names.count("prime.replay") == 1
-    assert served["eager_steps"] > 0
+    assert "prime.capture" not in names and names.count("prime.pass") == 1
+    # one pass over the rf consumed context samples of each of the 2 rows
+    assert (served["passes"], served["positions"]) == (1, 2 * served["rf"])
     assert set(served["timings"]) == {"encode", "prime", "generate"}
 
 
 def test_the_f32_rollout_opens_no_span():
-    """Prime marks its loop; the f32 rollout, which runs the same loop and
-    which no benchmark cell runs, marks none."""
+    """Prime marks its pass; the f32 rollout, which no benchmark cell
+    runs, marks none."""
     cfg = _cfg()
     wn = tae.init(cfg, torch.Generator().manual_seed(0), "cpu").wavenet
     cond = 0.3 * torch.randn(2, cfg.wavenet.n_lc_out, 6,
