@@ -4,6 +4,9 @@ Counterpart of ``ae_wavenet_tpu.audio.mfcc``: valid frames only (no
 centering), a real DFT as two matmuls, Slaney mel filterbank, orthonormal
 DCT-II and regression deltas as valid convolutions along time.  The
 constant matrices are built by numpy exactly as the reference builds them.
+:func:`features` gives a configuration's conditioning frames: the MFCC
+stack, or at ``n_mfcc`` = 0 (``SpecConfig.log_mel``) the log-mel bands
+alone.
 """
 
 from __future__ import annotations
@@ -85,8 +88,9 @@ def _constants(cfg: SpecConfig, device: str):
         "window": np.hanning(cfg.win_sz + 1)[:-1].astype(np.float32),
         "cos": cosm, "sin": sinm,
         "mel_t": np.ascontiguousarray(mel_filterbank(cfg).T),
-        "dct_t": np.ascontiguousarray(dct_matrix(cfg.n_mfcc, cfg.n_mels).T),
     }
+    if not cfg.log_mel:  # the bands alone take no DCT
+        arrays["dct_t"] = np.ascontiguousarray(dct_matrix(cfg.n_mfcc, cfg.n_mels).T)
     return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
 
 
@@ -134,3 +138,10 @@ def mfcc_delta_stack(wav: torch.Tensor, cfg: SpecConfig) -> torch.Tensor:
         [mf[..., 2 * w : mf.shape[-1] - 2 * w], d1[..., w : d1.shape[-1] - w], d2],
         dim=-2,
     )
+
+
+def features(wav: torch.Tensor, cfg: SpecConfig) -> torch.Tensor:
+    """wav [..., T] -> the conditioning frames [..., n_out_channels, F]:
+    :func:`log_mel_frames` with ``cfg.log_mel``, else
+    :func:`mfcc_delta_stack`."""
+    return log_mel_frames(wav, cfg) if cfg.log_mel else mfcc_delta_stack(wav, cfg)

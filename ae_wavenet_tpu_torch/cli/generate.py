@@ -1,5 +1,7 @@
 """CLI: reconstruction (the autoencoder) or vocoding (the MFCC inverter)
-from a checkpoint on the GPU (fast-queue path).
+from a checkpoint on the GPU (fast-queue path).  A mu-law model's ids are
+decoded to the wav; a mixture-of-logistics vocoder's 16-bit samples are
+written as linear PCM.
 
     python -m ae_wavenet_tpu_torch.cli.generate (--ckpt-dir DIR [--step N] | \
         --ckpt MODEL.pt) --data PREFIX [--clip I] [--n-samples N] \
@@ -84,7 +86,10 @@ def main(argv=None) -> int:
         torch.Generator().manual_seed(a.seed), temperature=a.temperature,
         n_samples=a.n_samples, timings=timings,
         quantized="int4" if a.int4 else a.int8)
-    out = mu_decode(ids, cfg.wavenet.n_quant)[0].cpu().numpy()
+    if cfg.wavenet.n_mix:  # the mixture's 16-bit samples, written as they are
+        out = ids[0].cpu().numpy()
+    else:
+        out = mu_decode(ids, cfg.wavenet.n_quant)[0].cpu().numpy()
     write_wav(a.out, out, cfg.spec.sample_rate)
     gen_s = timings["generate"]
     print(f"encode {timings['encode']:.3f} s, prime {timings['prime']:.3f} s, "

@@ -17,6 +17,10 @@ package and says so when it is missing).  ``--model mfcc_inverter`` trains
 the vocoder baseline (upsample strides (5, 4, 4, 2)); ``--frame-norm
 dataset`` computes the dataset's frame statistics once and keeps them in
 the config, so every checkpoint carries them.
+``--config FILE`` takes the whole configuration from a RunConfig JSON
+file (a benchmark configuration such as ``wavenet_mol_24k.json`` among
+them), with the training job's batch, window, learning rate, clipping and
+seed over it.
 
 Data parallelism (``parallel/mesh.py``): ``--distributed --coordinator
 H:P --num-processes N --process-id I`` makes this process rank I of N
@@ -91,6 +95,11 @@ def build_parser() -> argparse.ArgumentParser:
     new = sub.add_parser("new", help="start a fresh run")
     _add_runtime_flags(new)
     new.add_argument("--preset", default="full", choices=sorted(config_mod.PRESETS))
+    new.add_argument("--config", default=None,
+                     help="a RunConfig JSON file (utils/config.to_json's format; "
+                          "other top-level keys are ignored) in place of --preset "
+                          "and the architecture flags; --batch-sz, --n-win, "
+                          "--learning-rate, --grad-clip and --seed override it")
     new.add_argument("--model", choices=["autoencoder", "mfcc_inverter"],
                      default="autoencoder")
     new.add_argument("--bottleneck", choices=["ae", "vae", "vq", "zero"], default=None)
@@ -139,7 +148,14 @@ def _over(dc, **kv):
 
 
 def config_from_args(a) -> config_mod.RunConfig:
-    """The reference's ``config_from_args`` (``cli/train.py:183``)."""
+    """The reference's ``config_from_args`` (``cli/train.py:183``), and
+    ``--config`` for a configuration file."""
+    if a.config is not None:
+        with open(a.config) as f:
+            cfg = config_mod.from_json(f.read())
+        return dataclasses.replace(cfg, train=_over(
+            cfg.train, batch_sz=a.batch_sz, n_win=a.n_win, learning_rate=a.learning_rate,
+            grad_clip=a.grad_clip, seed=a.seed))
     cfg = config_mod.PRESETS[a.preset]()
     wn, bn, tr, enc = cfg.wavenet, cfg.bottleneck, cfg.train, cfg.encoder
     if a.frame_norm is not None:

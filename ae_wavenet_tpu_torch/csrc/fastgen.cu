@@ -1,5 +1,5 @@
 // Fused autoregressive WaveNet sampler for Hopper (sm_90a): bf16, int8 and
-// int4 weights, one kernel template.
+// int4 weights, and a mixture-of-logistics output, one kernel template.
 //
 // Replaces the TPU kernel ae_wavenet_tpu/ops/fastgen_pallas.py
 // generate_fused (body _make_kernel): one launch generates T samples; each
@@ -20,6 +20,20 @@
 //   id = argmax(logits / T + g),  g = -log(-log(u + 1e-12) + 1e-12),
 //        u = (bits >> 8) * 2^-24, bits from Philox4x32-10 with key (seed, 0)
 //        and counter (column / 4, row, t0 + t, 0), word column % 4.
+//
+// Mixture of logistics (MOL_BF16, bf16 weights; the port's own, no TPU
+// kernel): the input is a sample x in [-1, 1] and P2 gives K = n_mix
+// mixture parameters a row, [logits | means | log_scales] (n_quant = 3 K):
+//   x0 = x * w_in0 + b_in0                    (f32, no fused multiply-add)
+//   the layers and the post-net as above; P2's 3 K values of each row are
+//   exchanged across the grid (one barrier, where the argmax's is);
+//   k = argmax(logit_j / T + g_j), g_j the Gumbel draw of column j < K as
+//       above (first index on ties); at temperature 0, k = argmax(logit_j)
+//   x = clamp(mu_k + exp(max(log_s_k, log_scale_min)) * (log v - log(1 - v)),
+//       -1, 1), v = clamp(u, 1e-5, 0.99999) with u the uniform of column K
+//       of the same Philox stream; at temperature 0, x = clamp(mu_k, -1, 1)
+//   the output is x (f32), and each block maps it into its own residual
+//   columns for the next step.  2 L + 3 barriers a step, as above.
 //
 // Quantized branches (int8 and int4 weights), replacing the int8 and int4
 // branches of the same TPU kernel.  Contract per layer and step; rings,
@@ -104,7 +118,7 @@ constexpr int MAX_LAYERS = 64;
 constexpr long long SPIN_LIMIT = 1LL << 34;  // clock cycles (several seconds)
 constexpr int OWN_BYTES = 4096;  // shared memory for a block's x and skip columns
 
-enum Mode { BF16 = 0, INT8 = 1, INT4 = 2 };
+enum Mode { BF16 = 0, INT8 = 1, INT4 = 2, MOL_BF16 = 3 };
 
 // Everything the kernel takes; the host fills it from two flat arrays.
 struct Params {
@@ -134,6 +148,12 @@ struct Params {
   float* so;                   // [B, n_skp] skip (own columns per block)
   float* maxx;                 // [G] quantized: published max|xin| slices
   float* maxh;                 // [G] quantized: published max|h| slices
+  float* mix;                  // [B, 3 n_mix] MOL_BF16: the exchanged P2 outputs
+  // MOL_BF16 in place of embed, prev_id, ids and last_id (null otherwise)
+  const float* in0;            // [2, n_res] rows w_in0 and b_in0
+  const float* x_prev;         // [B] the samples before the first step
+  float* samples;              // [B, T]
+  float* last_x;               // [B]
   int B, T, L, n_res, n_dil, n_skp, n_post, n_quant, n_cond, t0;
   uint32_t seed;
   int greedy;
@@ -144,7 +164,9 @@ struct Params {
   int c_in, c_out, c_p1, c_p2; // bytes of one owned column of each matrix
   int resident_bytes;          // the shared-memory room for the share
   int aux_bytes;               // then for own biases, scales, embedding columns
+  int n_mix;                   // MOL_BF16: the components
   float inv_temp;
+  float log_scale_min;         // MOL_BF16: the log-scales' floor
   long long* clocks;           // null, or [3]: block 0's cycles in all, in the
                                // grid barriers and in the layers' GEMMs
                                // (instrumentation)
@@ -169,14 +191,18 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
   return c;
 }
 
-__device__ __forceinline__ float gumbel(uint32_t seed, int row, int t_abs,
-                                        int col) {
+__device__ __forceinline__ float uniform(uint32_t seed, int row, int t_abs, int col) {
   const uint4 r = philox4x32_10(
       make_uint4((uint32_t)(col >> 2), (uint32_t)row, (uint32_t)t_abs, 0u),
       make_uint2(seed, 0u));
   const int w = col & 3;
   const uint32_t bits = w == 0 ? r.x : w == 1 ? r.y : w == 2 ? r.z : r.w;
-  const float u = (float)(bits >> 8) * (1.0f / 16777216.0f);
+  return (float)(bits >> 8) * (1.0f / 16777216.0f);
+}
+
+__device__ __forceinline__ float gumbel(uint32_t seed, int row, int t_abs,
+                                        int col) {
+  const float u = uniform(seed, row, t_abs, col);
   return -logf(-logf(u + 1e-12f) + 1e-12f);
 }
 
@@ -526,8 +552,10 @@ __device__ __forceinline__ Acc part_sum(const void* part_, int nrows, int ncols,
 template <int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
 fastgen_kernel(const __grid_constant__ Params p) {
-  constexpr bool Q = MODE != BF16;
-  constexpr bool I4 = MODE == INT4;
+  constexpr bool MOL = MODE == MOL_BF16;
+  constexpr int WQ = MOL ? BF16 : MODE;  // the weights' mode
+  constexpr bool Q = WQ != BF16;
+  constexpr bool I4 = WQ == INT4;
   using Acc = typename std::conditional<Q, int, float>::type;
   const long long t_start = clock64();
   long long bar_cycles = 0, gemm_cycles = 0;  // block 0, thread 0: instrumentation
@@ -554,6 +582,7 @@ fastgen_kernel(const __grid_constant__ Params p) {
   float* a_p1 = a_s + p.L * pl;                                    // [nq1]
   float* a_p2 = a_p1 + nq1;                                        // [nq2]
   __nv_bfloat16* a_emb = reinterpret_cast<__nv_bfloat16*>(a_p2 + nq2);  // [n_quant, nr]
+  float* a_in0 = a_p2 + nq2;  // MOL: [2, nr] own columns of w_in0, b_in0
   void* part = smem + p.resident_bytes + p.aux_bytes;              // [PASS, pu]
   float* sc = reinterpret_cast<float*>(part) + PASS * pu;          // [PASS, pu]
   float* wred = sc + PASS * pu;                                    // [WARPS]
@@ -580,13 +609,21 @@ fastgen_kernel(const __grid_constant__ Params p) {
   }
   for (int j = tid; j < nq1; j += THREADS) a_p1[j] = p.p1b[q1_lo + j];
   for (int j = tid; j < nq2; j += THREADS) a_p2[j] = p.p2b[q2_lo + j];
-  for (int i = tid; i < p.n_quant * nr; i += THREADS)
-    a_emb[i] = p.embed[(size_t)(i / nr) * n_res + r_lo + i % nr];
+  if constexpr (MOL) {
+    for (int i = tid; i < 2 * nr; i += THREADS)
+      a_in0[i] = p.in0[(size_t)(i / nr) * n_res + r_lo + i % nr];
+  } else {
+    for (int i = tid; i < p.n_quant * nr; i += THREADS)
+      a_emb[i] = p.embed[(size_t)(i / nr) * n_res + r_lo + i % nr];
+  }
   __syncthreads();
 
   for (int i = tid; i < B * nr; i += THREADS) {
     const int b = i / nr, c = i % nr;
-    xs[b * x_ld + c] = __bfloat162float(a_emb[p.prev_id[b] * nr + c]);
+    if constexpr (MOL)
+      xs[b * x_ld + c] = __fadd_rn(__fmul_rn(p.x_prev[b], a_in0[c]), a_in0[nr + c]);
+    else
+      xs[b * x_ld + c] = __bfloat162float(a_emb[p.prev_id[b] * nr + c]);
   }
   for (int i = tid; i < B * ns; i += THREADS) ss[(i / ns) * s_ld + i % ns] = 0.f;
   // this thread's first ring item (row b0, own column c0) is loaded one
@@ -651,7 +688,7 @@ fastgen_kernel(const __grid_constant__ Params p) {
       for (int row0 = 0; row0 < B; row0 += PASS) {
         const int nrows = min(PASS, B - row0);
         const long long g0 = clock64();
-        share_gemm<MODE>(xin, xin_len, sx, W, 2 * nf, p.c_in, row0, nrows, pu, part);
+        share_gemm<WQ>(xin, xin_len, sx, W, 2 * nf, p.c_in, row0, nrows, pu, part);
         __syncthreads();
         gemm_cycles += clock64() - g0;
         for (int i = tid; i < nrows * nf; i += THREADS) {
@@ -688,8 +725,8 @@ fastgen_kernel(const __grid_constant__ Params p) {
       for (int row0 = 0; row0 < B; row0 += PASS) {
         const int nrows = min(PASS, B - row0);
         const long long g0 = clock64();
-        share_gemm<MODE>(hsrc, n_dil, sh, W + (size_t)2 * nf * p.c_in, nv, p.c_out, row0,
-                         nrows, pu, part);
+        share_gemm<WQ>(hsrc, n_dil, sh, W + (size_t)2 * nf * p.c_in, nv, p.c_out, row0,
+                       nrows, pu, part);
         __syncthreads();
         gemm_cycles += clock64() - g0;
         for (int i = tid; i < nrows * nv; i += THREADS) {
@@ -739,9 +776,13 @@ fastgen_kernel(const __grid_constant__ Params p) {
         const float lg = part_sum<float>(part, nrows, nq2, pu, b, jj) + a_p2[jj];
         if (p.logits != nullptr)
           p.logits[((size_t)t * B + row) * p.n_quant + j] = lg;
-        sc[b * pu + jj] = p.greedy ? lg : lg * p.inv_temp + gumbel(p.seed, row, t_abs, j);
+        if constexpr (MOL)
+          p.mix[(size_t)row * p.n_quant + j] = lg;
+        else
+          sc[b * pu + jj] = p.greedy ? lg : lg * p.inv_temp + gumbel(p.seed, row, t_abs, j);
       }
       __syncthreads();
+      if constexpr (MOL) continue;
       for (int b = tid; b < nrows; b += THREADS) {  // this block's best, first on ties
         float best = 0.f;
         int arg = -1;
@@ -755,6 +796,51 @@ fastgen_kernel(const __grid_constant__ Params p) {
       __syncthreads();
     }
     grid_sync(p.count, target, G, bar_cycles);
+
+    if constexpr (MOL) {
+      // every block draws each row's sample from the exchanged mixture (one
+      // warp a row, a component a lane; every block computes the same bits)
+      // and maps it into its own columns
+      const int K = p.n_mix;
+      for (int b = warp; b < B; b += WARPS) {
+        const float* mrow = p.mix + (size_t)b * p.n_quant;
+        float best = 0.f;
+        int arg = -1;
+        if (lane < K) {
+          const float lg = __ldcg(mrow + lane);
+          best = p.greedy ? lg : __fadd_rn(__fmul_rn(lg, p.inv_temp),
+                                           gumbel(p.seed, b, t_abs, lane));
+          arg = lane;
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+          const float ob = __shfl_xor_sync(0xffffffffu, best, o);
+          const int oa = __shfl_xor_sync(0xffffffffu, arg, o);
+          if (oa >= 0 && (arg < 0 || ob > best || (ob == best && oa < arg))) {
+            best = ob;
+            arg = oa;
+          }
+        }
+        float x = __ldcg(mrow + K + arg);
+        if (!p.greedy) {
+          const float ls = fmaxf(__ldcg(mrow + 2 * K + arg), p.log_scale_min);
+          const float v = fminf(fmaxf(uniform(p.seed, b, t_abs, K), 1e-5f), 0.99999f);
+          x = __fadd_rn(x, __fmul_rn(expf(ls), __fsub_rn(logf(v), logf(__fsub_rn(1.f, v)))));
+        }
+        x = fminf(fmaxf(x, -1.f), 1.f);
+        if (r == 0 && lane == 0) {
+          p.samples[(size_t)b * p.T + t] = x;
+          if (t == p.T - 1) p.last_x[b] = x;
+        }
+        if (t + 1 < p.T) {
+          for (int c = lane; c < nr; c += 32)
+            xs[b * x_ld + c] = __fadd_rn(__fmul_rn(x, a_in0[c]), a_in0[nr + c]);
+          for (int c = lane; c < ns; c += 32) ss[b * s_ld + c] = 0.f;
+        }
+      }
+      __syncthreads();
+      continue;
+    }
 
     // every block reduces all candidates in block order (so first index on
     // ties: blocks own ascending columns) and embeds the id in its columns
@@ -832,13 +918,14 @@ int awt_fastgen_device(int* n_sms, int* smem_optin) {
   return (int)err;
 }
 
-// Launches the sampler (mode 0 bf16, 1 int8, 2 int4) on `stream` as one
+// Launches the sampler (mode 0 bf16, 1 int8, 2 int4, 3 bf16 with the
+// mixture-of-logistics tail) on `stream` as one
 // cooperative grid; returns a CUDA error code (0 = ok).  ptrs and ints in
 // the order of ops/fastgen_cuda.generate_fused; *max_blocks gets how many
 // blocks of this size the card holds at once (the launch is refused below
 // the plan's block count).
 int awt_fastgen(int mode, const unsigned long long* ptrs, const int* ints,
-                float inv_temp, int* max_blocks, void* stream) {
+                float inv_temp, float log_scale_min, int* max_blocks, void* stream) {
   Params p{};
   int k = 0;
   p.share = (const uint8_t*)ptrs[k++];
@@ -867,6 +954,11 @@ int awt_fastgen(int mode, const unsigned long long* ptrs, const int* ints,
   p.maxx = (float*)ptrs[k++];
   p.maxh = (float*)ptrs[k++];
   p.clocks = (long long*)ptrs[k++];
+  p.mix = (float*)ptrs[k++];
+  p.in0 = (const float*)ptrs[k++];
+  p.x_prev = (const float*)ptrs[k++];
+  p.samples = (float*)ptrs[k++];
+  p.last_x = (float*)ptrs[k++];
   k = 0;
   p.B = ints[k++]; p.T = ints[k++]; p.L = ints[k++];
   p.n_res = ints[k++]; p.n_dil = ints[k++]; p.n_skp = ints[k++];
@@ -875,7 +967,7 @@ int awt_fastgen(int mode, const unsigned long long* ptrs, const int* ints,
   p.G = ints[k++]; p.R = ints[k++]; p.stride = ints[k++];
   p.part_units = ints[k++]; p.smem = ints[k++];
   p.c_in = ints[k++]; p.c_out = ints[k++]; p.c_p1 = ints[k++]; p.c_p2 = ints[k++];
-  p.resident_bytes = ints[k++]; p.aux_bytes = ints[k++];
+  p.resident_bytes = ints[k++]; p.aux_bytes = ints[k++]; p.n_mix = ints[k++];
   if (p.L < 1 || p.L > MAX_LAYERS || p.B < 1 || p.T < 1 || p.G < 1 || p.R < 0 ||
       p.R > p.L)
     return (int)cudaErrorInvalidValue;
@@ -884,11 +976,16 @@ int awt_fastgen(int mode, const unsigned long long* ptrs, const int* ints,
     p.dil[l] = ints[k + p.L + l];
   }
   p.inv_temp = inv_temp;
+  p.log_scale_min = log_scale_min;
+  if (mode == MOL_BF16 && (p.n_mix < 1 || p.n_mix > 32 || p.n_quant != 3 * p.n_mix ||
+                           !p.in0 || !p.x_prev || !p.samples || !p.last_x || !p.mix))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (mode) {
     case BF16: return launch<BF16>(p, max_blocks, s);
     case INT8: return launch<INT8>(p, max_blocks, s);
     case INT4: return launch<INT4>(p, max_blocks, s);
+    case MOL_BF16: return launch<MOL_BF16>(p, max_blocks, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

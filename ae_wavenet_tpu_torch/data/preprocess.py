@@ -248,20 +248,21 @@ def _synth_clip_v3(rng, n: int, spk: int, sample_rate: int) -> np.ndarray:
 
 
 def dataset_frame_stats(prefix: str, spec_cfg) -> tuple:
-    """Per-channel mean and variance of the MFCC stack over every clip of
-    the packed dataset at ``prefix`` that covers one frame: the fixed
-    statistics of ``SpecConfig.norm="dataset"``.  The frames come from
-    ``audio/mfcc.mfcc_delta_stack`` on the CPU, one clip at a time; the
-    sums are float64.  -> (mean, var) as tuples of 3 * n_mfcc floats."""
+    """Per-channel mean and variance of the conditioning frames over every
+    clip of the packed dataset at ``prefix`` that covers one frame: the
+    fixed statistics of ``SpecConfig.norm="dataset"``.  The frames come
+    from ``audio/mfcc.features`` (the MFCC stack, or the log-mel bands) on
+    the CPU, one clip at a time; the sums are float64.  -> (mean, var) as
+    tuples of ``n_out_channels`` floats."""
     import torch
 
-    from ae_wavenet_tpu_torch.audio.mfcc import mfcc_delta_stack
+    from ae_wavenet_tpu_torch.audio.mfcc import features
     from ae_wavenet_tpu_torch.geometry.vconv import Range
 
     with open(prefix + ".json") as f:
         index = json.load(f)
     dat = np.memmap(prefix + ".dat", dtype="<i2", mode="r")
-    n_ch = 3 * spec_cfg.n_mfcc
+    n_ch = spec_cfg.n_out_channels
     s1 = np.zeros(n_ch, np.float64)
     s2 = np.zeros(n_ch, np.float64)
     count = 0
@@ -271,7 +272,7 @@ def dataset_frame_stats(prefix: str, spec_cfg) -> tuple:
         if len(x) < min_len:
             continue
         wav = torch.from_numpy(x.astype(np.float32) * (1.0 / 32768.0))
-        frames = mfcc_delta_stack(wav, spec_cfg).numpy().astype(np.float64)
+        frames = features(wav, spec_cfg).numpy().astype(np.float64)
         s1 += frames.sum(axis=-1)
         s2 += (frames ** 2).sum(axis=-1)
         count += frames.shape[-1]

@@ -55,6 +55,10 @@ def frame_align(cfg: RunConfig) -> tuple[int, int]:
 class AutoEncoder(nn.Module):
     def __init__(self, cfg: RunConfig, generator: torch.Generator | None = None):
         super().__init__()
+        if cfg.wavenet.n_mix or cfg.spec.log_mel:
+            raise ValueError("the autoencoder takes the MFCC stack and a mu-law softmax; "
+                             "log-mel conditioning and a mixture output are the "
+                             "mfcc_inverter's")
         self.cfg = cfg
         self.encoder = encoder.Encoder(cfg.encoder, generator)
         self.wavenet = wavenet.WaveNet(cfg.wavenet, generator)

@@ -8,13 +8,15 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 import time
 from typing import Callable, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ae_wavenet_tpu_torch.geometry.vconv import Chain, PlanStep, Range
-from ae_wavenet_tpu_torch.audio.mulaw import int16_to_float, mu_encode
+from ae_wavenet_tpu_torch.audio.mulaw import int16_to_float
 from ae_wavenet_tpu_torch.models import wavenet
 from ae_wavenet_tpu_torch.ops import fastgen
 from ae_wavenet_tpu_torch.ops.fastgen_cuda import generate_auto
@@ -65,6 +67,44 @@ def mu_ce(logits: torch.Tensor, targets: torch.Tensor,
         return (torch.logsumexp(lg, -1) - picked).mean()
     logp = torch.log_softmax(lg, 1)
     return -logp.gather(1, targets[:, None, :].long()).mean()
+
+
+def mol_nll(params: torch.Tensor, x: torch.Tensor, n_quant: int,
+            log_scale_min: float, btq: bool = False) -> torch.Tensor:
+    """Mean negative log-likelihood in f32 of samples x [B, T] in [-1, 1]
+    under a discretized mixture of logistics: PixelCNN++'s
+    (arXiv:1701.05517) over ``n_quant`` levels, bins of half-width
+    1 / (n_quant - 1).  params [B, T, 3K] with ``btq``, else [B, 3K, T],
+    laid out [logits | means | log_scales]; log-scales clamped at
+    ``log_scale_min``.  The levels at -1 and 1 take the tails (x < -0.999,
+    x > 0.999); a bin whose mass is 1e-5 or less takes the pdf at its
+    middle times its width."""
+    p = params.float() if btq else params.float().transpose(1, 2)
+    k = p.shape[-1] // 3
+    logit, mean = p[..., :k], p[..., k : 2 * k]
+    log_s = torch.clamp(p[..., 2 * k :], min=log_scale_min)
+    x = x.float()[..., None]
+    centered = x - mean
+    inv_s = torch.exp(-log_s)
+    half = 1.0 / (n_quant - 1)
+    plus_in = inv_s * (centered + half)
+    min_in = inv_s * (centered - half)
+    cdf_delta = torch.sigmoid(plus_in) - torch.sigmoid(min_in)
+    log_cdf_plus = plus_in - F.softplus(plus_in)
+    log_one_minus_cdf_min = -F.softplus(min_in)
+    mid_in = inv_s * centered
+    log_pdf_mid = mid_in - log_s - 2.0 * F.softplus(mid_in)
+    inner = torch.where(cdf_delta > 1e-5, torch.log(torch.clamp(cdf_delta, min=1e-12)),
+                        log_pdf_mid - math.log((n_quant - 1) / 2))
+    inner = torch.where(x > 0.999, log_one_minus_cdf_min, inner)
+    log_probs = torch.where(x < -0.999, log_cdf_plus, inner)
+    log_probs = log_probs + torch.log_softmax(logit, -1)
+    return -torch.logsumexp(log_probs, -1).mean()
+
+
+def to_int16(x: torch.Tensor) -> torch.Tensor:
+    """Samples in [-1, 1] -> 16-bit PCM (x * 32768, rounded, clipped)."""
+    return torch.clamp(torch.round(x * 32768.0), -32768, 32767).to(torch.int16)
 
 
 def make_window_spec(cfg: RunConfig, chain: Chain, n_win: int | None,
@@ -148,12 +188,13 @@ def _lap(timings: dict | None, key: str, t0: float, device) -> float:
 @dataclasses.dataclass(frozen=True)
 class GenPrep:
     """Primed generation state + the alignment lattice.  Generation runs
-    ``n`` steps over ``gen_cond``; the output aligns with the input mu-law
-    ``ids[..., start : start + n]``."""
+    ``n`` steps over ``gen_cond``; the output aligns with the input's AR
+    inputs ``ids[..., start : start + n]``."""
 
     state: fastgen.GenState
     cond: torch.Tensor               # full conditioning [B, C, tc]
-    ids: torch.Tensor                # mu-law ids of the full input [B, U']
+    ids: torch.Tensor                # AR inputs of the full input [B, U']:
+                                     # mu-law ids, or samples (n_mix > 0)
     c_off: int                       # cond frame 0 = input sample c_off
     rf: int
     n: int
@@ -177,7 +218,8 @@ def prime_for_generation(encode_fn: EncodeFn, model: torch.nn.Module,
                          spk: torch.Tensor, n_samples: int | None = None,
                          timings: dict | None = None) -> GenPrep:
     """Encode a whole utterance with ``encode_fn(model, cfg, wav_i16) ->
-    (cond, c_off)``, mu-law-encode the ground truth and prime the queues on
+    (cond, c_off)``, turn the ground truth into AR inputs (mu-law ids, or
+    the samples themselves with a mixture output) and prime the queues on
     real left context.  ``timings``, when given, receives the seconds of
     "encode" and "prime"."""
     t = time.perf_counter()
@@ -190,7 +232,7 @@ def prime_for_generation(encode_fn: EncodeFn, model: torch.nn.Module,
         raise ValueError(f"utterance too short: {tc} cond frames <= rf+1")
     n = tc - rf - 1 if n_samples is None else min(n_samples, tc - rf - 1)
     with span("serve.prime"):
-        ids = mu_encode(int16_to_float(wav_i16), cfg.wavenet.n_quant)
+        ids = wavenet.decoder_inputs(cfg.wavenet, int16_to_float(wav_i16))
         ctx = ids[..., c_off : c_off + rf + 1]
         state = fastgen.init_state(cfg.wavenet, wav_i16.shape[0], device=wav_i16.device)
         state = fastgen.prime(model.wavenet, cfg.wavenet, state, ctx, cond, spk)
@@ -206,9 +248,10 @@ def reconstruct(encode_fn: EncodeFn, model: torch.nn.Module, cfg: RunConfig,
                 timings: dict | None = None, quantized=False):
     """:func:`prime_for_generation`, then sample autoregressively with the
     fused sampler (``quantized``: False, True/'int8' or 'int4' weights).
-    Returns (mu-law ids [B, n], start): the output corresponds to input
-    positions [start, start + n).  ``timings`` also receives the seconds of
-    "generate"."""
+    Returns (mu-law ids [B, n], start), or with a mixture output
+    (``cfg.wavenet.n_mix``) 16-bit samples [B, n] int16 in place of the ids:
+    the output corresponds to input positions [start, start + n).
+    ``timings`` also receives the seconds of "generate"."""
     prep = prime_for_generation(encode_fn, model, cfg, wav_i16, spk,
                                 n_samples, timings)
     t = time.perf_counter()
@@ -216,5 +259,7 @@ def reconstruct(encode_fn: EncodeFn, model: torch.nn.Module, cfg: RunConfig,
         out, _ = generate_auto(model.wavenet, cfg.wavenet, prep.state,
                                prep.gen_cond, generator, gc_ids=spk,
                                temperature=temperature, quantized=quantized)
+        if cfg.wavenet.n_mix:
+            out = to_int16(out)
         _lap(timings, "generate", t, wav_i16.device)
     return out, prep.start

@@ -9,6 +9,11 @@ itself (strides (5, 4, 4, 2) for hop 160).  The fused stack runs as in the
 autoencoder: cond is ``n_lc_out + n_global_embed`` channels either way.
 Parameters sit under ``wavenet.`` (the reference's ``params.wavenet.*``);
 there is no bottleneck state.
+
+The port's own variants, which the reference's schema lacks: conditioning
+on the log-mel bands alone (``spec.n_mfcc`` = 0) and a mixture-of-logistics
+output over 16-bit samples (``wavenet.n_mix``), as in the WaveNet vocoder of
+Tacotron 2 (arXiv:1712.05884 §2.3).
 """
 
 from __future__ import annotations
@@ -17,10 +22,10 @@ import torch
 from torch import nn
 
 from ae_wavenet_tpu_torch.audio import mfcc
-from ae_wavenet_tpu_torch.audio.mulaw import int16_to_float, mu_encode
+from ae_wavenet_tpu_torch.audio.mulaw import int16_to_float
 from ae_wavenet_tpu_torch.geometry.vconv import Chain, Range
 from ae_wavenet_tpu_torch.models import common, wavenet
-from ae_wavenet_tpu_torch.models.common import (WindowSpec, btq_layout, mu_ce,
+from ae_wavenet_tpu_torch.models.common import (WindowSpec, btq_layout, mol_nll, mu_ce,
                                                  normalize_frames)
 from ae_wavenet_tpu_torch.utils import device as device_mod
 from ae_wavenet_tpu_torch.utils.config import RunConfig
@@ -40,7 +45,7 @@ class MfccInverter(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.wavenet = wavenet.WaveNet(cfg.wavenet, generator,
-                                       n_lc_in=3 * cfg.spec.n_mfcc)
+                                       n_lc_in=cfg.spec.n_out_channels)
 
 
 def init(cfg: RunConfig, generator: torch.Generator | None = None,
@@ -57,7 +62,7 @@ def encode(model: MfccInverter, cfg: RunConfig, wav_i16: torch.Tensor):
     a slice as long as this model's training window's frames."""
     r0 = cond_chain(cfg).in_range(Range(0, 1))
     c_off = (r0.b + r0.e) // 2
-    frames = mfcc.mfcc_delta_stack(int16_to_float(wav_i16), cfg.spec)
+    frames = mfcc.features(int16_to_float(wav_i16), cfg.spec)
     frames = normalize_frames(frames, n_ref=make_window_spec(cfg).n_frames,
                               spec=cfg.spec)
     up_chain = wavenet.upsample_geometry(cfg.wavenet)
@@ -69,8 +74,9 @@ def reconstruct(model: MfccInverter, cfg: RunConfig, wav_i16: torch.Tensor,
                 spk: torch.Tensor, generator: torch.Generator | None = None,
                 temperature: float = 1.0, n_samples: int | None = None,
                 timings: dict | None = None, quantized=False):
-    """Vocode a whole utterance from its own MFCC: the contract of
-    ``autoencoder.reconstruct`` (``models/common.reconstruct``)."""
+    """Vocode a whole utterance from its own frames: the contract of
+    ``autoencoder.reconstruct`` (``models/common.reconstruct``; 16-bit
+    samples in place of mu-law ids with a mixture output)."""
     return common.reconstruct(encode, model, cfg, wav_i16, spk, generator,
                               temperature, n_samples, timings, quantized)
 
@@ -81,17 +87,19 @@ def forward(model: MfccInverter, cfg: RunConfig, spec: WindowSpec,
             group=None):
     """One teacher-forcing pass over training windows wav_i16 [B, u_len]
     int16 -> (logits, targets, aux) as ``autoencoder.forward``; aux is
-    empty.  ``step``, ``train``, ``generator``, ``draws`` and ``group`` are
-    taken for the shared signature: nothing here draws or keeps state, so
-    under data parallelism only the gradients are averaged."""
+    empty.  With a mixture output the logits are the mixture parameters
+    and the targets the samples in [-1, 1].  ``step``, ``train``,
+    ``generator``, ``draws`` and ``group`` are taken for the shared
+    signature: nothing here draws or keeps state, so under data parallelism
+    only the gradients are averaged."""
     del step, train, generator, draws, group
     dtype = common.compute_dtype(cfg)
     wav = int16_to_float(wav_i16)
-    frames = mfcc.mfcc_delta_stack(wav[..., spec.fb : spec.fe], cfg.spec)
+    frames = mfcc.features(wav[..., spec.fb : spec.fe], cfg.spec)
     frames = normalize_frames(frames, spec=cfg.spec)
     cond = wavenet.upsample_apply(model.wavenet, cfg.wavenet, frames, spec.up_steps,
                                   dtype=dtype)
-    ids = mu_encode(wav, cfg.wavenet.n_quant)
+    ids = wavenet.decoder_inputs(cfg.wavenet, wav)
     x_ids = ids[..., spec.w0 : spec.w0 + spec.t_in]
     logits = wavenet.apply(model.wavenet, cfg.wavenet, x_ids, cond, spk,
                            dtype=dtype, btq=btq_layout(cfg))
@@ -109,8 +117,13 @@ def loss_fn(model: MfccInverter, cfg: RunConfig, spec: WindowSpec,
             generator: torch.Generator | None = None, draws: dict | None = None,
             group=None):
     """-> (recon CE, {"loss", "recon_ce"}): the model has no bottleneck
-    terms and no aux head."""
+    terms and no aux head.  With a mixture output the reconstruction term
+    is the mixture's negative log-likelihood (``common.mol_nll``)."""
     logits, targets, _ = forward(model, cfg, spec, wav_i16, spk, step, train,
                                  generator, draws)
-    recon = mu_ce(logits, targets, btq=btq_layout(cfg))
+    wn = cfg.wavenet
+    if wn.n_mix:
+        recon = mol_nll(logits, targets, wn.n_quant, wn.log_scale_min, btq=btq_layout(cfg))
+    else:
+        recon = mu_ce(logits, targets, btq=btq_layout(cfg))
     return recon, {"loss": recon, "recon_ce": recon}

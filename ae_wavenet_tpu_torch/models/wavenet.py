@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ae_wavenet_tpu_torch.audio.mulaw import mu_encode
 from ae_wavenet_tpu_torch.geometry.vconv import Chain, Conv, PlanStep, TConv
 from ae_wavenet_tpu_torch.ops.conv1d import tconv1d
 from ae_wavenet_tpu_torch.utils.config import WaveNetConfig
@@ -68,11 +69,18 @@ class WaveNet(nn.Module):
         g = generator
         self.cfg = cfg
         cin = cfg.n_lc_in if n_lc_in is None else n_lc_in
-        self.embed = nn.Parameter(
-            torch.randn(cfg.n_quant, cfg.n_res, generator=g) / math.sqrt(cfg.n_res))
-        self.gc_embed = nn.Parameter(
-            torch.randn(cfg.n_speakers, cfg.n_global_embed, generator=g)
-            / math.sqrt(cfg.n_global_embed))
+        if cfg.n_mix:
+            self.in0 = _dense(g, cfg.n_res, 1)
+            self.register_parameter("embed", None)
+        else:
+            self.embed = nn.Parameter(
+                torch.randn(cfg.n_quant, cfg.n_res, generator=g) / math.sqrt(cfg.n_res))
+        if cfg.n_global_embed:
+            self.gc_embed = nn.Parameter(
+                torch.randn(cfg.n_speakers, cfg.n_global_embed, generator=g)
+                / math.sqrt(cfg.n_global_embed))
+        else:
+            self.register_parameter("gc_embed", None)
         ups = []
         for f in cfg.lc_upsample_filters:
             ups.append(nn.ParameterDict({
@@ -84,7 +92,23 @@ class WaveNet(nn.Module):
         self.upsample = nn.ModuleList(ups)
         self.layers = nn.ModuleList([GatedLayer(cfg, g) for _ in cfg.dilations])
         self.post1 = _dense(g, cfg.n_post, cfg.n_skp)
-        self.post2 = _dense(g, cfg.n_quant, cfg.n_post, scale=1e-2)
+        self.post2 = _dense(g, cfg.n_out, cfg.n_post, scale=1e-2)
+
+
+def embed_input(wavenet: WaveNet, x: torch.Tensor) -> torch.Tensor:
+    """The stack's input x0 [..., n_res] f32 of AR inputs x [...]: the
+    embedding row of each mu-law id, or, where the decoder has a mixture
+    output (the input map ``in0`` in place of the embedding), the rank-1 map
+    x * w_in0 + b_in0 of each sample in [-1, 1]."""
+    if wavenet.embed is None:
+        return x[..., None].float() * wavenet.in0["w"][:, 0] + wavenet.in0["b"]
+    return wavenet.embed[x]
+
+
+def decoder_inputs(cfg: WaveNetConfig, wav: torch.Tensor) -> torch.Tensor:
+    """The decoder's AR inputs (and targets) of a float wav in [-1, 1]:
+    mu-law ids, or with ``cfg.n_mix`` the samples themselves."""
+    return wav if cfg.n_mix else mu_encode(wav, cfg.n_quant)
 
 
 def upsample_apply(wavenet: WaveNet, cfg: WaveNetConfig, z: torch.Tensor,
@@ -115,9 +139,9 @@ def _mm(p: nn.ParameterDict, x: torch.Tensor, dtype) -> torch.Tensor:
 def apply(wavenet: WaveNet, cfg: WaveNetConfig, x_ids: torch.Tensor,
           cond: torch.Tensor, gc_ids: torch.Tensor | None = None, *,
           dtype=torch.float32, btq: bool = False) -> torch.Tensor:
-    """Teacher-forcing forward: x_ids [B, T_in] mu-law ids, cond
-    [B, n_lc_out, T_in] -> logits [B, n_quant, T_in - rf] (time-major
-    [B, T_out, n_quant] with ``btq``).
+    """Teacher-forcing forward: x_ids [B, T_in] mu-law ids (with
+    ``cfg.n_mix``: samples in [-1, 1]), cond [B, n_lc_out, T_in] -> logits
+    [B, n_out, T_in - rf] (time-major [B, T_out, n_out] with ``btq``).
 
     The plain per-layer stack rounds where the reference's XLA stack does:
     every 1x1 product gives a compute-dtype output, the residual stream
@@ -135,7 +159,7 @@ def apply(wavenet: WaveNet, cfg: WaveNetConfig, x_ids: torch.Tensor,
     rf = receptive_field(cfg)
     t_in = x_ids.shape[-1]
     t_out = t_in - rf
-    x = wavenet.embed[x_ids].permute(0, 2, 1).to(dtype)
+    x = embed_input(wavenet, x_ids).permute(0, 2, 1).to(dtype)
     cond = with_gc(wavenet, cfg, cond, gc_ids)
     skip = torch.zeros(x.shape[0], cfg.n_skp, t_out, device=x.device)
     offset = 0

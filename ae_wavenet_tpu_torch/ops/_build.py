@@ -42,7 +42,7 @@ def _nvcc() -> str:
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ip = ctypes.POINTER(ctypes.c_int)
-    lib.awt_fastgen.argtypes = [i, ctypes.POINTER(ctypes.c_uint64), ip, f, ip, p]
+    lib.awt_fastgen.argtypes = [i, ctypes.POINTER(ctypes.c_uint64), ip, f, f, ip, p]
     lib.awt_fastgen.restype = i
     lib.awt_fastgen_device.argtypes = [ip, ip]
     lib.awt_fastgen_device.restype = i

@@ -38,7 +38,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from ae_wavenet_tpu_torch.models.wavenet import WaveNet
+from ae_wavenet_tpu_torch.models.wavenet import WaveNet, embed_input
 from ae_wavenet_tpu_torch.utils.config import WaveNetConfig
 from ae_wavenet_tpu_torch.utils.profiling import span
 
@@ -46,14 +46,18 @@ from ae_wavenet_tpu_torch.utils.profiling import span
 class GenState(NamedTuple):
     bufs: Tuple[torch.Tensor, ...]  # per layer [B, n_res, d_l] f32
     prev_id: torch.Tensor           # [B] last emitted/consumed sample id
+                                    # (n_mix > 0: the sample, f32)
     t: int                          # global time (buffer phase)
 
 
 def init_state(cfg: WaveNetConfig, batch: int, fill_id: int = 128,
                device=None) -> GenState:
-    """Zero-filled queues; ``fill_id`` (mu-law silence) seeds the AR input."""
+    """Zero-filled queues; ``fill_id`` (mu-law silence) seeds the AR input,
+    0.0 with a mixture output."""
     bufs = tuple(torch.zeros(batch, cfg.n_res, d, device=device)
                  for d in cfg.dilations)
+    if cfg.n_mix:
+        return GenState(bufs, torch.zeros(batch, device=device), 0)
     return GenState(bufs, torch.full((batch,), fill_id, dtype=torch.long,
                                      device=device), 0)
 
@@ -73,7 +77,8 @@ def pack_params(wavenet: WaveNet, cfg: WaveNetConfig, dtype=torch.float32) -> di
         y     = [x_prev | x_cur | cond_t] @ w_in + b_in
         [r|s] = h @ w_out + b_out
     with the GEMMs' weights rounded to the compute ``dtype`` once (the
-    embedding and the biases stay f32)."""
+    embedding, or with a mixture output the input map ``in0_w`` /
+    ``in0_b`` [n_res], and the biases stay f32)."""
     rnd = _rounder(dtype)
     w_in, b_in, w_out, b_out = [], [], [], []
     for p in wavenet.layers:
@@ -81,8 +86,10 @@ def pack_params(wavenet: WaveNet, cfg: WaveNetConfig, dtype=torch.float32) -> di
         b_in.append(p.w_prev["b"] + p.w_cur["b"] + p.w_cond["b"])
         w_out.append(rnd(torch.cat([p.w_res["w"], p.w_skip["w"]], 0).t()))
         b_out.append(torch.cat([p.w_res["b"], p.w_skip["b"]]))
+    x0 = ({"in0_w": wavenet.in0["w"][:, 0], "in0_b": wavenet.in0["b"]} if cfg.n_mix
+          else {"embed": wavenet.embed})
     return {
-        "embed": wavenet.embed, "w_in": w_in, "b_in": b_in,
+        **x0, "w_in": w_in, "b_in": b_in,
         "w_out": w_out, "b_out": b_out,
         "post1_w": rnd(wavenet.post1["w"].t()), "post1_b": wavenet.post1["b"],
         "post2_w": rnd(wavenet.post2["w"].t()), "post2_b": wavenet.post2["b"],
@@ -214,7 +221,10 @@ def _run(counted, make_step, loop: _Loop, n_steps: int, eager: bool,
 def with_gc(wavenet: WaveNet, cfg: WaveNetConfig, cond: torch.Tensor,
             gc_ids: torch.Tensor | None) -> torch.Tensor:
     """Append the (time-constant) speaker embedding to the cond channels:
-    [B, n_lc_out, T] -> [B, n_lc_out + n_global_embed, T]."""
+    [B, n_lc_out, T] -> [B, n_lc_out + n_global_embed, T] (cond itself
+    where n_global_embed is 0)."""
+    if not cfg.n_global_embed:
+        return cond
     b, _, t = cond.shape
     if gc_ids is None:
         g = cond.new_zeros(b, cfg.n_global_embed)
@@ -236,7 +246,8 @@ def prime(wavenet: WaveNet, cfg: WaveNetConfig, state: GenState,
           gc_ids: torch.Tensor | None = None) -> GenState:
     """Warm the queues with known samples (teacher context), in place.
 
-    ids: [B, T0] real samples at positions [t, t+T0).  The first T = T0-1
+    ids: [B, T0] real samples at positions [t, t+T0) (mu-law ids, or with a
+    mixture output the samples in [-1, 1], mapped by ``in0``).  The first T = T0-1
     are consumed through the stack (no logits are made); the LAST one is
     left as ``prev_id`` so the next generation step consumes it.
     cond: [B, n_lc_out, >= T0-1] columns for the consumed positions.
@@ -256,7 +267,7 @@ def prime(wavenet: WaveNet, cfg: WaveNetConfig, state: GenState,
         packed = pack_params(wavenet, cfg)
         cond_rows = _by_step(wavenet, cfg, cond[..., :n], gc_ids).flatten(0, 1)
     with span("prime.pass"):
-        x = packed["embed"].index_select(0, ids[:, :n].t().reshape(-1)).unflatten(0, (n, b))
+        x = embed_input(wavenet, ids[:, :n].t())
         last = len(cfg.dilations) - 1
         for i, (d, buf) in enumerate(zip(cfg.dilations, state.bufs)):
             ring = buf.permute(2, 0, 1)  # [d, B, n_res], position p at slot p mod d
@@ -336,7 +347,12 @@ def generate(wavenet: WaveNet, cfg: WaveNetConfig, state: GenState,
     sample at position p (the training lattice).  The queues of ``state``
     are updated in place.  Returns (ids [B, T] int32, final state) and, with
     ``return_logits``, the per-step logits [B, n_quant, T]: the free-running
-    predictive distributions that eval/quality scores ground truth under."""
+    predictive distributions that eval/quality scores ground truth under.
+    A mixture output (``cfg.n_mix``) is sampled by the fused sampler alone
+    (``ops/fastgen_cuda``): it raises here."""
+    if cfg.n_mix:
+        raise NotImplementedError("the f32 rollout samples mu-law ids; a mixture "
+                                  "output is sampled by ops/fastgen_cuda")
     t_len = cond.shape[-1] if n_steps is None else n_steps
     if t_len > cond.shape[-1]:
         raise ValueError(f"n_steps={t_len} exceeds the {cond.shape[-1]} "

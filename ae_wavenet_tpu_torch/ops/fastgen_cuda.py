@@ -26,9 +26,20 @@ same code.
 
 :func:`generate_fused` dispatches on the device of the tensors it is
 given: CUDA tensors launch the kernel (or raise), CPU tensors take the
-plain version.  ``generate_fused.launches`` counts the bf16 kernel's
+plain version.  ``generate_fused.launches`` counts the bf16 kernels'
 launches, ``.launches_int8`` and ``.launches_int4`` the quantized kernels';
 ``generate_fused_reference.launches`` counts every run of the plain version.
+
+A mixture-of-logistics output (``cfg.n_mix`` > 0, bf16 weights only) runs
+the same kernel body with another tail (``fastgen_kernel<3>``): the post-net
+gives 3 * n_mix values a row, exchanged across the grid; every block draws
+the component by Gumbel-max over the mixture logits and the sample from that
+component's logistic with the same Philox stream, and maps the sample into
+its residual columns by the rank-1 input map.  The samples come out as f32
+in [-1, 1].  ``generate_fused.mol_launches`` counts those launches;
+``.resident_layers`` is the last launch's layers in shared memory and
+``.streamed_bytes`` the bytes of the other layers' shares read through L2,
+over every step of every launch (:attr:`SharePlan.streamed_bytes` a step).
 
 Quantized weights (``quantized="int8"`` or ``"int4"``): per-output-column
 int8 or nibble-packed int4 layer weights, activations quantized to int8 per
@@ -58,6 +69,7 @@ from ae_wavenet_tpu_torch.utils.config import WaveNetConfig
 from ae_wavenet_tpu_torch.utils.profiling import span
 
 _MAX_LAYERS = 64  # csrc/fastgen.cu MAX_LAYERS
+_MAX_MIX = 32     # the mixture tail takes a component a lane of one warp
 
 
 class KernelParams(NamedTuple):
@@ -74,21 +86,40 @@ class KernelParams(NamedTuple):
     post2_b: torch.Tensor  # [n_quant] f32
 
 
+class MolKernelParams(NamedTuple):
+    """A mixture-of-logistics output's weights: KernelParams with the rank-1
+    input map in place of the embedding and 3 * n_mix post-net outputs."""
+
+    w_in: torch.Tensor     # [L, 2*n_res + n_cond, 2*n_dil] bf16
+    b_in: torch.Tensor     # [L, 2*n_dil] f32
+    w_out: torch.Tensor    # [L, n_dil, n_res + n_skp] bf16
+    b_out: torch.Tensor    # [L, n_res + n_skp] f32
+    in0: torch.Tensor      # [2, n_res] f32: rows w_in0, b_in0
+    post1_w: torch.Tensor  # [n_skp, n_post] bf16
+    post1_b: torch.Tensor  # [n_post] f32
+    post2_w: torch.Tensor  # [n_post, 3 n_mix] bf16: logits | means | log-scales
+    post2_b: torch.Tensor  # [3 n_mix] f32
+
+
 @torch.no_grad()
-def pack_for_kernel(wavenet: WaveNet, cfg: WaveNetConfig) -> KernelParams:
+def pack_for_kernel(wavenet: WaveNet, cfg: WaveNetConfig):
+    """bf16 weights: KernelParams, or MolKernelParams for a mixture output."""
     p = fastgen.pack_params(wavenet, cfg)
     bf16 = torch.bfloat16
-    return KernelParams(
+    layers = dict(
         w_in=torch.stack(p["w_in"]).to(bf16).contiguous(),
         b_in=torch.stack(p["b_in"]).float().contiguous(),
         w_out=torch.stack(p["w_out"]).to(bf16).contiguous(),
-        b_out=torch.stack(p["b_out"]).float().contiguous(),
-        embed=p["embed"].to(bf16).contiguous(),
+        b_out=torch.stack(p["b_out"]).float().contiguous())
+    post = dict(
         post1_w=p["post1_w"].to(bf16).contiguous(),
         post1_b=p["post1_b"].float().contiguous(),
         post2_w=p["post2_w"].to(bf16).contiguous(),
-        post2_b=p["post2_b"].float().contiguous(),
-    )
+        post2_b=p["post2_b"].float().contiguous())
+    if cfg.n_mix:
+        in0 = torch.stack([p["in0_w"], p["in0_b"]]).float().contiguous()
+        return MolKernelParams(**layers, in0=in0, **post)
+    return KernelParams(**layers, embed=p["embed"].to(bf16).contiguous(), **post)
 
 
 class Int8KernelParams(NamedTuple):
@@ -206,10 +237,28 @@ def pack_for_kernel_int4(wavenet: WaveNet, cfg: WaveNetConfig) -> Int4KernelPara
                             _words(w_out_p), w_out_s.contiguous(), p.b_out, *p[4:])
 
 
-#: by sampler mode (None: bf16 weights): the packer and the type it returns
+#: by sampler mode (None: bf16 weights; "mol": bf16 weights and a mixture
+#: output): the packer, the type it returns, the weights' mode, the kernel
+#: instance (csrc/fastgen.cu Mode) and the launch counters it adds to
 PACKERS = {None: pack_for_kernel, "int8": pack_for_kernel_int8,
-           "int4": pack_for_kernel_int4}
-_PARAMS = {None: KernelParams, "int8": Int8KernelParams, "int4": Int4KernelParams}
+           "int4": pack_for_kernel_int4, "mol": pack_for_kernel}
+_PARAMS = {None: KernelParams, "int8": Int8KernelParams, "int4": Int4KernelParams,
+           "mol": MolKernelParams}
+_WEIGHTS = {None: None, "int8": "int8", "int4": "int4", "mol": None}
+_MODES = {None: 0, "int8": 1, "int4": 2, "mol": 3}
+_COUNTERS = {None: ("launches",), "int8": ("launches_int8",),
+             "int4": ("launches_int4",), "mol": ("launches", "mol_launches")}
+
+
+def _mode_for(cfg: WaveNetConfig, quantized) -> str | None:
+    """The sampler mode for ``cfg``: :func:`_norm_wq` of ``quantized``, or
+    "mol" for a mixture output, which takes bf16 weights only."""
+    if not cfg.n_mix:
+        return _norm_wq(quantized)
+    if quantized != "mol" and _norm_wq(quantized) is not None:
+        raise ValueError(f"quantized={quantized!r}: the mixture-of-logistics sampler "
+                         "takes bf16 weights only")
+    return "mol"
 
 
 def _check_mode(packed, mode: str | None) -> None:
@@ -271,21 +320,51 @@ def philox4x32_10(ctr, key):
     return c0, c1, c2, c3
 
 
-def gumbel_noise(seed: int, rows: torch.Tensor, t_abs: int,
-                 n_quant: int) -> torch.Tensor:
-    """The kernel's Gumbel draws for ``rows`` at step ``t_abs``: [R, n_quant]
-    f32, from Philox key (seed, 0), counter (col // 4, row, t_abs, 0), word
-    col % 4."""
-    col = torch.arange(n_quant, device=rows.device)
-    shape = (rows.shape[0], n_quant)
+def philox_uniform(seed: int, rows: torch.Tensor, t_abs: int,
+                   n_cols: int) -> torch.Tensor:
+    """The kernel's uniforms for ``rows`` at step ``t_abs``: [R, n_cols] f32
+    (bits >> 8) * 2**-24, bits from Philox key (seed, 0), counter
+    (col // 4, row, t_abs, 0), word col % 4."""
+    col = torch.arange(n_cols, device=rows.device)
+    shape = (rows.shape[0], n_cols)
     c0 = (col >> 2)[None, :].expand(shape)
     c1 = rows.long()[:, None].expand(shape)
     c2 = torch.full(shape, t_abs, dtype=torch.long, device=rows.device)
     words = torch.stack(philox4x32_10((c0, c1, c2, torch.zeros_like(c2)),
                                       (seed, 0)))
     bits = torch.gather(words, 0, (col & 3)[None, None, :].expand(1, *shape))[0]
-    u = (bits >> 8).float() * (1.0 / (1 << 24))
+    return (bits >> 8).float() * (1.0 / (1 << 24))
+
+
+def gumbel_noise(seed: int, rows: torch.Tensor, t_abs: int,
+                 n_quant: int) -> torch.Tensor:
+    """The kernel's Gumbel draws for ``rows`` at step ``t_abs``: [R, n_quant]
+    f32, -log(-log(u + 1e-12) + 1e-12) of :func:`philox_uniform`."""
+    u = philox_uniform(seed, rows, t_abs, n_quant)
     return -torch.log(-torch.log(u + 1e-12) + 1e-12)
+
+
+def mol_draw(mix: torch.Tensor, n_mix: int, log_scale_min: float, seed: int,
+             rows: torch.Tensor, t_abs: int, temperature: float) -> torch.Tensor:
+    """The kernel's mixture tail on mix [R, 3 n_mix] = [logits | means |
+    log_scales] -> samples [R] f32: the component k = argmax(logit / T + g)
+    with the Gumbel draws of columns 0 .. n_mix - 1, then clamp(mean_k +
+    exp(max(log_s_k, log_scale_min)) * (log u - log(1 - u)), -1, 1) with u
+    the uniform of column n_mix clamped to [1e-5, 0.99999]; at T = 0,
+    clamp(mean_k, -1, 1) with k = argmax(logit)."""
+    logit = mix[:, :n_mix]
+    if temperature == 0.0:
+        k = torch.argmax(logit, 1)
+        return torch.clamp(mix[:, n_mix : 2 * n_mix].gather(1, k[:, None])[:, 0], -1.0, 1.0)
+    u = philox_uniform(seed, rows, t_abs, n_mix + 1)
+    g = -torch.log(-torch.log(u[:, :n_mix] + 1e-12) + 1e-12)
+    k = torch.argmax(logit * (1.0 / temperature) + g, 1)
+    mean, log_s = (mix[:, a * n_mix : (a + 1) * n_mix].gather(1, k[:, None])[:, 0]
+                   for a in (1, 2))
+    v = torch.clamp(u[:, n_mix], 1e-5, 0.99999)
+    x = mean + torch.exp(torch.clamp(log_s, min=log_scale_min)) * (
+        torch.log(v) - torch.log(1.0 - v))
+    return torch.clamp(x, -1.0, 1.0)
 
 
 # ------------------------------------------------------------ the sampler
@@ -343,35 +422,38 @@ def generate_fused_reference(packed, cfg: WaveNetConfig,
     already carries the speaker embedding.  ``quantized`` selects the int8
     or int4 contract and the matching ``packed`` type.  Returns (ids [B, T]
     int32, flat, last_id [B] int32) and, with ``debug_logits``, logits
-    [T, B, n_quant] f32."""
-    mode = _norm_wq(quantized)
+    [T, B, n_out] f32.  With a mixture output (``cfg.n_mix``) prev_id, the
+    ids and last_id are samples in [-1, 1], f32 (:func:`mol_draw`)."""
+    mode = _mode_for(cfg, quantized)
     _check_mode(packed, mode)
     generate_fused_reference.launches += 1
     bf16 = torch.bfloat16
     batch, _, t_len = cond.shape
     offs, _ = flat_buffers(cfg)
     n_res, n_dil = cfg.n_res, cfg.n_dil
-    if mode is None:
+    wq = _WEIGHTS[mode]
+    if wq is None:
         w_in, w_out = packed.w_in.float(), packed.w_out.float()
     else:
-        q_in, q_out = _int_planes(packed, mode)
-    embed = packed.embed.float()
+        q_in, q_out = _int_planes(packed, wq)
+    embed = packed.in0 if cfg.n_mix else packed.embed.float()
     p1w, p2w = packed.post1_w.float(), packed.post2_w.float()
     cond_tm = cond.permute(2, 0, 1).to(bf16)
     rows = torch.arange(batch, device=flat.device)
-    prev = prev_id.long()
-    ids = torch.empty(batch, t_len, dtype=torch.int32, device=flat.device)
+    prev = prev_id.float() if cfg.n_mix else prev_id.long()
+    ids = torch.empty(batch, t_len, device=flat.device,
+                      dtype=torch.float32 if cfg.n_mix else torch.int32)
     all_logits = []
     for t in range(t_len):
         t_abs = t0 + t
-        x = embed[prev]
+        x = prev[:, None] * embed[0] + embed[1] if cfg.n_mix else embed[prev]
         skip = torch.zeros(batch, cfg.n_skp, device=flat.device)
         for l, d in enumerate(cfg.dilations):
             slot = offs[l] + t_abs % d
             xb = x.to(bf16)
             xin = torch.cat([flat[slot], xb, cond_tm[t]], 1).float()
             flat[slot] = xb  # read (above), then write
-            if mode is None:
+            if wq is None:
                 y = torch.addmm(packed.b_in[l], xin, w_in[l])
                 h = torch.tanh(y[:, :n_dil]) * torch.sigmoid(y[:, n_dil:])
                 rs = torch.addmm(packed.b_out[l], h.to(bf16).float(), w_out[l])
@@ -388,6 +470,11 @@ def generate_fused_reference(packed, cfg: WaveNetConfig,
         logits = torch.addmm(packed.post2_b, h, p2w)
         if debug_logits:
             all_logits.append(logits)
+        if cfg.n_mix:
+            prev = mol_draw(logits, cfg.n_mix, cfg.log_scale_min, seed, rows, t_abs,
+                            temperature)
+            ids[:, t] = prev
+            continue
         scores = logits
         if temperature > 0.0:
             scores = logits * (1.0 / temperature) + gumbel_noise(
@@ -435,7 +522,9 @@ class SharePlan:
     layer's filter, gate, res and skip columns.  The post-net and the first
     ``resident_layers`` layers (``resident_bytes`` at most, over the blocks)
     are copied into the block's shared memory at the start of a launch; the
-    rest stay in global memory and are read through L2 each step."""
+    rest stay in global memory and are read through L2 each step
+    (:attr:`streamed_bytes`).  ``n_quant`` is the post-net's output width:
+    the classes, or 3 * n_mix mixture parameters."""
 
     n_blocks: int
     n_layers: int
@@ -471,11 +560,18 @@ class SharePlan:
         return sum(self.n_cols(n, r) * self.col_bytes[n]
                    for n in ("filter", "gate", "res", "skip"))
 
+    @property
+    def streamed_bytes(self) -> int:
+        """Bytes of the non-resident layers' shares, over every block: what a
+        generated step reads of the weights through L2."""
+        return sum((self.n_layers - self.resident_layers) * self.layer_bytes(r)
+                   for r in range(self.n_blocks))
+
 
 @functools.lru_cache(maxsize=64)
 def share_plan(n_res: int, n_dil: int, n_skp: int, n_post: int, n_quant: int,
                n_cond: int, n_layers: int, mode: str | None, n_sms: int,
-               smem_capacity: int) -> SharePlan:
+               smem_capacity: int, n_mix: int = 0) -> SharePlan:
     """The sampler grid's split of the weights on a card with ``n_sms`` SMs
     and ``smem_capacity`` bytes of shared memory per block (232,448 on an
     H100).  The block count is the largest count up to ``n_sms`` that
@@ -483,7 +579,10 @@ def share_plan(n_res: int, n_dil: int, n_skp: int, n_post: int, n_quant: int,
     otherwise ``n_sms`` blocks split each width as evenly as integers allow
     (some may own no column of a matrix).  Raises ``ValueError`` where no
     block can hold the post-net's share, the biases and the partial sums.
-    A pure function of its arguments, kept for the next call with them."""
+    ``n_quant`` is the post-net's output width; with ``n_mix`` (a mixture
+    output, n_quant = 3 n_mix) a block keeps its columns of the rank-1 input
+    map (f32) in place of the embedding's.  A pure function of its
+    arguments, kept for the next call with them."""
     mode = _norm_wq(mode)
     widths = (n_res, n_dil, n_skp, n_post, n_quant)
     if min(widths + (n_cond + 1, n_layers, n_sms)) < 1:
@@ -510,12 +609,14 @@ def share_plan(n_res: int, n_dil: int, n_skp: int, n_post: int, n_quant: int,
                      plan.n_cols("post2", r)) for r in rs)
     part_units = widest + 1  # and the int4 zero-point correction
     # the own columns' biases and scales of every layer (f32), the
-    # post-net's biases, the embedding's own columns (bf16)
+    # post-net's biases, the embedding's own columns (bf16; a mixture
+    # output: the input map's w_in0 and b_in0, f32)
+    emb_rows = 2 * 4 if n_mix else 2 * n_quant
     aux_bytes = max(_r16(4 * (2 * n_layers * (2 * plan.n_cols("filter", r)
                                               + plan.n_cols("res", r)
                                               + plan.n_cols("skip", r))
                               + plan.n_cols("post1", r) + plan.n_cols("post2", r))
-                         + 2 * n_quant * plan.n_cols("res", r)) for r in rs)
+                         + emb_rows * plan.n_cols("res", r)) for r in rs)
     # those, partial sums and scores ([64 rows, part_units] f32 each), misc,
     # and the block's own columns of x and skip (when B rows of them fit)
     act = aux_bytes + 2 * _PASS_ROWS * part_units * 4 + _MISC_SMEM + _OWN_SMEM
@@ -539,9 +640,9 @@ def share_plan(n_res: int, n_dil: int, n_skp: int, n_post: int, n_quant: int,
 
 
 def plan_for(cfg: WaveNetConfig, mode, n_sms: int, smem_capacity: int) -> SharePlan:
-    return share_plan(cfg.n_res, cfg.n_dil, cfg.n_skp, cfg.n_post, cfg.n_quant,
+    return share_plan(cfg.n_res, cfg.n_dil, cfg.n_skp, cfg.n_post, cfg.n_out,
                       cfg.n_lc_out + cfg.n_global_embed, len(cfg.dilations), mode,
-                      n_sms, smem_capacity)
+                      n_sms, smem_capacity, cfg.n_mix)
 
 
 def _columns(w: torch.Tensor, col_bytes: int) -> torch.Tensor:
@@ -561,7 +662,7 @@ def pack_shares(packed, plan: SharePlan) -> torch.Tensor:
     One gather of 64-byte units (every column's bytes are whole units):
     each row is a run of segments, each a block's columns of one matrix
     (contiguous in the source), then zeros to the stride."""
-    if isinstance(packed, KernelParams):
+    if isinstance(packed, (KernelParams, MolKernelParams)):
         w_in, w_out = packed.w_in, packed.w_out
     elif isinstance(packed, Int8KernelParams):
         w_in, w_out = unpack_int8(packed.w_in_q), unpack_int8(packed.w_out_q)
@@ -620,7 +721,7 @@ def _check_cuda_args(packed, mode: str | None, cfg: WaveNetConfig,
     batch = cond.shape[0]
     xin, n_gate, n_out = 2 * cfg.n_res + n_cond, 2 * cfg.n_dil, cfg.n_res + cfg.n_skp
     f32, bf16, i8 = torch.float32, torch.bfloat16, torch.int8
-    if mode is None:
+    if _WEIGHTS[mode] is None:
         want = {"w_in": ((n_layers, xin, n_gate), bf16),
                 "w_out": ((n_layers, cfg.n_dil, n_out), bf16)}
     else:
@@ -633,11 +734,12 @@ def _check_cuda_args(packed, mode: str | None, cfg: WaveNetConfig,
     want.update({
         "b_in": ((n_layers, n_gate), f32),
         "b_out": ((n_layers, n_out), f32),
-        "embed": ((cfg.n_quant, cfg.n_res), bf16),
+        **({"in0": ((2, cfg.n_res), f32)} if cfg.n_mix
+           else {"embed": ((cfg.n_quant, cfg.n_res), bf16)}),
         "post1_w": ((cfg.n_skp, cfg.n_post), bf16),
         "post1_b": ((cfg.n_post,), f32),
-        "post2_w": ((cfg.n_post, cfg.n_quant), bf16),
-        "post2_b": ((cfg.n_quant,), f32),
+        "post2_w": ((cfg.n_post, cfg.n_out), bf16),
+        "post2_b": ((cfg.n_out,), f32),
     })
     tensors = dict(packed._asdict(), flat=flat, prev_id=prev_id, cond=cond)
     want.update(flat=((sum(cfg.dilations), batch, cfg.n_res), bf16),
@@ -657,6 +759,13 @@ def _check_cuda_args(packed, mode: str | None, cfg: WaveNetConfig,
         raise ValueError(f"{n_layers} layers; the kernel takes at most {_MAX_LAYERS}")
     if cfg.filter_sz != 2:
         raise ValueError("the sampler's two-tap cell needs filter_sz == 2")
+    if cfg.n_mix:
+        if not 0 < cfg.n_mix <= _MAX_MIX:
+            raise ValueError(f"n_mix={cfg.n_mix}: the kernel takes 1 to {_MAX_MIX} "
+                             "components (one lane each)")
+        if prev_id.dtype != f32:
+            raise ValueError(f"prev_id: {prev_id.dtype}, a mixture output takes f32 samples")
+        return
     lo, hi = int(prev_id.min()), int(prev_id.max())
     if lo < 0 or hi >= cfg.n_quant:
         raise ValueError(f"prev_id out of [0, {cfg.n_quant}): [{lo}, {hi}]")
@@ -685,7 +794,7 @@ def device_plan(cfg: WaveNetConfig, quantized, device) -> SharePlan:
     """:func:`share_plan` for ``cfg`` on the CUDA ``device``."""
     device = torch.device(device)
     index = torch.cuda.current_device() if device.index is None else device.index
-    return plan_for(cfg, _norm_wq(quantized), *_device_caps(index))
+    return plan_for(cfg, _WEIGHTS[_mode_for(cfg, quantized)], *_device_caps(index))
 
 
 def generate_fused(packed, cfg: WaveNetConfig,
@@ -694,7 +803,8 @@ def generate_fused(packed, cfg: WaveNetConfig,
                    debug_logits: bool = False, quantized=False,
                    clocks: torch.Tensor | None = None):
     """T autoregressive steps -> (ids [B, T] int32, flat, last_id [B] int32
-    [, logits [T, B, n_quant] f32]).
+    [, logits [T, B, n_out] f32]); with a mixture output (``cfg.n_mix``)
+    prev_id, the ids and last_id are f32 samples in [-1, 1].
 
     flat [sum_d, B, n_res] bf16 (:func:`state_to_flat`) is the ring state,
     updated in place; t0 is its phase; cond [B, n_cond, T] already carries
@@ -711,7 +821,7 @@ def generate_fused(packed, cfg: WaveNetConfig,
                          f"{cond.shape[-1]} steps")
     if not 0.0 <= temperature < math.inf:
         raise ValueError(f"temperature must be finite and >= 0, got {temperature}")
-    mode = _norm_wq(quantized)
+    mode = _mode_for(cfg, quantized)
     _check_mode(packed, mode)
     seed = int(seed) & 0x7FFFFFFF  # the kernel takes a 31-bit seed
     if flat.device.type == "cpu":
@@ -729,17 +839,18 @@ def generate_fused(packed, cfg: WaveNetConfig,
     share = pack_shares(packed, plan)
     g, f32, bf16, i32 = plan.n_blocks, torch.float32, torch.bfloat16, torch.int32
     cond_tm = cond.permute(2, 0, 1).to(bf16).contiguous()
-    prev = prev_id.to(i32).contiguous()
-    ids = torch.empty(batch, t_len, dtype=i32, device=dev)
-    last = torch.empty(batch, dtype=i32, device=dev)
-    logits = (torch.empty(t_len, batch, cfg.n_quant, device=dev)
+    out_t = f32 if cfg.n_mix else i32  # the samples, or the ids
+    prev = prev_id.to(out_t).contiguous()
+    ids = torch.empty(batch, t_len, dtype=out_t, device=dev)
+    last = torch.empty(batch, dtype=out_t, device=dev)
+    logits = (torch.empty(t_len, batch, cfg.n_out, device=dev)
               if debug_logits else None)
     # scratch: the barrier's arrival count (zeroed), the exchanged
-    # activations, the argmax candidates, each block's x and skip columns
-    # and its published maxima (quantized)
+    # activations, the argmax candidates, each block's x and skip columns,
+    # its published maxima (quantized) and the mixture parameters
     scratch = [torch.zeros(2, dtype=torch.int64, device=dev),
                torch.empty(batch, 2 * cfg.n_res, dtype=bf16, device=dev),
-               torch.empty(batch, cfg.n_dil, dtype=bf16 if mode is None else f32,
+               torch.empty(batch, cfg.n_dil, dtype=bf16 if _WEIGHTS[mode] is None else f32,
                            device=dev),
                torch.empty(batch, cfg.n_skp, dtype=bf16, device=dev),
                torch.empty(batch, cfg.n_post, dtype=bf16, device=dev),
@@ -749,25 +860,29 @@ def generate_fused(packed, cfg: WaveNetConfig,
                torch.empty(batch, cfg.n_skp, dtype=f32, device=dev),
                torch.empty(g, dtype=f32, device=dev),
                torch.empty(g, dtype=f32, device=dev)]
-    scales = ((packed.w_in_s, packed.w_out_s) if mode is not None else (None, None))
-    ptrs = [share, scales[0], packed.b_in, scales[1], packed.b_out, packed.embed,
-            packed.post1_b, packed.post2_b, cond_tm, prev, flat, ids, last, logits,
-            *scratch, clocks]
+    mix = torch.empty(batch, cfg.n_out, dtype=f32, device=dev) if cfg.n_mix else None
+    scales = ((packed.w_in_s, packed.w_out_s) if _WEIGHTS[mode] else (None, None))
+    # the ids' pointers, or a mixture output's in their place
+    ids_io = (None, None, None, None) if cfg.n_mix else (packed.embed, prev, ids, last)
+    mol_io = (packed.in0, prev, ids, last) if cfg.n_mix else (None, None, None, None)
+    ptrs = [share, scales[0], packed.b_in, scales[1], packed.b_out, ids_io[0],
+            packed.post1_b, packed.post2_b, cond_tm, ids_io[1], flat, ids_io[2], ids_io[3],
+            logits, *scratch, clocks, mix, *mol_io]
     ptrs_c = (ctypes.c_uint64 * len(ptrs))(
         *(0 if v is None else v.data_ptr() for v in ptrs))
     offs, _ = flat_buffers(cfg)
     cb = plan.col_bytes
     greedy = temperature == 0.0
     ints = [batch, t_len, len(offs), cfg.n_res, cfg.n_dil, cfg.n_skp, cfg.n_post,
-            cfg.n_quant, n_cond, int(t0), seed, int(greedy), g,
+            cfg.n_out, n_cond, int(t0), seed, int(greedy), g,
             plan.resident_layers, plan.stride, plan.part_units, plan.smem_bytes, cb["filter"], cb["res"], cb["post1"], cb["post2"],
-            plan.resident_bytes, plan.aux_bytes, *offs, *cfg.dilations]
+            plan.resident_bytes, plan.aux_bytes, cfg.n_mix, *offs, *cfg.dilations]
     ints_c = (ctypes.c_int * len(ints))(*ints)
     max_blocks = ctypes.c_int(-1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.awt_fastgen(_MODES[mode], ptrs_c, ints_c,
-                             0.0 if greedy else 1.0 / temperature,
+                             0.0 if greedy else 1.0 / temperature, cfg.log_scale_min,
                              ctypes.byref(max_blocks), stream)
     if rc != 0:
         if 0 <= max_blocks.value < g:
@@ -776,20 +891,20 @@ def generate_fused(packed, cfg: WaveNetConfig,
                 f"of {plan.smem_bytes} bytes of shared memory resident at once; "
                 f"the card holds {max_blocks.value} (is another kernel running?)")
         raise _cuda_error(lib, rc, f"fastgen {mode or 'bf16'} kernel launch")
-    if mode is None:
-        generate_fused.launches += 1
-    elif mode == "int8":
-        generate_fused.launches_int8 += 1
-    else:
-        generate_fused.launches_int4 += 1
+    generate_fused.resident_layers = plan.resident_layers
+    generate_fused.streamed_bytes += plan.streamed_bytes * t_len
+    for name in _COUNTERS[mode]:
+        setattr(generate_fused, name, getattr(generate_fused, name) + 1)
     out = (ids, flat, last)
     return out + (logits,) if debug_logits else out
 
 
-_MODES = {None: 0, "int8": 1, "int4": 2}  # csrc/fastgen.cu Mode
 generate_fused.launches = 0
 generate_fused.launches_int8 = 0
 generate_fused.launches_int4 = 0
+generate_fused.mol_launches = 0
+generate_fused.resident_layers = 0
+generate_fused.streamed_bytes = 0
 
 
 @torch.no_grad()
@@ -801,8 +916,9 @@ def generate_auto(wavenet: WaveNet, cfg: WaveNetConfig, state: GenState,
     sampler: bf16 weights, or int8 / int4 with ``quantized`` (True/'int8',
     'int4').  cond: [B, n_lc_out, T] without the speaker embedding.  The
     kernel's seed is drawn from ``generator``.  Returns (ids [B, T] int32,
-    new GenState)."""
-    mode = _norm_wq(quantized)
+    new GenState); with a mixture output (bf16 only) f32 samples [B, T] in
+    place of the ids."""
+    mode = _mode_for(cfg, quantized)
     with span("sampler.pack"):
         packed = PACKERS[mode](wavenet, cfg)
         flat = state_to_flat(state, cfg)

@@ -60,6 +60,7 @@ from typing import Callable, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ae_wavenet_tpu_torch.models.wavenet import embed_input
 from ae_wavenet_tpu_torch.ops.fastgen import with_gc
 from ae_wavenet_tpu_torch.utils.config import WaveNetConfig
 
@@ -537,8 +538,9 @@ def stack_apply(wavenet, cfg: WaveNetConfig, x_ids: torch.Tensor,
                 full_fusion: bool | None = None,
                 bwd_group: int | None = None) -> torch.Tensor:
     """The fused counterpart of ``models/wavenet.apply`` (bf16):
-    x_ids [B, T_in], cond [B, n_lc_out, T_in] -> logits [B, n_quant, T_out]
-    ([B, T_out, n_quant] with ``btq``).
+    x_ids [B, T_in] (ids, or samples with ``cfg.n_mix``), cond
+    [B, n_lc_out, T_in] -> logits [B, n_out, T_out] ([B, T_out, n_out] with
+    ``btq``).
 
     ``ops`` defaults to :func:`kernel_ops`; ``save_y``, ``fuse_pairs``,
     ``full_fusion`` and ``bwd_group`` default to the config's ``gated_*``
@@ -550,7 +552,7 @@ def stack_apply(wavenet, cfg: WaveNetConfig, x_ids: torch.Tensor,
     dils = stack_dils(cfg)
     t_in = x_ids.shape[-1]
     t_out = t_in - sum(dils)
-    x0 = wavenet.embed[x_ids].to(BF16)
+    x0 = embed_input(wavenet, x_ids).to(BF16)
     cond_tm = with_gc(wavenet, cfg, cond, gc_ids).permute(0, 2, 1).to(BF16)
     sched = Schedule(dils, cfg.gated_save_y if save_y is None else save_y,
                      cfg.gated_fuse_pairs if fuse_pairs is None else fuse_pairs,

@@ -5,13 +5,19 @@ Same fields, defaults, presets and JSON format as ``ae_wavenet_tpu.utils
 config serialized by either package loads in the other.  The reference
 module cannot be imported here: it reaches jax through ``audio.mfcc``.
 Kernel knobs of the TPU package (``gated_*``, ``fastgen_vmem_dil_max``)
-stay in the schema for round trips; the port reads none of them.
+stay in the schema for round trips; the port reads none of them.  The
+port's own keys (:data:`PORT_KEYS`: the mixture-of-logistics output) are
+written only where they differ from their defaults, so every configuration
+the reference can express reads and writes as the reference's JSON.
+``SpecConfig.n_mfcc = 0`` asks for log-mel conditioning (the bands alone),
+a value the reference's schema holds and its frontend does not read so.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 from typing import Tuple
 
 from ae_wavenet_tpu_torch.geometry.vconv import Chain, Conv
@@ -34,15 +40,26 @@ class SpecConfig:
     # whole dataset at Chassis init and persisted in the checkpointed
     # config — train and generation then normalize IDENTICALLY.
     norm: str = "window"
-    stats_mean: Tuple[float, ...] = ()   # per-channel, len 3*n_mfcc
+    stats_mean: Tuple[float, ...] = ()   # per-channel, len n_out_channels
     stats_var: Tuple[float, ...] = ()
 
     @property
+    def log_mel(self) -> bool:
+        """n_mfcc = 0 (the port's own reading): no cepstra, so the frames are
+        the n_mels log-mel bands alone, with no DCT and no deltas."""
+        return self.n_mfcc == 0
+
+    @property
     def n_out_channels(self) -> int:
+        if self.log_mel:
+            return self.n_mels
         return 3 * self.n_mfcc  # mfcc + delta + delta-delta
 
     def geometry(self) -> Chain:
-        """wav -> aligned 39-ch frame lattice (valid frames only)."""
+        """wav -> aligned frame lattice (valid frames only): the 39-channel
+        MFCC stack's, or with :attr:`log_mel` the STFT frames'."""
+        if self.log_mel:
+            return Chain([Conv(self.win_sz, stride=self.hop_sz, name="stft_frame")])
         dw = 2 * self.delta_wing + 1
         return Chain(
             [
@@ -169,6 +186,13 @@ class WaveNetConfig:
                                      # schedule
     fastgen_vmem_dil_max: int = 16  # AR sampler: ring buffers with dilation
                                     # <= this stay VMEM-resident
+    # --- the port's own: the output distribution ---
+    n_mix: int = 0            # 0: softmax over n_quant mu-law classes; > 0:
+                              # a mixture of n_mix logistics over n_quant
+                              # linear levels (65,536: 16-bit), the input a
+                              # sample in [-1, 1] and the post-net's output
+                              # 3 * n_mix values [logits | means | log_scales]
+    log_scale_min: float = math.log(1e-14)  # floor of the log-scales
 
     def __post_init__(self):
         # validated at construction so a bad --gated-bwd-tile raises here
@@ -185,6 +209,12 @@ class WaveNetConfig:
         return tuple(
             2**i for _ in range(self.n_blocks) for i in range(self.n_block_layers)
         )
+
+    @property
+    def n_out(self) -> int:
+        """The post-net's output width: n_quant logits, or 3 * n_mix
+        mixture parameters."""
+        return 3 * self.n_mix if self.n_mix else self.n_quant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -245,8 +275,19 @@ class RunConfig:
     model_kind: str = "autoencoder"  # 'autoencoder' | 'mfcc_inverter'
 
 
+#: keys the reference's schema lacks, by group, with their defaults
+PORT_KEYS = {"wavenet": {"n_mix": 0, "log_scale_min": math.log(1e-14)}}
+
+
 def _to_dict(cfg) -> dict:
-    return dataclasses.asdict(cfg)
+    """The config as the reference writes it, plus each of
+    :data:`PORT_KEYS` that differs from its default."""
+    d = dataclasses.asdict(cfg)
+    for group, keys in PORT_KEYS.items():
+        for k, default in keys.items():
+            if d[group][k] == default:
+                del d[group][k]
+    return d
 
 
 def to_json(cfg: RunConfig) -> str:

@@ -10,7 +10,8 @@ model's own VALID-window arithmetic.
 
 For the autoencoder the counts equal the reference's, integer for
 integer.  For the MFCC inverter the count is the inverter's own graph:
-the frontend, the upsampler from ``3 * n_mfcc`` channels, the decoder.
+the frontend, the upsampler from ``3 * n_mfcc`` channels (``n_mels`` with
+log-mel conditioning, which has no DCT), the decoder.
 (The reference charges the inverter the autoencoder's encoder, bottleneck
 and an upsampler from ``n_lc_in`` channels: a quirk not copied.)
 """
@@ -84,11 +85,11 @@ def forward_flops(cfg: RunConfig, spec: WindowSpec) -> dict:
     f0 = (spec.fe - spec.fb - sp.win_sz) // sp.hop_sz + 1
     n_bins = sp.n_fft // 2 + 1
     out["mfcc"] = (2 * _mm(f0, n_bins, sp.win_sz) + _mm(f0, sp.n_mels, n_bins)
-                   + _mm(f0, sp.n_mfcc, sp.n_mels))
+                   + (0 if sp.log_mel else _mm(f0, sp.n_mfcc, sp.n_mels)))
 
     if cfg.model_kind == "mfcc_inverter":
         out["encoder"] = out["bottleneck"] = out["aux_frame"] = 0
-        t_up, cin = spec.n_frames, 3 * sp.n_mfcc
+        t_up, cin = spec.n_frames, sp.n_out_channels
     else:
         out["encoder"], tz = _encoder(cfg, spec.n_frames)
         # the VQ distance matrix is the bottleneck's only GEMM
@@ -119,7 +120,7 @@ def forward_flops(cfg: RunConfig, spec: WindowSpec) -> dict:
         d += _mm(t_l, wn.n_res, wn.n_dil)              # w_res
         d += _mm(t_out, wn.n_skp, wn.n_dil)            # w_skip
     d += _mm(t_out, wn.n_post, wn.n_skp)               # post1
-    d += _mm(t_out, wn.n_quant, wn.n_post)             # post2
+    d += _mm(t_out, wn.n_out, wn.n_post)               # post2
     out["decoder"] = d
 
     out["total"] = sum(out.values())

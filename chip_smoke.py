@@ -51,7 +51,18 @@ power limit:
    within 1e-5), and the f32 rollout (``ops/fastgen``, a CUDA graph)
    against the same step in the eager loop: 256 rollout steps' ids and
    logits at temperature 0 and 1, bit for bit, each path's seconds
-   (``serve_graph``);
+   (``serve_graph``); then the mixture-of-logistics sampler
+   (``fastgen_kernel<3>``) at the published widths of
+   ``benchmark/configs/wavenet_mol_24k.json`` and its cell's B = 64, 18 of
+   30 layers resident and 12 streamed through L2, on a primed ring
+   (``phase_mol``): at T = 0 and 1 its samples are ``mol_draw`` of its own
+   mixture, and against the plain version run step by step on the kernel's
+   samples the mixture is within MOL_PARAM_TOL, the two pick one component
+   but where two scores nearly tie, and there the samples agree within
+   MOL_SAMPLE_TOL; a streamed layer's shares zeroed (the first
+   and the last) and the tail's mean taken from the next component are
+   rejected; ``mol_launches`` and ``streamed_bytes`` of the two checked
+   launches; its time a step beside its bound;
 6. train-kernels: the six gated-stack kernels (``csrc/gated.cu``: one
    layer, a pair, the whole stack forward; one layer in both modes, a pair,
    a group of layers backward; all on the Hopper core) against their plain
@@ -188,6 +199,9 @@ builds the kernels and runs ``--mesh`` over every card on NCCL (new 3 +
 resume 1 steps, the first step against one card at the same global
 batch) and the halo stack over the cards.
 
+``python3 chip_smoke.py --mol`` builds the kernels and runs only the
+mixture-of-logistics sampler's checks of phase 5.
+
 ``python3 chip_smoke.py --serve-times`` builds the kernels and only times
 the serving path (the CLI's B = 1 request twice, ``reconstruct`` at B =
 64, ``bench_gen`` at B = 64), with no checks: run from an unpacked older
@@ -205,7 +219,8 @@ the VQ lookup (phase 4's numbers) and the single-layer backward's recompute
 mode (phase 6's), with no checks: run from an unpacked older commit with
 this file beside it, it times that commit's kernels in the same call.
 
-Then one JSON line describing the ten kernels (each with its launches on
+Then one JSON line describing the ten kernels and the mixture-of-logistics
+sampler, which replaces no TPU kernel (each with its launches on
 its paths, phases 9 to 14 included, its error against the plain version,
 its time beside the plain version's and the card's bound for the same
 work; the single-layer
@@ -246,6 +261,19 @@ BATCH = 64              # batched request
 GRAPH_T = 256           # rollout steps of the graph-against-eager check
 GRAPH_RTOL = 1e-6       # its fallback where the bits differ (the cause printed)
 PRIME_TOL = 1e-5        # rtol = atol of prime's one pass against the exact rings
+MOL_CONFIG = "benchmark/configs/wavenet_mol_24k.json"  # the MoL cell's published widths
+MOL_B, MOL_T = 64, 64   # the MoL cell's batch; steps of the kernel-against-plain check
+MOL_TIMED_T = 512       # steps a timed MoL launch
+MOL_SAMPLE_TOL = 0.01   # kernel and plain samples where they pick one component
+MOL_PARAM_TOL = 0.02    # mixture parameters, of each group's max|.| (logits, means, scales)
+MOL_TIE_TOL = 0.02      # picks may differ only where two scores nearly tie (of max|logits|)
+MOL_TAIL_TOL = 1e-5     # the kernel's samples against mol_draw of its own mixture
+# the seeded post-net's last product rescaled so that the mixture is
+# informative, as a trained vocoder's is (``benchmark/loops/vocode_mol``):
+# the spread of the logits, the means and the log-scales over the batch's
+# first step; each component's mean centred on its point of [-0.6, 0.6],
+# each log-scale on -3
+MOL_MIX_STD, MOL_MEAN_SPREAD, MOL_LOG_SCALE_CENTRE = (1.5, 0.1, 0.2), 0.6, -3.0
 SERVE_TIMES_STEPS = 512  # bench_gen's steps in --serve-times
 Q_BIG_BATCH = 136       # past the earlier cluster design's 120-row bound
 # ms per generated step of the earlier (cluster) design at B = 1 / 8 / 64,
@@ -436,7 +464,7 @@ def sampler_bound(packed, wcfg, plan, batch: int, mode) -> tuple[float, str]:
     t_mem = (streamed + batch * per_row) / HBM_BYTES_PER_S
     layer_ops = 2 * batch * n_layers * ((2 * wcfg.n_res + n_cond) * 2 * wcfg.n_dil
                                         + wcfg.n_dil * (wcfg.n_res + wcfg.n_skp))
-    post_ops = 2 * batch * (wcfg.n_skp * wcfg.n_post + wcfg.n_post * wcfg.n_quant)
+    post_ops = 2 * batch * (wcfg.n_skp * wcfg.n_post + wcfg.n_post * wcfg.n_out)
     ops = {"bf16": post_ops, "int8": layer_ops} if mode else {"bf16": layer_ops + post_ops}
     t_ops = sum(n / PEAK[kind] for kind, n in ops.items())
     t_bytes = max(t_smem, t_mem)
@@ -545,7 +573,8 @@ def phase_build(card: str) -> None:
     check(set(HOPPER_KERNELS) <= set(hopper),
           f"ptxas report lists the Hopper kernels {hopper}, not all of {HOPPER_KERNELS}")
     sampler = [k for k in kernels if k.startswith("fastgen_kernel")]
-    check(len(sampler) == 3, f"ptxas report lists the sampler kernels {sampler}")
+    check(len(sampler) == 4, f"ptxas report lists the sampler kernels {sampler} (bf16, "
+          f"int8, int4 and the mixture-of-logistics tail)")
     # one tile core: the first (WMMA) core's kernel and header are gone
     src = (_build.CSRC / "gated.cu").read_text()
     check(not [k for k in kernels if k.startswith("gated_bwd_recompute")]
@@ -910,6 +939,236 @@ def _check_quantized(card: str, dev, fc, wcfg, mode: str, packs: dict,
               f"shortest prefix {min(agree_f)}, logits {rel_f:.4g} of max|logits|: "
               f"rejected | {card}")
     return worst
+
+
+def phase_mol(card: str, dev) -> dict:
+    with f32_numerics():
+        return _phase_mol(card, dev)
+
+
+def _mol_pick(fc, mix, n_mix: int, seed: int, rows, t_abs: int, temperature: float):
+    """Each row's component scores [R, K] at step t_abs (the logits over the
+    temperature plus the kernel's Gumbel draws, or the logits at 0) and the
+    component drawn [R]."""
+    sc = mix[:, :n_mix]
+    if temperature > 0.0:
+        sc = sc * (1.0 / temperature) + fc.gumbel_noise(seed, rows, t_abs, n_mix)
+    return sc, sc.argmax(1)
+
+
+def mol_teacher(fc, packed, cfg, flat, prev, t0: int, cond, seed: int,
+                temperature: float, x):
+    """The plain version step by step on the kernel's samples x [B, T] (its
+    ring follows the kernel's inputs): its mixture [T, B, 3K] and its own
+    draw [B, T] at each step."""
+    import torch
+
+    ring, mixes, draws = flat.clone(), [], []
+    for t in range(x.shape[1]):
+        d, ring, _, m = fc.generate_fused_reference(packed, cfg, ring, prev, t0 + t,
+                                                    cond[..., t:t + 1], seed, temperature,
+                                                    True)
+        mixes.append(m[0])
+        draws.append(d[:, 0])
+        prev = x[:, t]
+    return torch.stack(mixes), torch.stack(draws, 1)
+
+
+def mol_compare(fc, cfg, seed: int, t0: int, temperature: float, got, want) -> dict:
+    """The kernel's samples and mixture (``got``: samples [B, T], mix [T, B,
+    3K]) against the plain version's on the same inputs (``want``, from
+    :func:`mol_teacher`), step by step: the largest mixture difference of
+    each group (logits, means, log-scales) over that group's largest
+    magnitude ("param"); where the two pick different components, the plain
+    version's score gap between its pick and the kernel's over the largest
+    logit's magnitude ("gap": temperatures up to 1 scale the logits' errors
+    by at most that) and how many row-steps ("parted"); where they pick the
+    same, the largest sample difference ("value")."""
+    import torch
+
+    k = cfg.n_mix
+    (x_a, mix_a), (x_b, mix_b) = got, want
+    rows = torch.arange(x_a.shape[0], device=x_a.device)
+    param = max(float((mix_a[..., g * k:(g + 1) * k] - mix_b[..., g * k:(g + 1) * k])
+                      .abs().max()) / float(mix_b[..., g * k:(g + 1) * k].abs().max())
+                for g in range(3))
+    gap, parted, value = 0.0, 0, 0.0
+    logit_max = float(mix_b[..., :k].abs().max())
+    for t in range(x_a.shape[1]):
+        sc_b, k_b = _mol_pick(fc, mix_b[t], k, seed, rows, t0 + t, temperature)
+        _, k_a = _mol_pick(fc, mix_a[t], k, seed, rows, t0 + t, temperature)
+        same = k_a == k_b
+        gaps = sc_b.gather(1, k_b[:, None]) - sc_b.gather(1, k_a[:, None])
+        gap = max(gap, float(gaps.max()) / logit_max)
+        parted += int((~same).sum())
+        value = max(value, float(torch.where(same, (x_a[:, t] - x_b[:, t]).abs(), 0.0).max()))
+    return {"param": param, "gap": gap, "parted": parted, "value": value}
+
+
+def mol_passes(c: dict) -> bool:
+    """The mixture parameters agree, the picks differ only at near-ties,
+    and the samples agree where the picks do."""
+    return (c["param"] < MOL_PARAM_TOL and c["gap"] <= MOL_TIE_TOL
+            and c["value"] <= MOL_SAMPLE_TOL)
+
+
+def _phase_mol(card: str, dev) -> dict:
+    """The mixture-of-logistics sampler (``fastgen_kernel<3>``) at the MoL
+    cell's published widths and batch: 30 layers at 512, 18 resident and 12
+    streamed through L2, B = 64 on a primed ring; held to its plain version
+    at T = 0 and 1, its samples to ``mol_draw`` of its own mixture, planted
+    faults (a streamed layer's shares zeroed in the kernel, the tail's mean
+    taken from the next component in the plain version) rejected; the
+    counters of the two checked launches; the time a step beside its bound.
+    The plain version is run step by step on the kernel's own samples
+    (:func:`mol_teacher`), so that the two compare on the same inputs
+    however far a sampled trajectory drifts."""
+    import torch
+
+    from ae_wavenet_tpu_torch.models import wavenet as twn
+    from ae_wavenet_tpu_torch.ops import fastgen as fg
+    from ae_wavenet_tpu_torch.ops import fastgen_cuda as fc
+    from ae_wavenet_tpu_torch.utils import config as tcfg
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), MOL_CONFIG)) as f:
+        cfg = tcfg.from_json(f.read()).wavenet
+    k, n_layers = cfg.n_mix, len(cfg.dilations)
+    plan = fc.device_plan(cfg, None, dev)
+    check(cfg.n_mix == 10 and n_layers == 30 and cfg.n_res == 512
+          and plan.resident_layers == 18,
+          f"the MoL cell's plan keeps {plan.resident_layers} of {n_layers} layers resident")
+    print(f"[mol] share plan: {plan.n_blocks} blocks, {plan.resident_layers} of {n_layers} "
+          f"layers resident, {plan.streamed_bytes} B of layer shares streamed a step, "
+          f"{plan.smem_bytes} B of shared memory | {card}")
+    gen = torch.Generator().manual_seed(20)
+    wn = twn.WaveNet(cfg, gen).to(dev)
+    rf = sum(cfg.dilations)
+    ctx = (torch.rand(MOL_B, rf + 1, generator=gen) * 1.2 - 0.6).to(dev)
+    c_ctx = (torch.randn(MOL_B, cfg.n_lc_out, rf, generator=gen) * 0.3).to(dev)
+    t0 = time.perf_counter()
+    st = fg.prime(wn, cfg, fg.init_state(cfg, MOL_B, device=dev), ctx, c_ctx)
+    torch.cuda.synchronize()
+    print(f"[mol] primed B={MOL_B} on {rf + 1} context samples in "
+          f"{time.perf_counter() - t0:.2f} s | {card}")
+    flat, prev, t_ring = fc.state_to_flat(st, cfg), st.prev_id, st.t
+    cond = (torch.randn(MOL_B, cfg.n_lc_out, MOL_TIMED_T, generator=gen) * 0.3).to(dev)
+    # the post-net's last product rescaled over the first step's mixture
+    mix0 = fc.generate_fused_reference(fc.pack_for_kernel(wn, cfg), cfg, flat.clone(), prev,
+                                       t_ring, cond[..., :1], 0, 0.0, True)[3][0]
+    centres = (None, torch.linspace(-MOL_MEAN_SPREAD, MOL_MEAN_SPREAD, k, device=dev),
+               torch.full((k,), MOL_LOG_SCALE_CENTRE, device=dev))
+    with torch.no_grad():
+        for g, (sd, centre) in enumerate(zip(MOL_MIX_STD, centres)):
+            part, w, b = slice(g * k, (g + 1) * k), wn.post2["w"], wn.post2["b"]
+            gain = sd / float(mix0[:, part].std())
+            w[part] *= gain
+            b[part] *= gain
+            if centre is not None:
+                b[part] += centre - gain * mix0[:, part].mean(0)
+    packed = fc.pack_for_kernel(wn, cfg)
+    check(type(packed) is fc.MolKernelParams, f"packed as {type(packed).__name__}")
+
+    def run(fn, pk, temperature, steps=MOL_T, seed=1234):
+        return fn(pk, cfg, flat.clone(), prev, t_ring, cond[..., :steps], seed,
+                  temperature, True)
+
+    fc.generate_fused.mol_launches = fc.generate_fused.streamed_bytes = 0
+    fc.generate_fused.launches = 0
+    rows = torch.arange(MOL_B, device=dev)
+    out = {"launches": 0, "max_abs_err": 0.0}
+    for temperature in (0.0, 1.0):
+        got = run(fc.generate_fused, packed, temperature)
+        torch.cuda.synchronize()
+        x_k, mix_k = got[0], got[3]
+        check(x_k.dtype == torch.float32 and bool(torch.isfinite(mix_k).all())
+              and float(x_k.abs().max()) <= 1.0, f"T={temperature}: kernel samples out of "
+              f"[-1, 1] or non-finite mixture")
+        tail = max(float((x_k[:, t] - fc.mol_draw(mix_k[t], k, cfg.log_scale_min, 1234, rows,
+                                                  t_ring + t, temperature)).abs().max())
+                   for t in range(MOL_T))
+        check(tail <= MOL_TAIL_TOL, f"T={temperature}: the kernel's samples are "
+              f"{tail:.4g} from mol_draw of its own mixture (tol {MOL_TAIL_TOL})")
+        mix_p, x_p = mol_teacher(fc, packed, cfg, flat, prev, t_ring, cond, 1234,
+                                 temperature, x_k)
+        c = mol_compare(fc, cfg, 1234, t_ring, temperature, (x_k, mix_k), (x_p, mix_p))
+        clipped = float((x_k.abs() >= 1.0).float().mean())
+        check(mol_passes(c), f"T={temperature}: MoL kernel vs plain: {c} (need param < "
+              f"{MOL_PARAM_TOL}, gap <= {MOL_TIE_TOL}, value <= {MOL_SAMPLE_TOL})")
+        print(f"[mol] T={temperature} B={MOL_B} {MOL_T} steps: samples = mol_draw of the "
+              f"kernel's own mixture within {tail:.3g}; against the plain version on the "
+              f"kernel's samples: mixture within {c['param']:.4g} of each group's max (tol "
+              f"{MOL_PARAM_TOL}), the same component in all but {c['parted']} of "
+              f"{MOL_B * MOL_T} row-steps (score gap <= {c['gap']:.4g} of max|logits|, tol "
+              f"{MOL_TIE_TOL}), "
+              f"samples there within {c['value']:.4g} (tol {MOL_SAMPLE_TOL}); "
+              f"samples clipped {100 * clipped:.2f}%, logits std "
+              f"{float(mix_k[..., :k].std()):.3g}, means in "
+              f"[{float(mix_k[..., k:2 * k].min()):.3g}, "
+              f"{float(mix_k[..., k:2 * k].max()):.3g}] | {card}")
+        out["max_abs_err"] = max(out["max_abs_err"], c["param"])
+    n_l = fc.generate_fused.mol_launches
+    check((n_l, fc.generate_fused.launches, fc.generate_fused.resident_layers,
+           fc.generate_fused.streamed_bytes) == (2, 2, 18, 2 * MOL_T * plan.streamed_bytes),
+          f"counters after two MoL launches: mol_launches {n_l}, launches "
+          f"{fc.generate_fused.launches}, resident_layers "
+          f"{fc.generate_fused.resident_layers}, streamed_bytes "
+          f"{fc.generate_fused.streamed_bytes} (plan: {plan.streamed_bytes} B a step)")
+    print(f"[mol] counters: mol_launches {n_l}, resident_layers 18, streamed_bytes "
+          f"{fc.generate_fused.streamed_bytes} = 2 launches x {MOL_T} steps x "
+          f"{plan.streamed_bytes} B | {card}")
+    out["launches"] = n_l
+
+    # planted faults: the same check must reject each
+    real_shares, real_draw = fc.pack_shares, fc.mol_draw
+
+    def zeroed(layer):
+        def pack_shares(pk, pl):
+            share = real_shares(pk, pl)
+            for r in range(pl.n_blocks):
+                a = pl.post_bytes(r) + layer * pl.layer_bytes(r)
+                share[r, a:a + pl.layer_bytes(r)] = 0
+            return share
+        return pack_shares
+
+    def next_mean(mix, n_mix, *a):
+        m = mix.clone()
+        m[:, n_mix:2 * n_mix] = mix[:, n_mix:2 * n_mix].roll(1, 1)
+        return real_draw(m, n_mix, *a)
+
+    faults = {f"layer {plan.resident_layers} (first streamed) shares zeroed in the kernel":
+              ("pack_shares", zeroed(plan.resident_layers), True),
+              f"layer {n_layers - 1} (last streamed) shares zeroed in the kernel":
+              ("pack_shares", zeroed(n_layers - 1), True),
+              "the tail's mean from the next component in the plain version":
+              ("mol_draw", next_mean, False)}
+    for temperature in (0.0, 1.0):
+        sound = run(fc.generate_fused, packed, temperature)
+        for name, (attr, bad, in_kernel) in faults.items():
+            real = getattr(fc, attr)
+            setattr(fc, attr, bad)
+            try:  # a broken kernel, or the broken plain version on the kernel's samples
+                got = run(fc.generate_fused, packed, temperature) if in_kernel else sound
+                teacher = None if in_kernel else mol_teacher(
+                    fc, packed, cfg, flat, prev, t_ring, cond, 1234, temperature, got[0])
+            finally:
+                setattr(fc, attr, real)
+            mix_p, x_p = teacher or mol_teacher(fc, packed, cfg, flat, prev, t_ring, cond,
+                                                1234, temperature, got[0])
+            c = mol_compare(fc, cfg, 1234, t_ring, temperature, (got[0], got[3]), (x_p, mix_p))
+            check(not mol_passes(c), f"T={temperature}: planted fault '{name}' passes: {c}")
+            print(f"[mol] T={temperature}: planted fault '{name}': mixture {c['param']:.4g} "
+                  f"of max, gap {c['gap']:.4g}, samples {c['value']:.4g}: rejected | {card}")
+
+    k_ms = cuda_ms(lambda: fc.generate_fused(packed, cfg, flat.clone(), prev, t_ring, cond,
+                                             5, 1.0), 3) / MOL_TIMED_T
+    p_ms = cuda_ms(lambda: fc.generate_fused_reference(
+        packed, cfg, flat.clone(), prev, t_ring, cond[..., :PLAIN_T], 5, 1.0), 1) / PLAIN_T
+    b_ms, by = sampler_bound(packed, cfg, plan, MOL_B, None)
+    print(f"[mol] B={MOL_B}: kernel {k_ms:.4f} ms/step at T={MOL_TIMED_T} a launch "
+          f"({MOL_B / k_ms * 1e3:.0f} samples/s), plain {p_ms:.4f} ms/step; bound "
+          f"{b_ms:.5f} ms/step by {by}, {100 * b_ms / k_ms:.2f}% of it | {card}")
+    out.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by)
+    return out
 
 
 def phase_vq(card: str, dev, data: str) -> dict:
@@ -2144,7 +2403,8 @@ def _zero_counts() -> None:
                  fc.generate_fused_reference]):
         f.launches = 0
     gc.gated_layer_bwd.launches_recompute = 0
-    for name in ("launches", "launches_int8", "launches_int4"):
+    for name in ("launches", "launches_int8", "launches_int4", "mol_launches",
+                 "streamed_bytes"):
         setattr(fc.generate_fused, name, 0)
     _zero_graph_counts()
 
@@ -4002,6 +4262,10 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--train-rank"]:
         return train_rank(sys.argv[2:])
+    if sys.argv[1:] == ["--mol"]:
+        phase_build(card)
+        print(json.dumps({"mol": phase_mol(card, dev)}))
+        return 0
     if sys.argv[1:] == ["--mesh-cards"]:
         phase_build(card)
         mesh_cards(card)
@@ -4018,6 +4282,7 @@ def main() -> int:
                                clip_len=(12400, 14000), seed=0)
         v = phase_vq(card, dev, data)
         s = phase_serve(card, dev, data, tmp)
+    mol = phase_mol(card, dev)
     g = phase_train_kernels(card, dev)
     with tempfile.TemporaryDirectory() as tmp:
         t = phase_train(card, dev, tmp)
@@ -4053,6 +4318,11 @@ def main() -> int:
         "max_abs_err": k[mode]["max_abs_err"], **k[mode]["by_batch"][1],
         "library_ms": None, "batch": 1, "per": "generated step",
         "by_batch": k[mode]["by_batch"]} for mode in ("bf16", "int8", "int4")]
+    # the mixture-of-logistics tail has no TPU kernel: the port's own, timed
+    # at the MoL cell's batch
+    kernels.append({"name": "fastgen_mol", "route": "cuda", "source": fastgen,
+                    "replaces": None, "library_ms": None, "batch": MOL_B,
+                    "per": "generated step", **mol})
     def gated_row(name, launches):
         k_ms, p_ms, b_ms, by = g["times"][name]
         return {"launches": launches, "max_abs_err": g["errs"][name], "ms": k_ms,

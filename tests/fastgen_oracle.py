@@ -13,10 +13,14 @@ from ae_wavenet_tpu_torch.ops import fastgen as tfg
 
 
 def old_cell(packed, cfg, state, x_id, cond_t, dtype=torch.float32):
-    """One AR step -> logits [B, n_quant]; writes every queue at slot
-    state.t mod d_l."""
+    """One AR step -> logits [B, n_out]; writes every queue at slot
+    state.t mod d_l.  x_id: mu-law ids, or samples where ``packed`` holds
+    a mixture output's input map."""
     rnd = tfg._rounder(dtype)
-    x = packed["embed"][x_id]
+    if "in0_w" in packed:
+        x = x_id[:, None] * packed["in0_w"] + packed["in0_b"]
+    else:
+        x = packed["embed"][x_id]
     cond_t = rnd(cond_t)
     skip = None
     for i, d in enumerate(cfg.dilations):

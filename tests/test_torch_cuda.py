@@ -276,6 +276,121 @@ def test_kernel_gives_the_same_bits_twice(cuda_device, mode):
     assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
+# ------------------------------------- the mixture-of-logistics sampler
+
+MOL_CFGS = {
+    "scalar": dataclasses.replace(CFGS["scalar"], n_global_embed=0, n_mix=3, n_quant=65536),
+    "vector": dataclasses.replace(CFGS["vector"], n_global_embed=0, n_mix=10, n_quant=65536),
+}
+# samples within this of the plain version's while the components agree
+# (the same draws; mixture parameters within LOGIT_TOL of their largest,
+# which moves a mean and a log-scale by as much)
+MOL_SAMPLE_TOL = 0.05
+
+
+def _mol_setup(dev, cfg, batch, n, seed, primed=True):
+    """Packed weights whose mixture is informative (means within [-1, 1],
+    scales about 0.05), the ring, the previous samples and the cond."""
+    gen = torch.Generator().manual_seed(seed)
+    wn = twn.WaveNet(cfg, gen)
+    k = cfg.n_mix
+    with torch.no_grad():
+        wn.post2["w"].mul_(10.0)
+        wn.post2["b"][2 * k :] = -3.0
+    wn = wn.to(dev)
+    rf = sum(cfg.dilations)
+    if primed:
+        ctx = (torch.rand(batch, rf + 1, generator=gen) * 1.2 - 0.6).to(dev)
+        c = (torch.randn(batch, cfg.n_lc_out, rf, generator=gen) * 0.3).to(dev)
+        st = tfg.prime(wn, cfg, tfg.init_state(cfg, batch, device=dev), ctx, c)
+        flat, prev, t0 = tfc.state_to_flat(st, cfg), st.prev_id, st.t
+    else:  # a random ring: priming 30 layers of 512 eagerly takes long
+        flat = (torch.randn(rf, batch, cfg.n_res, generator=gen) * 0.5).to(dev, torch.bfloat16)
+        prev, t0 = (torch.rand(batch, generator=gen) - 0.5).to(dev), 3
+    cond = (torch.randn(batch, cfg.n_lc_out, n, generator=gen) * 0.3).to(dev)
+    return tfc.pack_for_kernel(wn, cfg), flat, prev, t0, cond
+
+
+def _mol_held_to_plain(dev, cfg, batch, n, seed, temperature, primed=True, tol=LOGIT_TOL):
+    """The MoL kernel against the plain version: samples within
+    MOL_SAMPLE_TOL over each row's inclusive agreeing prefix, mixture
+    parameters there within ``tol`` of their largest magnitude, every row
+    agreeing at least half the steps."""
+    packed, flat, prev, t0, cond = _mol_setup(dev, cfg, batch, n, seed, primed)
+    before = (tfc.generate_fused.launches, tfc.generate_fused.mol_launches)
+    got = tfc.generate_fused(packed, cfg, flat.clone(), prev, t0, cond, 9, temperature,
+                             debug_logits=True)
+    want = tfc.generate_fused_reference(packed, cfg, flat.clone(), prev, t0, cond, 9,
+                                        temperature, debug_logits=True)
+    torch.cuda.synchronize()
+    assert (tfc.generate_fused.launches, tfc.generate_fused.mol_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert got[0].dtype == torch.float32 and bool(torch.isfinite(got[3]).all())
+    assert float(got[0].abs().max()) <= 1.0
+    scale = float(want[3].abs().max())
+    agree = 0
+    for r in range(batch):
+        diff = torch.nonzero((got[0][r] - want[0][r]).abs() > MOL_SAMPLE_TOL)
+        t_div = n if len(diff) == 0 else int(diff[0])
+        agree += t_div
+        hi = min(t_div + 1, n)
+        rel = float((got[3][:hi, r] - want[3][:hi, r]).abs().max()) / scale
+        assert rel < tol, (r, t_div, rel)
+    assert agree >= n * batch // 2, agree
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(MOL_CFGS))
+@pytest.mark.parametrize("batch", [1, 11, 70])
+@pytest.mark.parametrize("temperature", [0.0, 1.0])
+def test_mol_kernel_matches_plain_version(cuda_device, name, batch, temperature):
+    _mol_held_to_plain(cuda_device, MOL_CFGS[name], batch, 16, 11, temperature)
+
+
+@pytest.mark.cuda
+def test_mol_kernel_streams_layers_at_the_published_widths(cuda_device):
+    """``wavenet_mol_24k``'s decoder: 18 of 30 layers resident, 12 read
+    through L2 each step, B = 2 against the plain version at the flagship's
+    tolerance; the counters take the launch's plan."""
+    import json
+    import pathlib
+
+    from ae_wavenet_tpu_torch.utils import config as tcfg
+
+    doc = (pathlib.Path(__file__).resolve().parent.parent
+           / "benchmark/configs/wavenet_mol_24k.json").read_text()
+    cfg = tcfg.from_json(doc).wavenet
+    assert json.loads(doc)["wavenet"]["n_mix"] == 10
+    plan = tfc.device_plan(cfg, None, cuda_device)
+    assert (plan.resident_layers, plan.n_layers) == (18, 30)
+    streamed = tfc.generate_fused.streamed_bytes
+    for temperature in (0.0, 1.0):
+        _mol_held_to_plain(cuda_device, cfg, 2, 12, 13, temperature, primed=False,
+                           tol=FLAGSHIP_TOL[None])
+    assert tfc.generate_fused.resident_layers == 18
+    assert tfc.generate_fused.streamed_bytes - streamed == 2 * 12 * plan.streamed_bytes
+
+
+@pytest.mark.cuda
+def test_mol_kernel_chunk_carry_and_same_bits_twice(cuda_device):
+    cfg = MOL_CFGS["scalar"]
+    packed, flat, prev, t0, cond = _mol_setup(cuda_device, cfg, 11, 24, 12)
+
+    def run(ring, p, t, c):
+        return tfc.generate_fused(packed, cfg, ring, p, t, c, 3, 1.0)
+
+    whole = run(flat.clone(), prev, t0, cond)[0]
+    assert torch.equal(whole, run(flat.clone(), prev, t0, cond)[0])
+    a, ring, last = run(flat.clone(), prev, t0, cond[..., :10])
+    b = run(ring, last, t0 + 10, cond[..., 10:])[0]
+    assert torch.equal(whole, torch.cat([a, b], 1))
+    with pytest.raises(ValueError, match="bf16 weights only"):
+        tfc.generate_fused(packed, cfg, flat, prev, t0, cond, 3, 1.0, quantized="int8")
+    with pytest.raises(ValueError, match="prev_id"):
+        tfc.generate_fused(packed, cfg, flat, prev.double(), t0, cond, 3, 1.0)
+
+
 # ------------------------------------------------ the fused VQ lookup
 
 from ae_wavenet_tpu_torch.ops import vq_cuda  # noqa: E402
@@ -1117,6 +1232,46 @@ def test_one_pass_prime_is_within_f32_of_the_exact_rings(cuda_device, batch):
     assert got.t == exact.t == rf and torch.equal(got.prev_id, exact.prev_id)
     for a, b in zip(got.bufs, exact.bufs):
         torch.testing.assert_close(a.double(), b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,batch", [("vector", 11), ("wavenet_mol_24k", 1)])
+def test_one_pass_prime_of_samples_is_within_f32_of_the_step_loop(cuda_device, name, batch):
+    """A mixture output's prime (samples through the rank-1 input map)
+    against the f32 step loop, both on the card: every ring within rtol =
+    atol = 1e-5 at the tiny width.  At ``wavenet_mol_24k``'s 30 layers of
+    512 the pass and the f32 loop are each held to the loop in float64,
+    within 1e-5 of the rings' largest magnitude (about 5 there): an f32
+    sum's error scales with the values summed, and over 30 layers of
+    512-wide sums the two f32 orders read 1.0e-5 and 2.6e-5 from the exact
+    rings.  The last samples and the phase equal."""
+    import pathlib
+
+    from ae_wavenet_tpu_torch.utils import config as tcfg
+
+    if name in MOL_CFGS:
+        cfg = MOL_CFGS[name]
+    else:
+        cfg = tcfg.from_json((pathlib.Path(__file__).resolve().parent.parent
+                              / "benchmark/configs/wavenet_mol_24k.json").read_text()).wavenet
+    gen = torch.Generator().manual_seed(4)
+    wn = twn.WaveNet(cfg, gen).to(cuda_device)
+    rf = sum(cfg.dilations)
+    ctx = (torch.rand(batch, rf + 1, generator=gen) * 1.2 - 0.6).to(cuda_device)
+    cond = (torch.randn(batch, cfg.n_lc_out, rf, generator=gen) * 0.3).to(cuda_device)
+    got = tfg.prime(wn, cfg, tfg.init_state(cfg, batch, device=cuda_device), ctx, cond)
+    loop = oracle.old_prime(wn, cfg, tfg.init_state(cfg, batch, device=cuda_device), ctx,
+                            cond)
+    assert got.t == loop.t == rf and torch.equal(got.prev_id, loop.prev_id)
+    if name in MOL_CFGS:
+        for a, b in zip(got.bufs, loop.bufs):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+        return
+    exact = oracle.exact_prime(wn, cfg, ctx, cond)
+    top = max(float(e.abs().max()) for e in exact.bufs)
+    for bufs in (got.bufs, loop.bufs):
+        err = max(float((b.double() - e).abs().max()) for b, e in zip(bufs, exact.bufs))
+        assert err <= 1e-5 * max(1.0, top), (err, top)
 
 
 @pytest.mark.cuda
