@@ -67,6 +67,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
@@ -126,6 +128,12 @@ __device__ __forceinline__ void ld8(float* o, const bf16* p) {
 //   g_y from the registers into shared memory (over g_out) and to global
 //     memory for dW_in; g_xin = g_y @ w_in^T (w_in again K-major as B),
 //     scattered into prev / cur / cond from the registers.
+//   The tile's epilogues (global loads and stores in the accumulator's
+//     layout, 4 to 8 bytes a thread) take most of its time, the products
+//     a tenth.  So the pair backward keeps two tiles in flight where two
+//     g_out tiles and two ring stages fit (ops/gated_cuda.bwd_plan): each
+//     consumer warpgroup takes a tile of its own and the two take turns at
+//     the tensor cores (Turn), one's epilogue under the other's products.
 //   K2b's recompute mode (no saved y) first runs the forward's gate pass on
 //     the tile's xin (y = xin @ w_in + b_in, f32 from the accumulator, as
 //     the reference keeps it): the gate goes to a per-block scratch of
@@ -223,8 +231,37 @@ __device__ __forceinline__ void tma3(void* dst, const CUtensorMap* map, uint64_t
       "[%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)), "l"(map),
       "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2) : "memory");
 }
+// shared -> global (TMA), in this thread's bulk async-group
+__device__ __forceinline__ void tma_store3(const CUtensorMap* map, const void* src, int c0,
+                                           int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];" ::"l"(
+          map), "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2) : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// this thread's bulk stores have read their shared memory (READ) or are done
+template <bool READ>
+__device__ __forceinline__ void bulk_wait() {
+  if constexpr (READ) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+  else asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, 256;" ::: "memory");
+}
+// Named barriers beside the consumers' (1): the pair backward's two tiles in
+// flight (wg_bwd_kernel) use one consumer warpgroup's own (2 + w), the
+// tensor cores' turns (TURN: warpgroup 0 may go, TURN + 1: warpgroup 1 may
+// go) and the prev-tap carry between the two tiles (CARRY: warpgroup 0's
+// UPPER stores have landed, for warpgroup 1; CARRY + 1 and CARRY + 2 in
+// turn, pair by pair, warpgroup 1's for warpgroup 0).
+constexpr int BAR_WG = 2, BAR_TURN = 4, BAR_CARRY = 6;
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
 }
 // generic-proxy writes to shared memory -> visible to wgmma
 __device__ __forceinline__ void fence_async() {
@@ -368,11 +405,27 @@ struct Pipe {
   __device__ void next() {
     if (++st == n) { st = 0; ph ^= 1; }
   }
+  __device__ void skip(int k) {  // k slabs that another warpgroup takes
+    st += k;
+    const int w = st / n;
+    st -= w * n;
+    ph ^= w & 1;
+  }
 };
 
+// The 8 consumer warps each arrive once on a slab's empty barrier; a slab
+// that one warpgroup alone takes (ARRIVE = 2) is released by its 4 warps
+// arriving twice.
+template <int ARRIVE = 1>
 __device__ __forceinline__ void release(uint64_t* empty, int st) {
   __syncwarp();
-  if ((threadIdx.x & 31) == 0) mbar_arrive(empty + st);  // 8 consumer warps
+  if ((threadIdx.x & 31) == 0) {
+    if constexpr (ARRIVE == 1)
+      mbar_arrive(empty + st);
+    else
+      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0], %1;" ::"r"(
+                       smem_u32(empty + st)), "r"(ARRIVE) : "memory");
+  }
 }
 
 // One warpgroup's pass over `ns` slabs of the ring: issue(stage, j) runs
@@ -380,8 +433,9 @@ __device__ __forceinline__ void release(uint64_t* empty, int st) {
 // the producer as soon as those products are done: with the activation
 // tile resident beside the ring, few stages fit, and a slab held through
 // the next one's products would leave one fewer in flight (slower on the
-// H100, forward and backward).  Both warpgroups walk every slab.
-template <typename Issue>
+// H100, forward and backward).  Both warpgroups walk every slab, or
+// (ARRIVE = 2) one warpgroup alone takes these slabs.
+template <int ARRIVE = 1, typename Issue>
 __device__ __forceinline__ void mma_slabs(int ns, bool act, Pipe& pp, uint64_t* full,
                                           uint64_t* empty, unsigned char* ring,
                                           Issue issue) {
@@ -393,7 +447,7 @@ __device__ __forceinline__ void mma_slabs(int ns, bool act, Pipe& pp, uint64_t* 
       wg_commit();
       wg_wait<0>();
     }
-    release(empty, pp.st);
+    release<ARRIVE>(empty, pp.st);
     pp.next();
   }
 }
@@ -860,6 +914,9 @@ struct WgBwdP {
   CUtensorMap win[3];
   const float* bin; const bf16* x; float4* gate;
   int prev_dd, cur_vl, r0, chunk, nst, yoff, roff, boff;  // g_out at 0, g_y at yoff
+  int tiles, tstride;  // the pair's tiles in flight (1 or 2), tstride bytes apart
+  // two tiles in flight: each layer's g_out and g_y streams, stored by TMA
+  CUtensorMap om[2][2];
 };
 
 // Per block and gate pass, one float4 (tanh y_f, sigmoid y_g at two
@@ -940,27 +997,83 @@ __device__ __forceinline__ void wg_gxn8(const P& p, const Link& k, int b, int g,
   }
 }
 
+// The weight slabs of one layer on one tile, in the order the consumers take
+// them.  With two tiles in flight (solo) g_xin's slabs come one 128-column
+// chunk at a time, two K-slabs a stage, and each turn's slabs go out `reps`
+// times in a row, once for each consumer warpgroup's tile.
 __device__ void wg_bwd_produce(const WgBwdLayer& L, const WgDims& d, int mode, Pipe& pp,
-                               uint64_t* full, uint64_t* empty, unsigned char* ring) {
+                               uint64_t* full, uint64_t* empty, unsigned char* ring,
+                               int reps = 1, bool solo = false) {
   const int ch1 = (d.D + 127) >> 7;
   const int ch2 = ((mode == HALO ? d.R : 2 * d.R + d.C) + 127) >> 7;
   for (int k = 0; k < 2; ++k) {
     const int nch = k == 0 ? ch1 : ch2, ns = k == 0 ? d.Oa : d.Ya;
     const CUtensorMap* map = k == 0 ? &L.woutT : &L.winT;
+    if (solo && k == 1) {  // g_xin one 128-column chunk a turn, two K-slabs a stage
+      for (int ch = 0; ch < nch; ++ch)
+        for (int r = 0; r < reps; ++r)
+          for (int q = 0; 2 * q < ns; ++q) {
+            const int nb = min(2, ns - 2 * q);
+            mbar_wait(empty + pp.st, pp.ph ^ 1);
+            unsigned char* st = ring + pp.st * SLAB;
+            uint64_t* fb = full + pp.st;
+            mbar_expect_tx(fb, nb * HALF);
+            for (int e = 0; e < nb; ++e) tma2(st + e * HALF, map, fb, (2 * q + e) * 64, ch * 128);
+            pp.next();
+          }
+      continue;
+    }
     for (int pass = 0; 2 * pass < nch; ++pass) {
       const int nw = min(2, nch - 2 * pass);
-      for (int j = 0; j < ns; ++j) {
-        mbar_wait(empty + pp.st, pp.ph ^ 1);
-        unsigned char* st = ring + pp.st * SLAB;
-        uint64_t* fb = full + pp.st;
-        mbar_expect_tx(fb, nw * HALF);
-        for (int w = 0; w < nw; ++w)
-          tma2(st + w * HALF, map, fb, j * 64, (2 * pass + w) * 128);
-        pp.next();
-      }
+      for (int r = 0; r < reps; ++r)
+        for (int j = 0; j < ns; ++j) {
+          mbar_wait(empty + pp.st, pp.ph ^ 1);
+          unsigned char* st = ring + pp.st * SLAB;
+          uint64_t* fb = full + pp.st;
+          mbar_expect_tx(fb, nw * HALF);
+          for (int w = 0; w < nw; ++w)
+            tma2(st + w * HALF, map, fb, j * 64, (2 * pass + w) * 128);
+          pp.next();
+        }
     }
   }
 }
+
+// Two tiles in flight (the pair backward, wg_bwd_kernel): each consumer
+// warpgroup takes a tile of its own and every column of it, and the two
+// take turns at the tensor cores, product phase by product phase, in the
+// order the producer streams the slabs (A's phase, B's phase, A's next,
+// ...), so that one warpgroup's epilogue (the g_out build, the gate
+// derivative with its loads of y, the g_xin scatter) runs while the other's
+// products do.  The turns also keep a warpgroup from waiting on a ring
+// stage more than one fill ahead of it (an mbarrier's parity cannot tell
+// them apart).  Warpgroup 0 (A) takes the higher tile of each pair;
+// `partner` says whether B has a tile in this pair, and sync_a whether A
+// waits for B's turn before its next phase.  Each warpgroup's ring position
+// steps over the other's slabs of the same phase (as many as its own).
+struct Turn {
+  int wg;
+  bool partner, sync_a;
+  __device__ __forceinline__ void before(Pipe& pp, int ns) {
+    if (wg) {
+      bar_sync(BAR_TURN + 1, 256);
+      pp.skip(ns);
+    } else if (sync_a) {
+      bar_sync(BAR_TURN, 256);
+    }
+  }
+  __device__ __forceinline__ void after(Pipe& pp, int ns) {
+    if (wg) {
+      bar_arrive(BAR_TURN, 256);
+    } else {
+      if (partner) {
+        bar_arrive(BAR_TURN + 1, 256);
+        pp.skip(ns);
+      }
+      sync_a = partner;
+    }
+  }
+};
 
 // This thread's first gate slot of pass `pass` in the block's scratch,
 // derived anew at each use (opaque): a pointer kept across the tile's
@@ -1023,35 +1136,104 @@ __device__ void wg_gate_recompute(const WgBwdP& p, int b, int t0, int nr, unsign
   });
 }
 
+// Two tiles in flight, g_h: pass `pass` of nch 128-column chunks over ns
+// slabs, both chunks 2 pass and 2 pass + 1 (both halves of each slab) in
+// this warpgroup's turn.  -> the halves it took (the chunks that exist).
+__device__ __forceinline__ int wg_bwd_pass(float (*acc)[64], int pass, int nch, int ns,
+                                           uint32_t a_base, Pipe& pp, uint64_t* full,
+                                           uint64_t* empty, unsigned char* ring, Turn* tn) {
+  const int nh = min(2, nch - 2 * pass);
+  acc_zero<64>(acc[0]);
+  acc_zero<64>(acc[1]);
+  tn->before(pp, ns);
+  mma_slabs<2>(ns, true, pp, full, empty, ring, [&](uint32_t st, int j) {
+    const uint32_t a0 = a_base + j * ATOM;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (h < nh) wgmma_n128<0, 0>(acc[h], kdesc(a0 + kk * 32), kdesc(st + h * HALF + kk * 32));
+  });
+  tn->after(pp, ns);
+  acc_fence<64>(acc[0]);
+  acc_fence<64>(acc[1]);
+  return nh;
+}
+
+// Two tiles in flight, g_xin: the products of one 128-column chunk in this
+// warpgroup's turn, over ns K-slabs that come two to a ring stage (the
+// slab order and the products of the lockstep pass, one chunk at a time).
+__device__ __forceinline__ void wg_bwd_chunk(float* acc, int ns, uint32_t a_base, Pipe& pp,
+                                             uint64_t* full, uint64_t* empty,
+                                             unsigned char* ring, Turn* tn) {
+  const int nq = (ns + 1) >> 1;
+  acc_zero<64>(acc);
+  tn->before(pp, nq);
+  mma_slabs<2>(nq, true, pp, full, empty, ring, [&](uint32_t st, int q) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int j = 2 * q + e;
+      if (j < ns) {
+        const uint32_t a0 = a_base + j * ATOM;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_n128<0, 0>(acc, kdesc(a0 + kk * 32), kdesc(st + e * HALF + kk * 32));
+      }
+    }
+  });
+  tn->after(pp, nq);
+  acc_fence<64>(acc);
+}
+
 // One layer's backward on one tile (consumer threads); rows below c0 take
 // no prev-tap cotangent.  P: WgBwdP or WgGroupArgs.  REC: K2b's recompute
 // mode, after wg_gate_recompute on the same tile (the gate from the
-// block's scratch), else the gate from the saved y.
-template <typename P, bool REC = false>
+// block's scratch), else the gate from the saved y.  SOLO: one of two tiles
+// in flight (WgBwdP, saved y): this warpgroup alone, on its own g_out and
+// g_y at p.tstride x wg, its product phases in turn with the other
+// warpgroup's (tn), with the products and K order of the two warpgroups'
+// lockstep passes: g_h in passes of both 128-column halves (two m64n128
+// accumulators, since g_y lands over g_out), g_xin one 128-column chunk a
+// turn, its upstream loaded before the turn (the g_out build leaves gxn in
+// f32 in gcur, so that load is one stream).  Its g_out and g_y tiles go to
+// L.gout and L.gy from shared memory by TMA (om), in one thread's bulk
+// group, which that thread waits on before g_y or the next tile's g_out
+// lands on them.
+template <typename P, bool REC = false, bool SOLO = false>
 __device__ void wg_bwd_tile(const P& p, const WgBwdLayer& L, const Link& k, int b, int t0,
                             int nr, int c0, unsigned char* sm, Pipe& pp, uint64_t* full,
-                            uint64_t* empty) {
+                            uint64_t* empty, Turn* tn = nullptr,
+                            const CUtensorMap* om = nullptr) {
+  static_assert(!(REC && SOLO), "two tiles in flight take saved y");
+  constexpr int NT = SOLO ? 128 : CONSUMERS;      // threads on the tile
   const WgDims& d = p.d;
   const int mode = k.mode;
   const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int me = SOLO ? tid : threadIdx.x;
   const int r_lo = (tid >> 5) * 16 + ((tid & 31) >> 2), c_lo = (tid & 3) * 2;
   unsigned char* ring = sm + p.roff;
+  if constexpr (SOLO) sm += wg * p.tstride;
   unsigned char* ys = sm + p.yoff;
   const uint32_t ga = smem_u32(sm), ya = smem_u32(ys);
   const size_t rowb = (size_t)b * d.P;
   const int lo = d.R + d.S;
-
-  consumers_sync();
+  auto tile_sync = [&] {
+    if constexpr (SOLO) bar_sync(BAR_WG + wg, 128);
+    else consumers_sync();
+  };
+  if constexpr (SOLO) if (tid == 0) bulk_wait<true>();  // the last tile's g_y is out
+  tile_sync();
   // g_out = bf16([gxn | gskip]) masked to valid rows (h, for dW_out, comes
-  // with g_y); each thread loads NB groups of 8 before it stores any
-  constexpr int NB = 8;
+  // with g_y); each thread loads NB groups of 8 before it stores any (more
+  // when one warpgroup builds the tile alone)
+  constexpr int NB = SOLO ? 16 : 8;
   const int no = TM * d.Oa * 8;
-  for (int i0 = threadIdx.x; i0 < no; i0 += NB * CONSUMERS) {
+  for (int i0 = me; i0 < no; i0 += NB * NT) {
     float v[NB][8];
     bool real[NB];
 #pragma unroll
     for (int u = 0; u < NB; ++u) {
-      const int i = i0 + u * CONSUMERS, row = i / (d.Oa * 8), col = (i % (d.Oa * 8)) * 8;
+      const int i = i0 + u * NT, row = i / (d.Oa * 8), col = (i % (d.Oa * 8)) * 8;
       const int g = t0 + row;
       const bool ok = i < no && row < nr && g >= L.vl;
 #pragma unroll
@@ -1066,158 +1248,290 @@ __device__ void wg_bwd_tile(const P& p, const WgBwdLayer& L, const Link& k, int 
     }
 #pragma unroll
     for (int u = 0; u < NB; ++u) {
-      const int i = i0 + u * CONSUMERS, row = i / (d.Oa * 8), col = (i % (d.Oa * 8)) * 8;
+      const int i = i0 + u * NT, row = i / (d.Oa * 8), col = (i % (d.Oa * 8)) * 8;
       if (i >= no) continue;
       const uint4 w = pack8(v[u]);
       *reinterpret_cast<uint4*>(sm + swz(row, col)) = w;
-      if (real[u] && mode != HALO)
+      if (!SOLO && real[u] && mode != HALO)
         *reinterpret_cast<uint4*>(L.gout + (rowb + t0 + row) * lo + col) = w;
+      if constexpr (SOLO) {  // gxn in f32 into gcur, the g_xin epilogue's one load of it
+        if (real[u] && col < d.R) {
+          float4* q = reinterpret_cast<float4*>(p.gcur + (rowb + t0 + row) * d.R + col);
+          q[0] = make_float4(v[u][0], v[u][1], v[u][2], v[u][3]);
+          q[1] = make_float4(v[u][4], v[u][5], v[u][6], v[u][7]);
+        }
+      }
     }
   }
   fence_async();
-  consumers_sync();
+  tile_sync();
+  if constexpr (SOLO) {
+    if (tid == 0) {  // g_out for dW_out, from shared memory
+      for (int a = 0; a < d.Oa; ++a) tma_store3(om, sm + a * ATOM, a * 64, t0, b);
+      bulk_commit();
+    }
+  }
 
   // g_h = g_out @ w_out^T; g_y = bf16([g_h s (1 - t^2) | g_h t s (1 - s)])
   const int ch1 = (d.D + 127) >> 7;
-  for (int pass = 0; 2 * pass < ch1; ++pass) {
-    const int ch = 2 * pass + wg;
-    const bool act = ch < ch1;
-    float acc[64];
-    acc_zero<64>(acc);
-    mma_slabs(d.Oa, act, pp, full, empty, ring, [&](uint32_t st, int j) {
-      const uint32_t a0 = ga + j * ATOM, b0 = st + wg * HALF;
+  if constexpr (SOLO) {
+    for (int pass = 0; 2 * pass < ch1; ++pass) {
+      const int ch0 = 2 * pass;
+      float acc[2][64];
+      const int nh = wg_bwd_pass(acc, pass, ch1, d.Oa, ga, pp, full, empty, ring, tn);
+      if (tid == 0) bulk_wait<true>();  // and by the store of g_out
+      tile_sync();  // g_out is read by every warp of the tile before g_y lands on it
+      if (ch0 >= ch1) continue;
+      // one half's epilogue, CBH column blocks at a time (fewer live registers
+      // while the other half's accumulator waits)
+      auto half = [&](auto hct, auto cbt) {
+        constexpr int hc = decltype(hct)::value, CBH = decltype(cbt)::value;
+        const int ch = ch0 + hc;
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_n128<0, 0>(acc, kdesc(a0 + kk * 32), kdesc(b0 + kk * 32));
-    });
-    acc_fence<64>(acc);
-    consumers_sync();  // g_out is read by both warpgroups before g_y lands on it
-    if (!act) continue;
+        for (int hh = 0; hh < 16 / CBH; ++hh) {
+          uint32_t yv[CBH][2][2];  // this thread's saved y (f, g pairs), loaded first
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {  // two halves of 8 column blocks: fewer live registers
-      // this thread's gate inputs, loaded first: the saved y (f, g pairs),
-      // or the recomputed tanh y_f, sigmoid y_g from the block's scratch
-      uint32_t yv[8][2][2];
-      float4 gv[REC ? 8 : 1][2];
+          for (int ii = 0; ii < CBH; ++ii) {
+            const int n = ch * 128 + c_lo + (hh * CBH + ii) * 8;
 #pragma unroll
-      for (int ii = 0; ii < 8; ++ii) {
-        const int n = ch * 128 + c_lo + (hh * 8 + ii) * 8;
+            for (int hf = 0; hf < 2; ++hf) {
+              const int row = r_lo + hf * 8, g = t0 + row;
+              yv[ii][hf][0] = yv[ii][hf][1] = 0u;
+              if (n < d.D && row < nr && g >= L.vl) {
+                const bf16* yp = L.y + (rowb + g) * 2 * d.D + n;
+                yv[ii][hf][0] = __ldg(reinterpret_cast<const unsigned int*>(yp));
+                yv[ii][hf][1] = __ldg(reinterpret_cast<const unsigned int*>(yp + d.D));
+              }
+            }
+          }
 #pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int row = r_lo + hf * 8, g = t0 + row;
-          if constexpr (REC) {
-            gv[ii][hf] = __ldcg(rec_slot(p, pass) + ((hh * 8 + ii) * 2 + hf) * CONSUMERS);
-          } else {
-            yv[ii][hf][0] = yv[ii][hf][1] = 0u;
-            if (n < d.D && row < nr && g >= L.vl) {
-              const bf16* yp = L.y + (rowb + g) * 2 * d.D + n;
-              yv[ii][hf][0] = __ldg(reinterpret_cast<const unsigned int*>(yp));
-              yv[ii][hf][1] = __ldg(reinterpret_cast<const unsigned int*>(yp + d.D));
+          for (int ii = 0; ii < CBH; ++ii) {
+            const int i = hh * CBH + ii, n = ch * 128 + c_lo + i * 8;
+            if (n >= d.D) continue;
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              const int row = r_lo + hf * 8, g = t0 + row;
+              const bool ok = row < nr && g >= L.vl;
+              const float gh0 = acc[hc][i * 4 + hf * 2], gh1 = acc[hc][i * 4 + hf * 2 + 1];
+              float yf0, yf1, yg0, yg1;
+              ld2(reinterpret_cast<const bf16*>(&yv[ii][hf][0]), yf0, yf1);
+              ld2(reinterpret_cast<const bf16*>(&yv[ii][hf][1]), yg0, yg1);
+              const float tf0 = ftanh(yf0), sg0 = fsigm(yg0), tf1 = ftanh(yf1), sg1 = fsigm(yg1);
+              const float gf0 = gh0 * sg0 * (1.f - tf0 * tf0), gf1 = gh1 * sg1 * (1.f - tf1 * tf1);
+              const float gg0 = gh0 * tf0 * sg0 * (1.f - sg0), gg1 = gh1 * tf1 * sg1 * (1.f - sg1);
+              *reinterpret_cast<uint32_t*>(ys + swz(row, n)) = pack2(gf0, gf1);
+              *reinterpret_cast<uint32_t*>(ys + swz(row, d.D + n)) = pack2(gg0, gg1);
+              if (ok) st2(L.h + (rowb + g) * d.D + n, tf0 * sg0, tf1 * sg1);
+            }
+          }
+        }
+      };
+      using std::integral_constant;
+      half(integral_constant<int, 0>{}, integral_constant<int, 4>{});
+      if (nh > 1) half(integral_constant<int, 1>{}, integral_constant<int, 8>{});
+    }
+  } else {
+    for (int pass = 0; 2 * pass < ch1; ++pass) {
+      const int ch = 2 * pass + wg;
+      const bool act = ch < ch1;
+      float acc[64];
+      acc_zero<64>(acc);
+      mma_slabs(d.Oa, act, pp, full, empty, ring, [&](uint32_t st, int j) {
+        const uint32_t a0 = ga + j * ATOM, b0 = st + wg * HALF;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_n128<0, 0>(acc, kdesc(a0 + kk * 32), kdesc(b0 + kk * 32));
+      });
+      acc_fence<64>(acc);
+      consumers_sync();  // g_out is read by both warpgroups before g_y lands on it
+      if (!act) continue;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {  // two halves of 8 column blocks: fewer live registers
+        // this thread's gate inputs, loaded first: the saved y (f, g pairs),
+        // or the recomputed tanh y_f, sigmoid y_g from the block's scratch
+        uint32_t yv[8][2][2];
+        float4 gv[REC ? 8 : 1][2];
+#pragma unroll
+        for (int ii = 0; ii < 8; ++ii) {
+          const int n = ch * 128 + c_lo + (hh * 8 + ii) * 8;
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int row = r_lo + hf * 8, g = t0 + row;
+            if constexpr (REC) {
+              gv[ii][hf] = __ldcg(rec_slot(p, pass) + ((hh * 8 + ii) * 2 + hf) * CONSUMERS);
+            } else {
+              yv[ii][hf][0] = yv[ii][hf][1] = 0u;
+              if (n < d.D && row < nr && g >= L.vl) {
+                const bf16* yp = L.y + (rowb + g) * 2 * d.D + n;
+                yv[ii][hf][0] = __ldg(reinterpret_cast<const unsigned int*>(yp));
+                yv[ii][hf][1] = __ldg(reinterpret_cast<const unsigned int*>(yp + d.D));
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int ii = 0; ii < 8; ++ii) {
+          const int i = hh * 8 + ii, n = ch * 128 + c_lo + i * 8;
+          if (n >= d.D) continue;
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int row = r_lo + hf * 8, g = t0 + row;
+            const bool ok = row < nr && g >= L.vl;
+            const float gh0 = acc[i * 4 + hf * 2], gh1 = acc[i * 4 + hf * 2 + 1];
+            float tf0, tf1, sg0, sg1;
+            if constexpr (REC) {
+              tf0 = gv[ii][hf].x; tf1 = gv[ii][hf].y; sg0 = gv[ii][hf].z; sg1 = gv[ii][hf].w;
+            } else {
+              float yf0, yf1, yg0, yg1;
+              ld2(reinterpret_cast<const bf16*>(&yv[ii][hf][0]), yf0, yf1);
+              ld2(reinterpret_cast<const bf16*>(&yv[ii][hf][1]), yg0, yg1);
+              tf0 = ftanh(yf0); sg0 = fsigm(yg0); tf1 = ftanh(yf1); sg1 = fsigm(yg1);
+            }
+            const float gf0 = gh0 * sg0 * (1.f - tf0 * tf0), gf1 = gh1 * sg1 * (1.f - tf1 * tf1);
+            const float gg0 = gh0 * tf0 * sg0 * (1.f - sg0), gg1 = gh1 * tf1 * sg1 * (1.f - sg1);
+            *reinterpret_cast<uint32_t*>(ys + swz(row, n)) = pack2(gf0, gf1);
+            *reinterpret_cast<uint32_t*>(ys + swz(row, d.D + n)) = pack2(gg0, gg1);
+            if (ok && mode != HALO) {
+              bf16* gp = L.gy + (rowb + g) * 2 * d.D + n;
+              st2(gp, gf0, gf1);
+              st2(gp + d.D, gg0, gg1);
+              st2(L.h + (rowb + g) * d.D + n, tf0 * sg0, tf1 * sg1);
             }
           }
         }
       }
-#pragma unroll
-      for (int ii = 0; ii < 8; ++ii) {
-        const int i = hh * 8 + ii, n = ch * 128 + c_lo + i * 8;
-        if (n >= d.D) continue;
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int row = r_lo + hf * 8, g = t0 + row;
-          const bool ok = row < nr && g >= L.vl;
-          const float gh0 = acc[i * 4 + hf * 2], gh1 = acc[i * 4 + hf * 2 + 1];
-          float tf0, tf1, sg0, sg1;
-          if constexpr (REC) {
-            tf0 = gv[ii][hf].x; tf1 = gv[ii][hf].y; sg0 = gv[ii][hf].z; sg1 = gv[ii][hf].w;
-          } else {
-            float yf0, yf1, yg0, yg1;
-            ld2(reinterpret_cast<const bf16*>(&yv[ii][hf][0]), yf0, yf1);
-            ld2(reinterpret_cast<const bf16*>(&yv[ii][hf][1]), yg0, yg1);
-            tf0 = ftanh(yf0); sg0 = fsigm(yg0); tf1 = ftanh(yf1); sg1 = fsigm(yg1);
-          }
-          const float gf0 = gh0 * sg0 * (1.f - tf0 * tf0), gf1 = gh1 * sg1 * (1.f - tf1 * tf1);
-          const float gg0 = gh0 * tf0 * sg0 * (1.f - sg0), gg1 = gh1 * tf1 * sg1 * (1.f - sg1);
-          *reinterpret_cast<uint32_t*>(ys + swz(row, n)) = pack2(gf0, gf1);
-          *reinterpret_cast<uint32_t*>(ys + swz(row, d.D + n)) = pack2(gg0, gg1);
-          if (ok && mode != HALO) {
-            bf16* gp = L.gy + (rowb + g) * 2 * d.D + n;
-            st2(gp, gf0, gf1);
-            st2(gp + d.D, gg0, gg1);
-            st2(L.h + (rowb + g) * d.D + n, tf0 * sg0, tf1 * sg1);
-          }
-        }
-      }
     }
   }
-  for (int i = threadIdx.x; i < TM * (d.Ya * 8 - d.D / 4); i += CONSUMERS) {
+  for (int i = me; i < TM * (d.Ya * 8 - d.D / 4); i += NT) {
     const int w = d.Ya * 8 - d.D / 4, row = i / w, col = 2 * d.D + (i % w) * 8;
     *reinterpret_cast<uint4*>(ys + swz(row, col)) = make_uint4(0, 0, 0, 0);
   }
   fence_async();
-  consumers_sync();
+  tile_sync();
+  if constexpr (SOLO) {
+    if (tid == 0 && mode != HALO) {  // g_y for dW_in, from shared memory
+      for (int a = 0; a < d.Ya; ++a) tma_store3(om + 1, ys + a * ATOM, a * 64, t0, b);
+      bulk_commit();
+    }
+  }
 
-  // g_xin = g_y @ w_in^T (f32) -> the input cotangents
+  // g_xin = g_y @ w_in^T (f32) -> the input cotangents: column block i of
+  // chunk ch, rows r_lo + 8 hf, loads its upstream first (gxn for cur
+  // columns, gcond for cond columns; pre), then scatters with the products
   const int ncols = mode == HALO ? d.R : 2 * d.R + d.C, ch2 = (ncols + 127) >> 7;
-  for (int pass = 0; 2 * pass < ch2; ++pass) {
-    const int ch = 2 * pass + wg;
-    const bool act = ch < ch2;
-    float acc[64];
-    acc_zero<64>(acc);
-    mma_slabs(d.Ya, act, pp, full, empty, ring, [&](uint32_t st, int j) {
-      const uint32_t a0 = ya + j * ATOM, b0 = st + wg * HALF;
+  if constexpr (SOLO) {
+    auto load_pre = [&](int ch, int i, int hf) {
+      const int n = ch * 128 + c_lo + i * 8, row = r_lo + hf * 8, g = t0 + row;
+      float2 q = make_float2(0.f, 0.f);
+      if (n >= ncols || row >= nr || n < d.R) return q;
+      if (n < 2 * d.R) {  // gxn, which the g_out build left in gcur
+        if (g >= L.vl) q = ldcg2(p.gcur + (rowb + g) * d.R + (n - d.R));
+      } else {
+        q = *reinterpret_cast<const float2*>(p.gcond + (rowb + g) * d.C + (n - 2 * d.R));
+      }
+      return q;
+    };
+    auto scatter = [&](int ch, int i, int hf, float v0, float v1, float2 q) {
+      const int n = ch * 128 + c_lo + i * 8, row = r_lo + hf * 8, g = t0 + row;
+      if (n >= ncols || row >= nr) return;
+      if (n < d.R) {
+        if (mode == SINGLE || mode == LOWER) {
+          st2(p.gxp + (rowb + g) * d.R + n, v0, v1);
+        } else {
+          const int s = g - L.dd;
+          if (s >= c0)
+            *reinterpret_cast<float2*>(k.gpo + (rowb + s) * d.R + n) = make_float2(v0, v1);
+        }
+      } else if (n < 2 * d.R) {
+        const int r = n - d.R;
+        if (mode == UPPER || mode == INNER)
+          *reinterpret_cast<float2*>(p.gcur + (rowb + g) * d.R + r) =
+              make_float2(q.x + v0, q.y + v1);
+        else
+          st2(p.gxc + (rowb + g) * d.R + r, q.x + v0, q.y + v1);
+      } else {
+        *reinterpret_cast<float2*>(p.gcond + (rowb + g) * d.C + (n - 2 * d.R)) =
+            make_float2(q.x + v0, q.y + v1);
+      }
+    };
+    // one 128-column chunk a turn, its upstream loaded before the turn: the
+    // loads run under the other warpgroup's products and this one's
+    for (int ch = 0; ch < ch2; ++ch) {
+      float2 pre[16][2];
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_n128<0, 0>(acc, kdesc(a0 + kk * 32), kdesc(b0 + kk * 32));
-    });
-    acc_fence<64>(acc);
-    if (!act) continue;
+      for (int i = 0; i < 16; ++i)
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {  // two halves of 8 column blocks: fewer live registers
-      float2 pre[8][2];  // gxn for cur columns, gcond for cond columns, loaded first
+        for (int hf = 0; hf < 2; ++hf) pre[i][hf] = load_pre(ch, i, hf);
+      float acc[64];
+      wg_bwd_chunk(acc, d.Ya, ya, pp, full, empty, ring, tn);
 #pragma unroll
-      for (int ii = 0; ii < 8; ++ii) {
-        const int n = ch * 128 + c_lo + (hh * 8 + ii) * 8;
+      for (int i = 0; i < 16; ++i)
 #pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int row = r_lo + hf * 8, g = t0 + row;
-          pre[ii][hf] = make_float2(0.f, 0.f);
-          if (n >= ncols || row >= nr || n < d.R) continue;
-          if (n < 2 * d.R) {
-            if (g >= L.vl) wg_gxn2(p, k, b, g, n - d.R, pre[ii][hf].x, pre[ii][hf].y);
-          } else {
-            pre[ii][hf] = *reinterpret_cast<const float2*>(p.gcond + (rowb + g) * d.C +
-                                                             (n - 2 * d.R));
+        for (int hf = 0; hf < 2; ++hf)
+          scatter(ch, i, hf, acc[i * 4 + hf * 2], acc[i * 4 + hf * 2 + 1], pre[i][hf]);
+    }
+  } else {
+    for (int pass = 0; 2 * pass < ch2; ++pass) {
+      const int ch = 2 * pass + wg;
+      const bool act = ch < ch2;
+      float acc[64];
+      acc_zero<64>(acc);
+      mma_slabs(d.Ya, act, pp, full, empty, ring, [&](uint32_t st, int j) {
+        const uint32_t a0 = ya + j * ATOM, b0 = st + wg * HALF;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_n128<0, 0>(acc, kdesc(a0 + kk * 32), kdesc(b0 + kk * 32));
+      });
+      acc_fence<64>(acc);
+      if (!act) continue;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {  // two halves of 8 column blocks: fewer live registers
+        float2 pre[8][2];  // gxn for cur columns, gcond for cond columns, loaded first
+#pragma unroll
+        for (int ii = 0; ii < 8; ++ii) {
+          const int n = ch * 128 + c_lo + (hh * 8 + ii) * 8;
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int row = r_lo + hf * 8, g = t0 + row;
+            pre[ii][hf] = make_float2(0.f, 0.f);
+            if (n >= ncols || row >= nr || n < d.R) continue;
+            if (n < 2 * d.R) {
+              if (g >= L.vl) wg_gxn2(p, k, b, g, n - d.R, pre[ii][hf].x, pre[ii][hf].y);
+            } else {
+              pre[ii][hf] = *reinterpret_cast<const float2*>(p.gcond + (rowb + g) * d.C +
+                                                               (n - 2 * d.R));
+            }
           }
         }
-      }
 #pragma unroll
-      for (int ii = 0; ii < 8; ++ii) {
-        const int i = hh * 8 + ii, n = ch * 128 + c_lo + i * 8;
-        if (n >= ncols) continue;
+        for (int ii = 0; ii < 8; ++ii) {
+          const int i = hh * 8 + ii, n = ch * 128 + c_lo + i * 8;
+          if (n >= ncols) continue;
 #pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int row = r_lo + hf * 8, g = t0 + row;
-          if (row >= nr) continue;
-          const float v0 = acc[i * 4 + hf * 2], v1 = acc[i * 4 + hf * 2 + 1];
-          const float2 q = pre[ii][hf];
-          if (n < d.R) {
-            if (mode == SINGLE || mode == LOWER) {
-              st2(p.gxp + (rowb + g) * d.R + n, v0, v1);
+          for (int hf = 0; hf < 2; ++hf) {
+            const int row = r_lo + hf * 8, g = t0 + row;
+            if (row >= nr) continue;
+            const float v0 = acc[i * 4 + hf * 2], v1 = acc[i * 4 + hf * 2 + 1];
+            const float2 q = pre[ii][hf];
+            if (n < d.R) {
+              if (mode == SINGLE || mode == LOWER) {
+                st2(p.gxp + (rowb + g) * d.R + n, v0, v1);
+              } else {
+                const int s = g - L.dd;
+                if (s >= c0)
+                  *reinterpret_cast<float2*>(k.gpo + (rowb + s) * d.R + n) = make_float2(v0, v1);
+              }
+            } else if (n < 2 * d.R) {
+              const int r = n - d.R;
+              if (mode == UPPER || mode == INNER)
+                *reinterpret_cast<float2*>(p.gcur + (rowb + g) * d.R + r) =
+                    make_float2(q.x + v0, q.y + v1);
+              else
+                st2(p.gxc + (rowb + g) * d.R + r, q.x + v0, q.y + v1);
             } else {
-              const int s = g - L.dd;
-              if (s >= c0)
-                *reinterpret_cast<float2*>(k.gpo + (rowb + s) * d.R + n) = make_float2(v0, v1);
-            }
-          } else if (n < 2 * d.R) {
-            const int r = n - d.R;
-            if (mode == UPPER || mode == INNER)
-              *reinterpret_cast<float2*>(p.gcur + (rowb + g) * d.R + r) =
+              *reinterpret_cast<float2*>(p.gcond + (rowb + g) * d.C + (n - 2 * d.R)) =
                   make_float2(q.x + v0, q.y + v1);
-            else
-              st2(p.gxc + (rowb + g) * d.R + r, q.x + v0, q.y + v1);
-          } else {
-            *reinterpret_cast<float2*>(p.gcond + (rowb + g) * d.C + (n - 2 * d.R)) =
-                make_float2(q.x + v0, q.y + v1);
+            }
           }
         }
       }
@@ -1251,7 +1565,12 @@ wg_bwd_kernel(const __grid_constant__ WgBwdP p) {
       Pipe pp{0, p.nst, 0};
       unsigned char* ring = sm + p.roff;
       for (int t0 = c1; t0 < hi; t0 += TM) wg_bwd_produce(p.L[1], d, HALO, pp, full, empty, ring);
-      for (int k = nt - 1; k >= 0; --k) {
+      if (NL == 2 && p.tiles == 2) {
+        for (int k = nt - 1; k >= 0; k -= 2)
+          for (int l = 1; l >= 0; --l)
+            wg_bwd_produce(p.L[l], d, l ? UPPER : LOWER, pp, full, empty, ring, k >= 1 ? 2 : 1,
+                           true);
+      } else for (int k = nt - 1; k >= 0; --k) {
         if (NL == 2) {
           wg_bwd_produce(p.L[1], d, UPPER, pp, full, empty, ring);
           wg_bwd_produce(p.L[0], d, LOWER, pp, full, empty, ring);
@@ -1268,6 +1587,38 @@ wg_bwd_kernel(const __grid_constant__ WgBwdP p) {
     const Link lower{LOWER, p.L[1].dd, p.gp2, nullptr}, single{SINGLE, 0, nullptr, nullptr};
     for (int t0 = c1; t0 < hi; t0 += TM)
       wg_bwd_tile(p, p.L[1], halo, b, t0, min(TM, hi - t0), c0, sm, pp, full, empty);
+    if constexpr (NL == 2) if (p.tiles == 2) {
+      // two tiles in flight: tiles k (warpgroup 0) and k - 1 (warpgroup 1),
+      // descending; LOWER of a tile reads the prev-tap cotangents that
+      // UPPER of the tile above it (the other warpgroup's) writes, so it
+      // waits on a CARRY barrier that the other warpgroup arrives at after
+      // those stores, with a fence: nothing else orders the two.  Warpgroup
+      // 1 arrives once a pair for warpgroup 0's LOWER of the next pair, and
+      // may arrive again before warpgroup 0 has met the last arrival: its
+      // arrivals take two barriers in turn.
+      const int wg = threadIdx.x >> 7;
+      consumers_sync();  // the halo's prev-tap cotangents have landed
+      Turn tn{wg, false, false};
+      for (int k = nt - 1; k >= 0; k -= 2) {
+        const int mine = k - wg;
+        if (mine < 0) break;
+        tn.partner = k >= 1;
+        const int t0 = c0 + mine * TM, nr = min(TM, c1 - t0);
+        wg_bwd_tile<WgBwdP, false, true>(p, p.L[1], upper, b, t0, nr, c0, sm, pp, full,
+                                         empty, &tn, p.om[1]);
+        if (wg == 0 ? k >= 1 : k >= 2) {  // a LOWER of the other warpgroup's reads them
+          __threadfence_block();
+          bar_arrive(wg ? BAR_CARRY + 1 + ((k >> 1) & 1) : BAR_CARRY, 256);
+        }
+        if (wg == 1) bar_sync(BAR_CARRY, 256);
+        else if (k < nt - 1) bar_sync(BAR_CARRY + 1 + (((k + 2) >> 1) & 1), 256);
+        wg_bwd_tile<WgBwdP, false, true>(p, p.L[0], lower, b, t0, nr, c0, sm, pp, full,
+                                         empty, &tn, p.om[0]);
+      }
+      if (wg == 0 && tn.sync_a) bar_sync(BAR_TURN, 256);  // warpgroup 1's last turn
+      if ((threadIdx.x & 127) == 0) bulk_wait<false>();
+      return;
+    }
     for (int k = nt - 1; k >= 0; --k) {  // descending tiles
       const int t0 = c0 + k * TM, nr = min(TM, c1 - t0);
       if (NL == 2) {
@@ -1565,11 +1916,12 @@ Layout fwd_layout(const WgDims& d) {
 }
 
 // backward: g_out at 0, g_y over it when one g_h pass writes it and it
-// fits there (aux = its offset), else after g_out
-Layout bwd_layout(const WgDims& d) {
+// fits there (aux = its offset), else after g_out; `tiles` such tiles in
+// flight, side by side (the pair backward's second at tiles / 2)
+Layout bwd_layout(const WgDims& d, int tiles = 1) {
   const int go = d.Oa * ATOM;
   const bool alias = (d.D + 127) / 128 <= 2 && d.Ya <= d.Oa;
-  return ring_layout(alias ? go : go + d.Ya * ATOM, alias ? 0 : go, SLAB);
+  return ring_layout(tiles * (alias ? go : go + d.Ya * ATOM), alias ? 0 : go, SLAB);
 }
 
 // K2b's recompute mode: the backward's tiles, and the forward's xin at 0
@@ -1666,7 +2018,8 @@ long long awt_gated_rec_slots(const int* iv) {
 
 // Blocks of a kernel that one SM holds at these widths (negative: a CUDA
 // error).  kind 0: the forward, 1: the backward, 2: the whole stack, 3: the
-// group, 4: the single-layer backward's recompute mode.
+// group, 4: the single-layer backward's recompute mode, 5: the pair
+// backward with two tiles in flight.
 int awt_gated_wg_blocks(int kind, const int* iv) {
   const WgDims d = wg_dims(iv);
   switch (kind) {
@@ -1675,6 +2028,7 @@ int awt_gated_wg_blocks(int kind, const int* iv) {
     case 2: return wg_blocks_per_sm(wg_stack_kernel, fwd_layout(d).bytes);
     case 3: return wg_blocks_per_sm(wg_group_kernel, bwd_layout(d).bytes);
     case 4: return wg_blocks_per_sm(wg_bwd_kernel<1, true>, bwd_rec_layout(d).bytes);
+    case 5: return wg_blocks_per_sm(wg_bwd_kernel<2>, bwd_layout(d, 2).bytes);
   }
   return -(int)cudaErrorInvalidValue;
 }
@@ -1711,7 +2065,8 @@ int awt_gated_fwd(int nl, void* const* ptr, const int* iv, cudaStream_t stream) 
 // layer (two slots) y, win, wout, gy, h, gout (weights unpadded), then x,
 // bin and the gate scratch (awt_gated_rec_slots float4 per block), read
 // only in the recompute mode: one layer whose y is null.
-// iv: 6 dims, prev_dd, cur_vl, r0, chunk, dd1, vl1, dd2, vl2, n_chunks
+// iv: 6 dims, prev_dd, cur_vl, r0, chunk, dd1, vl1, dd2, vl2, n_chunks,
+// tiles in flight (2: a pair whose two tiles fit, ops/gated_cuda.bwd_plan)
 int awt_gated_bwd(int nl, void* const* ptr, const int* iv, cudaStream_t stream) {
   WgBwdP p;
   const WgDims d = p.d = wg_dims(iv);
@@ -1737,9 +2092,15 @@ int awt_gated_bwd(int nl, void* const* ptr, const int* iv, cudaStream_t stream) 
     p.x = (const bf16*)ptr[21]; p.bin = (const float*)ptr[22]; p.gate = (float4*)ptr[23];
   }
   p.prev_dd = iv[6]; p.cur_vl = iv[7]; p.r0 = iv[8]; p.chunk = iv[9];
-  const Layout lay = rec ? bwd_rec_layout(d) : bwd_layout(d);
+  p.tiles = iv[15];
+  if (p.tiles != 1 && (p.tiles != 2 || nl != 2 || rec)) return (int)cudaErrorInvalidValue;
+  for (int l = 0; p.tiles == 2 && l < nl; ++l)
+    if (!map_stream(&p.om[l][0], p.L[l].gout, d.B, d.P, d.R + d.S) ||
+        !map_stream(&p.om[l][1], p.L[l].gy, d.B, d.P, 2 * d.D))
+      return (int)cudaErrorInvalidValue;
+  const Layout lay = rec ? bwd_rec_layout(d) : bwd_layout(d, p.tiles);
   if (lay.nst < 2) return (int)cudaErrorInvalidValue;
-  p.nst = lay.nst; p.yoff = lay.aux; p.roff = lay.tiles;
+  p.nst = lay.nst; p.yoff = lay.aux; p.roff = lay.tiles; p.tstride = lay.tiles / p.tiles;
   p.boff = lay.tiles + lay.nst * SLAB;
   const dim3 grid(iv[14], d.B);
   if (rec) return wg_launch(wg_bwd_kernel<1, true>, p, grid, lay.bytes, stream);

@@ -266,8 +266,7 @@ def gated_pair_bwd_reference(x1, x2, cond, gxcur, gxprev, gskip, gcond, pk1,
                              pk2[0], pk2[2])
     gcond[:, lo:] += g_xin2[..., 2 * n_res :]
     # layer 1's upstream: identity + cur at row q, prev tap produced at q + dd2
-    gxn1 = (gxn2 + g_xin2[..., n_res : 2 * n_res]) + F.pad(
-        g_xin2[:, :, :n_res], (0, 0, 0, dd2))[:, dd2:]
+    gxn1 = _inner_upstream(gxn2, g_xin2, n_res, dd2)
     xin1 = torch.cat([_shift_down(x1, dd1, lo, p_len), x1[:, lo:], cond[:, lo:]], -1)
     g_xin1, *dw1 = _bwd_rows(xin1, y1[:, lo:].float(), gxn1, gsk, pk1[0], pk1[2])
     gcond[:, lo:] += g_xin1[..., 2 * n_res :]

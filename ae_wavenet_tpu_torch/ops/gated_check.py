@@ -127,12 +127,16 @@ def segment_calls(dils, cond_tm, packed, xs, ys, cot, skip_seed: int = 1):
     and a single layer below the top, so the upstream prev-tap cotangent
     (prev_dd) is read; the whole stack from x0 into a random incoming skip,
     saving everything and saving nothing; and groups of up to 5 and of 3
-    layers below the top that end on the largest dilation.  Every call
-    returns a flat tuple of tensors."""
+    layers below the top that end on the largest dilation.  Besides, the
+    pair of the schedule below the top whose layer 2 reaches least far, under
+    one tile (the prev-tap carry from the tile above, which the pair
+    backward hands between its two tiles in flight).  Every call returns a
+    flat tuple of tensors."""
     n = len(dils)
     vl = lambda i: gated.valid_lo(dils, i)  # noqa: E731
     top = n - 2 if n % 2 == 0 else n - 3   # the last pair of the schedule
     mid = max(top - 2, 0)
+    near = max((i for i in range(0, top, 2) if dils[i + 1] < FAULT_TILE), default=mid)
     skip0 = _skip0(xs[0], packed, skip_seed)
 
     def fresh(d):
@@ -147,13 +151,13 @@ def segment_calls(dils, cond_tm, packed, xs, ys, cot, skip_seed: int = 1):
         return fn(xs[i], cond_tm, skip0.clone(), *packed[i], dd=dils[i],
                   r0=vl(i), save_y=True)
 
-    def pair_bwd(fn):
+    def pair_bwd(fn, i=mid):
         c = fresh(cot)
-        return fn(xs[mid], xs[mid + 1], cond_tm, c["gxcur"], c["gxprev"],
-                  c["gskip"], c["gcond"], packed[mid], packed[mid + 1],
-                  ys[mid], ys[mid + 1], dd1=dils[mid], dd2=dils[mid + 1],
-                  prev_dd=dils[mid + 2], valid_lo1=vl(mid),
-                  valid_lo2=vl(mid + 1), cur_valid_lo=vl(mid + 2))
+        return fn(xs[i], xs[i + 1], cond_tm, c["gxcur"], c["gxprev"],
+                  c["gskip"], c["gcond"], packed[i], packed[i + 1],
+                  ys[i], ys[i + 1], dd1=dils[i], dd2=dils[i + 1],
+                  prev_dd=dils[i + 2], valid_lo1=vl(i),
+                  valid_lo2=vl(i + 1), cur_valid_lo=vl(i + 2))
 
     def layer_bwd(fn, saved=True):
         c, i = fresh(cot), n - 2
@@ -187,6 +191,7 @@ def segment_calls(dils, cond_tm, packed, xs, ys, cot, skip_seed: int = 1):
         "gated_pair_fused": ("gated_pair_fused", pair_fwd),
         "gated_layer_fused": ("gated_layer_fused", layer_fwd),
         "gated_pair_bwd": ("gated_pair_bwd", pair_bwd),
+        "gated_pair_bwd_near": ("gated_pair_bwd", lambda fn: pair_bwd(fn, near)),
         "gated_layer_bwd": ("gated_layer_bwd", layer_bwd),
         "gated_layer_bwd_recompute": (
             "gated_layer_bwd", lambda fn: layer_bwd(fn, saved=False)),
@@ -286,20 +291,33 @@ def planted_segment_faults() -> dict:
     the whole stack's gradients by under GRAD_REL_TOL of the largest, so it
     is held against the kernel's own outputs.)  The single-layer backward's
     recompute mode with b_in dropped from the y it recomputes (the bias
-    that its gate pass adds to the accumulator)."""
+    that its gate pass adds to the accumulator).  The pair backward (the
+    pair below one tile's reach) with layer 1 reading none of the prev-tap
+    cotangents that layer 2 wrote from the tile just above: what a layer 1
+    tile that ran before the other tile in flight had stored them would
+    give."""
     inner_upstream = gated._inner_upstream
 
-    def no_carry(gxn, g_xin, n_res, dd_up):
-        # row r's prev-tap cotangent feeds row r - dd_up of the layer below
-        r = torch.arange(g_xin.shape[1], device=g_xin.device)
-        same_tile = (r // FAULT_TILE == (r - dd_up) // FAULT_TILE)[None, :, None]
-        prev = torch.where(same_tile, g_xin[..., :n_res], 0.0)
-        return inner_upstream(gxn, torch.cat([prev, g_xin[..., n_res:]], -1),
-                              n_res, dd_up)
+    def dropped(keep):
+        def upstream(gxn, g_xin, n_res, dd_up):
+            # row r's prev-tap cotangent feeds row r - dd_up of the layer below
+            r = torch.arange(g_xin.shape[1], device=g_xin.device)
+            src, dst = r // FAULT_TILE, (r - dd_up) // FAULT_TILE
+            prev = torch.where(keep(src, dst)[None, :, None], g_xin[..., :n_res], 0.0)
+            return inner_upstream(gxn, torch.cat([prev, g_xin[..., n_res:]], -1),
+                                  n_res, dd_up)
+        return upstream
 
-    def group_no_carry(*args, **kw):
-        with mock.patch.object(gated, "_inner_upstream", no_carry):
-            return gated.gated_group_bwd_reference(*args, **kw)
+    def patched(reference, keep):
+        def run(*args, **kw):
+            with mock.patch.object(gated, "_inner_upstream", dropped(keep)):
+                return reference(*args, **kw)
+        return run
+
+    group_no_carry = patched(gated.gated_group_bwd_reference,
+                             lambda src, dst: src == dst)
+    pair_no_carry = patched(gated.gated_pair_bwd_reference,
+                            lambda src, dst: src != dst + 1)
 
     def pair_fwd_off(*args, dd2, **kw):
         return gated.gated_pair_fused_reference(*args, dd2=dd2 + 1, **kw)
@@ -319,5 +337,7 @@ def planted_segment_faults() -> dict:
             ("gated_pair_bwd", pair_bwd_off),
             "grouped backward: prev-tap cotangents from another tile dropped":
             ("gated_group_bwd", group_no_carry),
+            "pair backward: layer 1 before the tile above's prev-tap stores":
+            ("gated_pair_bwd_near", pair_no_carry),
             "single-layer backward, recompute mode: b_in dropped from y":
             ("gated_layer_bwd_recompute", layer_bwd_no_bias)}

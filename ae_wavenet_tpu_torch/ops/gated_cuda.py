@@ -25,7 +25,10 @@ in a per-block scratch (:func:`_rec_scratch`).  Shape limits:
 ``filter_sz == 2``; n_res, n_cond, n_dil and
 n_skp multiples of 8 (16-byte rows); the widths' shared-memory footprint
 within one block's 227 KB (a width past it raises ``ValueError``); the
-grouped backward takes saved y only.  The whole-stack forward and the
+grouped backward takes saved y only.  The pair backward keeps two tiles in
+flight, one per consumer warpgroup, where two fit beside two ring stages
+(:func:`bwd_plan`); ``gated_pair_bwd.tiles_in_flight`` is the last
+launch's count.  The whole-stack forward and the
 grouped backward are cooperative launches of as many blocks as the card
 holds at once (:func:`coop_plan`), with a barrier across the grid between
 layers; a grid the card cannot hold raises.
@@ -42,6 +45,9 @@ from ae_wavenet_tpu_torch.ops import gated
 TM = 64                 # csrc/gated.cu: rows per tile
 SMEM_LIMIT = 232448     # bytes of shared memory one block may use (H100)
 BF16 = torch.bfloat16
+# csrc/gated.cu's shared-memory layout: a 64 x 64 bf16 atom, a ring stage,
+# the most stages, the ring's barriers, the alignment slack
+ATOM, SLAB, MAX_STAGES, BAR_BYTES, ALIGN = 8192, 32768, 4, 64, 1024
 
 
 def _dims(x: torch.Tensor, cond: torch.Tensor, w_in: torch.Tensor,
@@ -95,6 +101,35 @@ def _check(dims, tensors: dict, smem: int) -> None:
                          f"block; the kernel has at most {SMEM_LIMIT}")
 
 
+def _ring(tile_bytes: int) -> tuple[int, int]:
+    """csrc/gated.cu ``ring_layout``: (ring stages, bytes) beside
+    ``tile_bytes`` of tiles; bytes past SMEM_LIMIT when two stages do not
+    fit."""
+    stages = min(int((SMEM_LIMIT - ALIGN - BAR_BYTES - tile_bytes) / SLAB), MAX_STAGES)
+    if stages < 2:
+        return stages, SMEM_LIMIT + 1
+    return stages, ALIGN + tile_bytes + stages * SLAB + BAR_BYTES
+
+
+def bwd_plan(n_res: int, n_dil: int, n_skp: int) -> tuple[int, int, int]:
+    """The pair backward's plan from the widths alone (csrc/gated.cu
+    ``bwd_layout``, which refuses a plan that does not fit): (tiles in
+    flight, ring stages, shared-memory bytes).  A tile is g_out [64, n_res + n_skp] and g_y
+    [64, 2 n_dil] in 64-column atoms, g_y over g_out where one g_h pass
+    writes it and it fits there.  Two tiles go in flight, one per consumer
+    warpgroup, where two tiles and two ring stages fit; else one, as in the
+    other backward kernels.  Raises ValueError where even one does not fit."""
+    go = -(-(n_res + n_skp) // 64) * ATOM
+    gy = -(-2 * n_dil // 64) * ATOM
+    tile = go if -(-n_dil // 128) <= 2 and gy <= go else go + gy
+    for tiles in (2, 1):
+        stages, nbytes = _ring(tiles * tile)
+        if stages >= 2:
+            return tiles, stages, nbytes
+    raise ValueError(f"these widths need {ALIGN + tile + 2 * SLAB + BAR_BYTES} bytes "
+                     f"of shared memory per block; the kernel has at most {SMEM_LIMIT}")
+
+
 def _chunk(rows: int, batch: int, dd2: int, sms: int, per_sm: int) -> tuple[int, int]:
     """Rows per block (a multiple of the tile, at least the pair's dd2, so a
     halo spans one neighbouring chunk) and the number of chunks per batch
@@ -121,8 +156,9 @@ def coop_plan(rows: int, batch: int, sms: int, per_sm: int) -> tuple[int, int, i
 
 _BLOCKS: dict = {}
 # awt_gated_wg_blocks: the forward, the backward (saved y), the whole stack,
-# the group, the single-layer backward's recompute mode
-_KINDS = {"fwd": 0, "bwd": 1, "stack": 2, "group": 3, "bwd_rec": 4}
+# the group, the single-layer backward's recompute mode, the pair backward
+# with two tiles in flight
+_KINDS = {"fwd": 0, "bwd": 1, "stack": 2, "group": 3, "bwd_rec": 4, "bwd2": 5}
 
 
 def _per_sm(kind: str, dims) -> int:
@@ -147,7 +183,7 @@ def _sms(dev) -> int:
 
 def _plan(dev, kind: str, dims, rows: int, batch: int, dd2: int) -> tuple[int, int]:
     """``_chunk`` from the card's SM count and the kernel's occupancy at
-    these widths (kind "fwd", "bwd" or "bwd_rec")."""
+    these widths (kind "fwd", "bwd", "bwd2" or "bwd_rec")."""
     return _chunk(rows, batch, dd2, _sms(dev), _per_sm(kind, dims))
 
 
@@ -372,8 +408,9 @@ def _bwd(nl, xs, cond, gxcur, gxprev, gskip, gcond, pks, ys, dds, vls,
     b, p, r = dims[:3]
     dev = xs[0].device
     r0 = vls[0]
-    chunk, n_chunks = _plan(dev, "bwd_rec" if recompute else "bwd", dims, p - r0,
-                            b, dds[-1] if nl == 2 else 0)
+    tiles = bwd_plan(r, dims[4], dims[5])[0] if nl == 2 else 1
+    kind = "bwd_rec" if recompute else "bwd2" if tiles == 2 else "bwd"
+    chunk, n_chunks = _plan(dev, kind, dims, p - r0, b, dds[-1] if nl == 2 else 0)
     gxc, gxp = (_head_zeroed(torch.empty_like(xs[0]), r0) for _ in range(2))
     saved = [_scratch(dims, dev) for _ in range(nl)]
     f32 = dict(device=dev, dtype=torch.float32)
@@ -388,10 +425,12 @@ def _bwd(nl, xs, cond, gxcur, gxprev, gskip, gcond, pks, ys, dds, vls,
     rec = ([xs[0], cast[0][1], _rec_scratch(dims, b * n_chunks, dev)] if recompute
            else [None] * 3)
     ints = [*dims, prev_dd, cur_valid_lo, r0, chunk, dds[0], vls[0],
-            dds[1] if nl == 2 else 0, vls[1] if nl == 2 else 0, n_chunks]
+            dds[1] if nl == 2 else 0, vls[1] if nl == 2 else 0, n_chunks, tiles]
     _call("awt_gated_bwd", nl,
           _ptrs(cond, gxcur, gxprev, gskip, gcond, gxc, gxp, gcur2, gp2, *layers,
                 *rec), _ints(*ints), dev)
+    if nl == 2:
+        gated_pair_bwd.tiles_in_flight = tiles
     del cast, layers, rec
     return (gxc, gxp, gcond, *_weight_grads(dims, saved, xs, cond, dds, vls))
 
@@ -419,7 +458,8 @@ def gated_pair_bwd(x1, x2, cond, gxcur, gxprev, gskip, gcond, pk1, pk2, y1, y2,
                    *, dd1: int, dd2: int, prev_dd: int, valid_lo1: int,
                    valid_lo2: int, cur_valid_lo: int):
     """K2: two gated layers backward (saved-y); see
-    ``gated.gated_pair_bwd_reference``."""
+    ``gated.gated_pair_bwd_reference``.  ``.tiles_in_flight``: the last
+    launch's plan (:func:`bwd_plan`)."""
     if x1.device.type == "cpu":
         return gated.gated_pair_bwd_reference(
             x1, x2, cond, gxcur, gxprev, gskip, gcond, pk1, pk2, y1, y2,
@@ -486,3 +526,4 @@ for _f in (gated_layer_fused, gated_pair_fused, gated_layer_bwd, gated_pair_bwd,
            gated_stack_fused, gated_group_bwd):
     _f.launches = 0
 gated_layer_bwd.launches_recompute = 0
+gated_pair_bwd.tiles_in_flight = 0

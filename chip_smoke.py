@@ -74,13 +74,17 @@ power limit:
    beside their bytes bound and a cuBLAS yardstick of their products alone;
    the single-layer backward in both modes, saved y and recompute); the
    pair backward's, the whole-stack forward's and the grouped backward's
-   bits on a second launch; the whole stack
+   bits on a second launch; the pair backward's two tiles in flight at the
+   training shape (``tiles_in_flight``, the plan from the widths), and a
+   second pair below one tile's reach (dd2 < 64: the prev-tap carry between
+   the two tiles); the whole stack
    through ``GatedStack`` in seven schedules (logits and every gradient);
-   seven faults planted in the plain versions, which the same checks must
+   eight faults planted in the plain versions, which the same checks must
    reject (among them the pair forward's and the pair backward's layer 2
-   prev tap one row off, and b_in dropped from the recompute mode's y, at
-   both shapes); the stack's forward and backward timed under pairs, full fusion,
-   and full fusion with groups of 5;
+   prev tap one row off, the pair backward's layer 1 reading none of the
+   tile above's prev-tap cotangents, and b_in dropped from the recompute
+   mode's y, at both shapes); the stack's forward and backward timed under
+   pairs, full fusion, and full fusion with groups of 5;
 7. train: the train CLI at B = 4, n_win = 48,000.  ``new --preset chorowski
    --pallas-stack`` for 4 steps and ``resume`` for 2 more (the main path:
    pairs, saved y); 4 steps of the single-layer schedule
@@ -107,7 +111,8 @@ power limit:
    eagerly, bit for bit (every metric, parameter, gradient, buffer, moment
    and count), on the pairs (with the VQ kernel), single-layer and
    whole-stack schedules at B = 4, n_win = 48,000.
-   Median step time, samples/s and peak memory of each path (the
+   Median step time, samples/s and peak memory of each path (the main
+   path's with the pair backward's tiles in flight, 2 at these widths; the
    single-layer path's beside the other three), each
    whole-stack schedule's step beside the pairs step of the same run, and
    the step's time split from CUDA events around its parts in 3 steps of
@@ -121,7 +126,8 @@ power limit:
    dataset`` at B = 4, n_win = 48,000 for 4 steps and ``resume`` for 2 (10
    pair forwards and 10 pair backwards a step, no other kernel; the
    dataset statistics in the checkpoint's config; median step, samples/s,
-   peak memory and MFU from ``utils/flops.py``); then the generate CLI
+   peak memory and MFU from ``utils/flops.py``; the pair backward's tiles in
+   flight, 2); then the generate CLI
    vocodes 4,000 samples of one clip in bf16, ``--int8`` and ``--int4``,
    one sampler launch each, and ``cli/eval.py --quality`` scores the
    checkpoint;
@@ -1643,8 +1649,9 @@ def _phase_train_kernels(card: str, dev) -> dict:
     dils, _, cond_tm, packed, xs, ys, cot = chk.segment_inputs(wn, wcfg, ids, cond, spk)
     errs = {}
     calls = chk.segment_calls(dils, cond_tm, packed, xs, ys, cot)
-    faults = {seg: (name, bad)
-              for name, (seg, bad) in chk.planted_segment_faults().items()}
+    faults = {}
+    for name, (seg, bad) in chk.planted_segment_faults().items():
+        faults.setdefault(seg, []).append((name, bad))
     def held(name, wrapper, call, got, x0, where) -> tuple[float, float, str]:
         """``got`` against the plain version (the whole-stack forward also
         layer by layer on its own streams): -> (max|d|, rel, a note)."""
@@ -1672,8 +1679,7 @@ def _phase_train_kernels(card: str, dev) -> dict:
         errs[wrapper] = max(errs.get(wrapper, 0.0), ab)
         print(f"[train-kernels] {name} B={STACK_B} t_in={xs[0].shape[1]}: "
               f"{len(got)} outputs within {rel:.3g} of max|plain| {note} | {card}")
-        if name in faults:  # the same check on a planted fault must fail
-            fault, bad = faults[name]
+        for fault, bad in faults.get(name, ()):  # the same check on a planted fault must fail
             _, rel_f = chk.compare_outputs(got, call(bad))
             check(rel_f >= chk.SEGMENT_REL_TOL, f"planted fault '{fault}' passes")
             print(f"[train-kernels] planted fault '{fault}' in the plain version: "
@@ -1729,8 +1735,13 @@ def _phase_train_kernels(card: str, dev) -> dict:
         errs[wrapper] = max(errs[wrapper], ab)
         errs[name] = max(errs.get(name, 0.0), ab)
         timing = ""
-        if name in faults:  # the planted fault fails the same check at this shape too
-            fault, bad = faults[name]
+        if wrapper == "gated_pair_bwd":  # the plan from the widths: two tiles in flight
+            tiles = gc.bwd_plan(wcfg.n_res, wcfg.n_dil, wcfg.n_skp)[0]
+            check(gc.gated_pair_bwd.tiles_in_flight == tiles == 2,
+                  f"{name}: {gc.gated_pair_bwd.tiles_in_flight} tiles in flight, the "
+                  f"plan {tiles}")
+            timing += f"; {tiles} tiles in flight"
+        for fault, bad in faults.get(name, ()):  # the planted faults fail here too
             _, rel_f = chk.compare_outputs(got, call(bad))
             check(rel_f >= chk.SEGMENT_REL_TOL, f"planted fault '{fault}' passes at "
                   f"B={TRAIN_B}")
@@ -2096,6 +2107,18 @@ def mfu_text(cfg, spec, step_s: float) -> str:
             f"{peak_txt} TFLOP/s bf16 peak")
 
 
+def _tiles_in_flight(wcfg, label: str) -> str:
+    """The pair backward's last launch kept two tiles in flight, as the plan
+    from the widths says (``gated_cuda.bwd_plan``)."""
+    from ae_wavenet_tpu_torch.ops import gated_cuda as gc
+
+    got = gc.gated_pair_bwd.tiles_in_flight
+    want = gc.bwd_plan(wcfg.n_res, wcfg.n_dil, wcfg.n_skp)[0]
+    check(got == want == 2, f"{label}: the pair backward kept {got} tiles in flight, "
+          f"the plan {want}")
+    return f"the pair backward's tiles in flight {got}"
+
+
 def phase_train(card: str, dev, tmp: str) -> dict:
     from ae_wavenet_tpu_torch.data.dataset import make_synthetic_dataset
     from ae_wavenet_tpu_torch.models import autoencoder as ae
@@ -2134,6 +2157,7 @@ def phase_train(card: str, dev, tmp: str) -> dict:
         RESUME_STEPS)
     wall = time.perf_counter() - t0
     peak = max(peak_new, peak_res)
+    tiles_text = _tiles_in_flight(cfg.wavenet, "main path")
     check([r["step"] for r in new] == list(range(1, TRAIN_STEPS + 1)),
           f"new run logged steps {[r['step'] for r in new]}")
     check([r["step"] for r in res] == list(range(TRAIN_STEPS + 1,
@@ -2147,7 +2171,7 @@ def phase_train(card: str, dev, tmp: str) -> dict:
           f"{new[-1]['perplexity']:.2f}, grad_norm {res[-1]['grad_norm']:.4g} | {card}")
     print(f"[train] main path (pairs): median step {step_s * 1e3:.1f} ms -> "
           f"{TRAIN_B * TRAIN_WIN / step_s:.0f} samples/s (B={TRAIN_B}, n_win="
-          f"{TRAIN_WIN}); peak memory {peak:.2f} GiB | {card}")
+          f"{TRAIN_WIN}); peak memory {peak:.2f} GiB; {tiles_text} | {card}")
     print(f"[train] main path (pairs): "
           f"{mfu_text(cfg, ae.make_window_spec(cfg, TRAIN_WIN), step_s)} | {card}")
 
@@ -2403,6 +2427,7 @@ def _zero_counts() -> None:
                  fc.generate_fused_reference]):
         f.launches = 0
     gc.gated_layer_bwd.launches_recompute = 0
+    gc.gated_pair_bwd.tiles_in_flight = 0
     for name in ("launches", "launches_int8", "launches_int4", "mol_launches",
                  "streamed_bytes"):
         setattr(fc.generate_fused, name, 0)
@@ -2497,6 +2522,7 @@ def phase_inverter(card: str, dev, tmp: str) -> dict:
          "--ckpt-dir", ckpt], expect, card, "inverter, resume", RESUME_STEPS)
     wall = time.perf_counter() - t0
     last = TRAIN_STEPS + RESUME_STEPS
+    tiles_text = _tiles_in_flight(chorowski_config().wavenet, "inverter")
     check([r["step"] for r in new + res] == list(range(1, last + 1)),
           f"inverter runs logged steps {[r['step'] for r in new + res]}")
     check(math.isfinite(new[0]["loss"]), f"inverter first-step loss {new[0]['loss']}")
@@ -2520,7 +2546,7 @@ def phase_inverter(card: str, dev, tmp: str) -> dict:
           f"first-step loss {new[0]['loss']:.6f} | {card}")
     print(f"[inverter] median step {step_s * 1e3:.1f} ms -> "
           f"{TRAIN_B * TRAIN_WIN / step_s:.0f} samples/s (B={TRAIN_B}, n_win="
-          f"{TRAIN_WIN}); peak memory {peak:.2f} GiB; "
+          f"{TRAIN_WIN}); peak memory {peak:.2f} GiB; {tiles_text}; "
           f"{mfu_text(cfg, mi.make_window_spec(cfg, TRAIN_WIN), step_s)} | {card}")
 
     out = os.path.join(tmp, "inv.wav")

@@ -512,8 +512,9 @@ GCFG = WaveNetConfig(n_blocks=1, n_block_layers=8, n_res=32, n_dil=32,
                      n_skp=32, n_post=32, n_lc_in=16, n_lc_out=32,
                      n_global_embed=8, n_speakers=10)
 SEGMENTS = ["gated_pair_fused", "gated_layer_fused", "gated_pair_bwd",
-            "gated_layer_bwd", "gated_layer_bwd_recompute", "gated_stack_fused",
-            "gated_stack_fused_no_save", "gated_group_bwd", "gated_group_bwd_3"]
+            "gated_pair_bwd_near", "gated_layer_bwd", "gated_layer_bwd_recompute",
+            "gated_stack_fused", "gated_stack_fused_no_save", "gated_group_bwd",
+            "gated_group_bwd_3"]
 
 
 def _held_against_plain(cfg, batch, t_out, name, dev):
@@ -719,6 +720,122 @@ def test_gated_kernel_rejects_planted_fault(cuda_device, name):
     wrapper, call = gchk.segment_calls(dils, cond_tm, packed, xs, ys, cot)[segment]
     _, rel = gchk.compare_outputs(call(getattr(tgc, wrapper)), call(bad))
     assert rel >= gchk.SEGMENT_REL_TOL, rel
+
+
+def _config_widths(name):
+    """(n_res, n_cond, n_dil, n_skp) of a benchmark configuration's stack."""
+    import pathlib
+
+    from ae_wavenet_tpu_torch.utils import config as tcfg
+
+    doc = (pathlib.Path(__file__).resolve().parent.parent / "benchmark/configs"
+           / f"{name}.json").read_text()
+    w = tcfg.from_json(doc).wavenet
+    return w.n_res, w.n_lc_out + w.n_global_embed, w.n_dil, w.n_skp
+
+
+def _pair_bwd_held(dev, widths, batch, rows, dd1, dd2, prev_dd=4, seed=0):
+    """The pair backward on random operands of these widths (saved y, every
+    bias), ``rows`` rows from valid_lo1 of each of ``batch`` rows, against
+    its plain version at SEGMENT_REL_TOL and the same bits on a second
+    launch.  -> the launch's tiles in flight."""
+    r, c, d, s = widths
+    gen = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=gen) * scale).to(dtype).to(dev)
+
+    f32 = torch.float32
+
+    def weights():
+        return (rnd(2 * r + c, 2 * d, scale=(2 * r + c) ** -0.5, dtype=f32),
+                rnd(2 * d, scale=0.3, dtype=f32), rnd(d, r + s, scale=d ** -0.5, dtype=f32),
+                rnd(r + s, scale=0.3, dtype=f32))
+
+    vl1 = 5 + dd1
+    vl2, p = vl1 + dd2, vl1 + rows
+    x1, x2, cond = rnd(batch, p, r), rnd(batch, p, r), rnd(batch, p, c)
+    y1, y2 = rnd(batch, p, 2 * d), rnd(batch, p, 2 * d)
+    pk1, pk2 = weights(), weights()
+    cot = dict(gxcur=rnd(batch, p, r, scale=0.1), gxprev=rnd(batch, p, r, scale=0.1),
+               gskip=rnd(batch, p, s, scale=0.1), gcond=rnd(batch, p, c, scale=0.1, dtype=f32))
+
+    def call(fn):
+        k = {n: v.clone() for n, v in cot.items()}
+        return fn(x1, x2, cond, k["gxcur"], k["gxprev"], k["gskip"], k["gcond"], pk1,
+                  pk2, y1, y2, dd1=dd1, dd2=dd2, prev_dd=prev_dd, valid_lo1=vl1,
+                  valid_lo2=vl2, cur_valid_lo=vl2 + prev_dd)
+
+    got = call(tgc.gated_pair_bwd)
+    tiles = tgc.gated_pair_bwd.tiles_in_flight
+    again = call(tgc.gated_pair_bwd)
+    want = call(tgt.gated_pair_bwd_reference)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(bool(torch.isfinite(g.float()).all()) for g in got)
+    _, rel = gchk.compare_outputs(got, want)
+    assert rel < gchk.SEGMENT_REL_TOL, rel
+    return tiles
+
+
+def _tiles_per_chunk(dev, widths, batch, tiles, ragged):
+    """Rows per batch row for which the pair backward's chunks (one wave of
+    blocks over the card) hold ``tiles`` tiles each, the last chunk's top
+    tile ``ragged`` rows short."""
+    r, c, d, s = widths
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_sm = tgc._per_sm("bwd2", [batch, 1, r, c, d, s])
+    per_row = sms * per_sm // batch
+    rows = per_row * tiles * tgc.TM - ragged
+    assert tgc._chunk(rows, batch, 0, sms, per_sm) == (tiles * tgc.TM, per_row)
+    return rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["chorowski_vq", "mfcc_inverter"])
+def test_pair_bwd_keeps_two_tiles_in_flight_at_the_training_widths(cuda_device, config):
+    """The flagship's and the inverter's stack widths (n_res 384, n_skp 256,
+    n_dil 256): two g_out tiles and two ring stages fit, so the pair backward
+    keeps two tiles in flight, one per consumer warpgroup, and the launch
+    takes that plan; held to the plain version at B = 2, 4,100 rows (a
+    ragged last tile), dd2 = 128 (a two-tile halo)."""
+    widths = _config_widths(config)
+    assert tgc.bwd_plan(widths[0], widths[2], widths[3]) == (2, 2, 230464)
+    assert _pair_bwd_held(cuda_device, widths, 2, 4100, 64, 128, prev_dd=256) == 2
+
+
+@pytest.mark.cuda
+def test_pair_bwd_keeps_one_tile_in_flight_at_the_mol_widths(cuda_device):
+    """``wavenet_mol_24k``'s stack (n_res 512): two g_out tiles leave one
+    ring stage, so the pair backward keeps one tile in flight, both consumer
+    warpgroups on it, as the other backward kernels do; held to the plain
+    version."""
+    widths = _config_widths("wavenet_mol_24k")
+    assert tgc.bwd_plan(widths[0], widths[2], widths[3])[0] == 1
+    assert _pair_bwd_held(cuda_device, widths, 2, 4100, 256, 512, prev_dd=1) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dd2", [2, 32, 64, 96, 128, 256])
+def test_pair_bwd_carry_between_the_tiles_in_flight(cuda_device, dd2):
+    """Four tiles to each chunk (two pairs of tiles in flight), the last
+    chunk's top tile ragged: layer 1 of a tile reads the prev-tap
+    cotangents that layer 2 of the tile above (the other warpgroup's, for
+    dd2 < 128) or of the tiles above that wrote, and those of the halo
+    above the chunk."""
+    widths = (32, 40, 32, 32)
+    rows = _tiles_per_chunk(cuda_device, widths, 2, 4, 37)
+    assert _pair_bwd_held(cuda_device, widths, 2, rows, dd2 // 2 or 1, dd2) == 2
+
+
+@pytest.mark.cuda
+def test_pair_bwd_with_an_odd_tile_count_and_a_ragged_last_tile(cuda_device):
+    """Three tiles to each chunk: the second pair of tiles in flight has one
+    tile, which warpgroup 0 runs alone; the last chunk's top tile is ragged
+    (its rows the pair backward takes first)."""
+    widths = (32, 40, 32, 32)
+    rows = _tiles_per_chunk(cuda_device, widths, 1, 3, 28)
+    assert _pair_bwd_held(cuda_device, widths, 1, rows, 16, 32) == 2
 
 
 @pytest.mark.cuda

@@ -491,3 +491,69 @@ def test_coop_plan_gives_every_tile_once_to_one_block(rows, batch, sms, per_sm):
     assert owners[0] == owners[1]
     counts = [len(tiles(block)) for block in range(grid)]
     assert max(counts) == most and max(counts) - min(counts) <= 1
+
+
+def _stack_widths(config: str) -> tuple:
+    """(n_res, n_dil, n_skp) of a benchmark configuration's stack."""
+    import pathlib
+
+    from ae_wavenet_tpu_torch.utils import config as tcfg
+
+    doc = (pathlib.Path(__file__).resolve().parent.parent / "benchmark/configs"
+           / f"{config}.json").read_text()
+    w = tcfg.from_json(doc).wavenet
+    return w.n_res, w.n_dil, w.n_skp
+
+
+@pytest.mark.parametrize("config,plan", [
+    ("chorowski_vq", (2, 2, 230464)),      # 2 x 81,920 bytes of g_out, two stages
+    ("mfcc_inverter", (2, 2, 230464)),     # the same stack widths
+    ("wavenet_mol_24k", (1, 4, 230464)),   # n_res 512: 2 x 98,304 leave one stage
+])
+def test_pair_bwd_plan_at_the_configurations_widths(config, plan):
+    """The pair backward's (tiles in flight, ring stages, bytes), from the
+    widths alone: two tiles where two g_out tiles (g_y over each) and two
+    ring stages fit in one block's shared memory, else one."""
+    from ae_wavenet_tpu_torch.ops import gated_cuda
+
+    assert gated_cuda.bwd_plan(*_stack_widths(config)) == plan
+
+
+@pytest.mark.parametrize("n_dil,n_skp", [(32, 32), (256, 256), (384, 128), (512, 256)])
+def test_pair_bwd_plan_fits_one_block(n_dil, n_skp):
+    """Over n_res from 8 to 1,536: every plan fits one block's 232,448 bytes
+    with at least two ring stages, keeps two tiles where they fit and one
+    only where two do not, and widths past one tile raise."""
+    from ae_wavenet_tpu_torch.ops import gated_cuda
+
+    limit, seen = gated_cuda.SMEM_LIMIT, set()
+    for n_res in range(8, 1537, 8):
+        go = -(-(n_res + n_skp) // 64) * 8192
+        gy = -(-2 * n_dil // 64) * 8192
+        tile = go if -(-n_dil // 128) <= 2 and gy <= go else go + gy
+
+        def need(k):  # k tiles and two ring stages
+            return 1024 + k * tile + 2 * 32768 + 64
+
+        if need(1) > limit:
+            with pytest.raises(ValueError, match="shared memory"):
+                gated_cuda.bwd_plan(n_res, n_dil, n_skp)
+            seen.add(0)
+            continue
+        tiles, stages, nbytes = gated_cuda.bwd_plan(n_res, n_dil, n_skp)
+        seen.add(tiles)
+        assert tiles == (2 if need(2) <= limit else 1)
+        assert 2 <= stages <= gated_cuda.MAX_STAGES and nbytes <= limit
+        assert nbytes == 1024 + tiles * tile + stages * 32768 + 64
+    assert 0 in seen and (2 in seen) == (n_dil <= 256)  # wider g_y: no alias
+
+
+@pytest.mark.parametrize("n_res,n_dil,n_skp", [(1536, 32, 32), (2048, 256, 256),
+                                               (384, 2048, 256)])
+def test_pair_bwd_plan_refuses_widths_past_one_block(n_res, n_dil, n_skp):
+    """Widths whose one tile and two ring stages pass one block's shared
+    memory still raise ValueError (nothing falls back)."""
+    from ae_wavenet_tpu_torch.ops import gated_cuda
+
+    with pytest.raises(ValueError, match="shared memory"):
+        gated_cuda.bwd_plan(n_res, n_dil, n_skp)
