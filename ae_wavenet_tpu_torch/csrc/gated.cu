@@ -134,6 +134,17 @@ __device__ __forceinline__ void ld8(float* o, const bf16* p) {
 //     g_out tiles and two ring stages fit (ops/gated_cuda.bwd_plan): each
 //     consumer warpgroup takes a tile of its own and the two take turns at
 //     the tensor cores (Turn), one's epilogue under the other's products.
+//   The pair forward (K1) moves its epilogue traffic by TMA where the widths
+//     are multiples of 128 and leave room (ops/gated_cuda.fwd_plan;
+//     wg_fwd_kernel<2, true>): y is staged in 8 KB slots of shared memory
+//     (xin's prev atoms beyond h, its cond part, and a few atoms after xin)
+//     and stored by bulk copies; the tile's f32 skip rows come into the same
+//     slots by TMA under the out products, take the skip terms there and go
+//     back by TMA; the new residual rows are written over xin's cur part and
+//     stored from there, and layer 2 takes that part as its own cur part.
+//     Its epilogues test nothing per element, and the kernel runs its tile
+//     from one call site: what paid was the code the tile runs (fetched cold
+//     for each inlined copy), more than the traffic.
 //   K2b's recompute mode (no saved y) first runs the forward's gate pass on
 //     the tile's xin (y = xin @ w_in + b_in, f32 from the accumulator, as
 //     the reference keeps it): the gate goes to a per-block scratch of
@@ -163,6 +174,12 @@ constexpr int MAX_STAGES = 4;
 constexpr int SMEM_CAP = 232448;
 constexpr int DW_SLAB = 49152;   // A 2 x 8 KB + G 4 x 8 KB
 constexpr int BAR_BYTES = 2 * MAX_STAGES * 8;
+// K1's staged epilogue: at most MAX_SLOTS slots of one atom each, for y's
+// 64-column atoms or the f32 skip's boxes of SKIP_BOX columns (128 bytes a
+// row, the span of the swizzle); the skip rows' mbarrier after the ring's
+constexpr int MAX_SLOTS = 16;
+constexpr int SKIP_BOX = 32;
+constexpr int SKIP_BAR = 8;
 constexpr long long SPIN_LIMIT = 1LL << 34;  // clock cycles (several seconds)
 // The most layers one whole-stack or group launch takes: the per-layer
 // tables (tensor maps and pointers) travel by value in the kernel's
@@ -246,6 +263,12 @@ template <bool READ>
 __device__ __forceinline__ void bulk_wait() {
   if constexpr (READ) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
   else asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+// this thread's completed async-proxy writes to global memory -> ordered
+// before its generic accesses that follow (and, through a barrier, other
+// threads')
+__device__ __forceinline__ void fence_async_global() {
+  asm volatile("fence.proxy.async.global;" ::: "memory");
 }
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, 256;" ::: "memory");
@@ -378,6 +401,11 @@ __device__ __forceinline__ int swz(int row, int col) {
   return (col >> 6) * ATOM + row * 128 + ((((col & 63) >> 3) ^ (row & 7)) << 4) +
          (col & 7) * 2;
 }
+// byte offset of f32 (row, col) in a box of 64 rows x SKIP_BOX columns,
+// 128-byte swizzle: the 16-byte group c of row r at group c ^ (r % 8)
+__device__ __forceinline__ int skip_swz(int row, int col) {
+  return row * 128 + ((((col & 31) >> 2) ^ (row & 7)) << 4) + (col & 3) * 4;
+}
 __device__ __forceinline__ uint32_t pack2(float a, float b) {
   __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
   return *reinterpret_cast<uint32_t*>(&h);
@@ -471,17 +499,18 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
 // pointers with cp.async: every copy in flight at once;
 // rows >= nr, rows below valid_lo and null pointers give zeros (a copy of
 // 0 source bytes), and so do the columns past each part's width.  Only the
-// tap parts are written when with_cond is false.
-template <typename PrevF, typename CurF>
+// tap parts are written when with_cond is false, and the cur part is left
+// as it is when CUR is false.
+template <bool CUR = true, typename PrevF, typename CurF>
 __device__ void wg_load_xin(unsigned char* xs, const WgDims& d, int b, int t0, int nr,
                             const bf16* cond, bool with_cond, PrevF prev, CurF cur,
                             int valid_lo) {
-  const int gr = d.Ra * 8, ng = with_cond ? 2 * gr + d.Ca * 8 : 2 * gr;
+  const int gr = d.Ra * 8, nt = CUR ? 2 * gr : gr, ng = with_cond ? nt + d.Ca * 8 : nt;
   const uint32_t xa = smem_u32(xs);
   for (int i = threadIdx.x; i < TM * ng; i += CONSUMERS) {
     const int row = i / ng, q = i - row * ng, g = t0 + row;
-    const int part = q < gr ? 0 : q < 2 * gr ? 1 : 2;
-    const int col = (q - part * gr) * 8;
+    const int part = q < gr ? 0 : q < nt ? 1 : 2;
+    const int col = (q - (part == 2 ? nt : part * gr)) * 8;
     const bool in = row < nr && g >= valid_lo;
     const bf16* src = nullptr;
     if (in) {
@@ -526,7 +555,18 @@ struct WgFwdP {
   const bf16* x; const bf16* cond; float* skip;
   bf16* mid; bf16* xout; bf16* halo;
   int r0, chunk, nst, hoff, roff, boff;  // byte offsets of h, the ring, the barriers
+  // the staged epilogue (wg_fwd_kernel<2, true>): each layer's new residual
+  // rows (om: mid, xout) and y (ym), the f32 skip (sk, boxes of 64 rows x
+  // SKIP_BOX columns), through the slots at byte offsets slot[]: y's atom a
+  // in slot a, the skip's box j in slot j
+  CUtensorMap om[2], ym[2], sk;
+  int slot[MAX_SLOTS];
 };
+
+// the staged epilogue's mbarrier: the tile's skip rows have landed
+__device__ __forceinline__ uint64_t* skip_bar(const WgFwdP& p, unsigned char* sm) {
+  return reinterpret_cast<uint64_t*>(sm + p.boff + BAR_BYTES);
+}
 
 // The gate pass's weight slabs (w_in through its three part maps, prev,
 // cur and cond rows), in the order wg_gate_pass takes them: the forward's
@@ -621,10 +661,23 @@ __device__ void wg_fwd_produce(const WgFwdLayer& L, const WgDims& d, Pipe& pp,
 // epilogue also derives this thread's rows and columns anew, so that the
 // compiler does not keep their swizzled offsets in registers across the
 // products.
-template <typename P, int NCB = 16>
+// STAGED (K1's staged epilogue, WgFwdP; widths that are multiples of 128,
+// fwd_plan): y goes to its slots and thread 0 stores it by TMA (p.ym[layer])
+// once the gate epilogue is done, waits until those stores have read the
+// slots, and loads the tile's skip rows into the same slots (skip_bar, phase
+// *sph), which land under the out products; the out epilogue adds the skip
+// terms there and writes x' over xin's cur part, and thread 0 stores both by
+// TMA (p.om[layer], p.sk) in its bulk group.  The caller waits on that group
+// before anything lands on those regions or reads the rows stored.  Every
+// 128-column chunk is all real, all x' or all skip, so these epilogues test
+// nothing per element: they write every row, since rows past nr lie past P
+// and TMA stores none of them, and y of a halo tile lands in slots that
+// nothing stores (halo tiles take the epilogue of out above).
+template <typename P, int NCB = 16, bool STAGED = false>
 __device__ void wg_fwd_tile(const P& p, const WgFwdLayer& L, int b, int t0, int nr,
                             bf16* out, int out_row0, bool halo, unsigned char* sm,
-                            Pipe& pp, uint64_t* full, uint64_t* empty) {
+                            Pipe& pp, uint64_t* full, uint64_t* empty, int layer = 0,
+                            uint32_t* sph = nullptr) {
   const WgDims& d = p.d;
   const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
   const int r_lo0 = (tid >> 5) * 16 + ((tid & 31) >> 2), c_lo0 = (tid & 3) * 2;
@@ -638,6 +691,28 @@ __device__ void wg_fwd_tile(const P& p, const WgFwdLayer& L, int b, int t0, int 
   wg_gate_pass(d, xa, pp, full, empty, ring, [&](int, int ch, float* acc) {
     const int r_lo = NCB < 16 ? opaque(r_lo0) : r_lo0;
     const int c_lo = NCB < 16 ? opaque(c_lo0) : c_lo0;
+    if constexpr (STAGED) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int n = ch * 128 + c_lo + i * 8, m = d.D + n;
+        const float bf0 = __ldg(L.bin + n), bf1 = __ldg(L.bin + n + 1);
+        const float bg0 = __ldg(L.bin + m), bg1 = __ldg(L.bin + m + 1);
+        unsigned char* yf = sm + p.slot[n >> 6];
+        unsigned char* yg = sm + p.slot[m >> 6];
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int row = r_lo + hf * 8;
+          const float yf0 = acc[i * 4 + hf * 2] + bf0, yf1 = acc[i * 4 + hf * 2 + 1] + bf1;
+          const float yg0 = acc[(i + 16) * 4 + hf * 2] + bg0;
+          const float yg1 = acc[(i + 16) * 4 + hf * 2 + 1] + bg1;
+          *reinterpret_cast<uint32_t*>(yf + swz(row, n & 63)) = pack2(yf0, yf1);
+          *reinterpret_cast<uint32_t*>(yg + swz(row, m & 63)) = pack2(yg0, yg1);
+          *reinterpret_cast<uint32_t*>(hs + swz(row, n)) =
+              pack2(ftanh(yf0) * fsigm(yg0), ftanh(yf1) * fsigm(yg1));
+        }
+      }
+      return;
+    }
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
       const int n = ch * 128 + c_lo + i * 8;
@@ -668,6 +743,19 @@ __device__ void wg_fwd_tile(const P& p, const WgFwdLayer& L, int b, int t0, int 
   });
   fence_async();
   consumers_sync();
+  if constexpr (STAGED) {
+    if (!halo && threadIdx.x == 0) {
+      if (L.y) {  // y from its slots, which the skip rows then take
+        for (int a = 0; a < d.Ya; ++a) tma_store3(&p.ym[layer], sm + p.slot[a], a * 64, t0, b);
+        bulk_commit();
+        bulk_wait<true>();
+      }
+      const int nskb = d.S / SKIP_BOX;
+      uint64_t* sb = skip_bar(p, sm);
+      mbar_expect_tx(sb, nskb * ATOM);
+      for (int j = 0; j < nskb; ++j) tma3(sm + p.slot[j], &p.sk, sb, j * SKIP_BOX, t0, b);
+    }
+  }
 
   // out = h @ w_out + b_out; x' = bf16(x + bf16(res)); skip += skip term
   const int och = (d.R + d.S + 127) >> 7, lo = d.R + d.S;
@@ -687,6 +775,44 @@ __device__ void wg_fwd_tile(const P& p, const WgFwdLayer& L, int b, int t0, int 
     if (!act) continue;
     const int r_lo = NCB < 16 ? opaque(r_lo0) : r_lo0;
     const int c_lo = NCB < 16 ? opaque(c_lo0) : c_lo0;
+    if constexpr (STAGED) {
+      if (!halo) {
+        const int n0 = ch * 128;
+        if (n0 < d.R) {  // x' over the cur part
+          unsigned char* xw = sm + d.Ra * ATOM;
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            const int n = n0 + c_lo + i * 8;
+            const float b0 = __ldg(L.bout + n), b1 = __ldg(L.bout + n + 1);
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              const int row = r_lo + hf * 8;
+              const float o0 = acc[i * 4 + hf * 2] + b0, o1 = acc[i * 4 + hf * 2 + 1] + b1;
+              float x0, x1;
+              ld2(reinterpret_cast<const bf16*>(xw + swz(row, n)), x0, x1);
+              *reinterpret_cast<uint32_t*>(xw + swz(row, n)) = pack2(x0 + rbf(o0), x1 + rbf(o1));
+            }
+          }
+        } else {
+          mbar_wait(skip_bar(p, sm), *sph);  // the skip rows have landed
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            const int n = n0 + c_lo + i * 8, c = n - d.R;
+            const float b0 = __ldg(L.bout + n), b1 = __ldg(L.bout + n + 1);
+            unsigned char* sb = sm + p.slot[(unsigned)c / SKIP_BOX];
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              const int row = r_lo + hf * 8;
+              const float o0 = acc[i * 4 + hf * 2] + b0, o1 = acc[i * 4 + hf * 2 + 1] + b1;
+              float2* q = reinterpret_cast<float2*>(sb + skip_swz(row, c));
+              const float2 v = *q;
+              *q = make_float2(v.x + o0, v.y + o1);
+            }
+          }
+        }
+        continue;
+      }
+    }
 #pragma unroll
     for (int i0 = 0; i0 < 16; i0 += NCB) {
       float2 sk[NCB][2];  // the skip rows this thread adds to, loaded first
@@ -726,11 +852,36 @@ __device__ void wg_fwd_tile(const P& p, const WgFwdLayer& L, int b, int t0, int 
       }
     }
   }
+  if constexpr (STAGED) {
+    if (!halo) {  // x' and the skip rows out by TMA
+      fence_async();
+      consumers_sync();
+      if (threadIdx.x == 0) {
+        for (int a = 0; a < d.Ra; ++a)
+          tma_store3(&p.om[layer], sm + (d.Ra + a) * ATOM, a * 64, t0, b);
+        for (int j = 0; j < d.S / SKIP_BOX; ++j)
+          tma_store3(&p.sk, sm + p.slot[j], j * SKIP_BOX, t0, b);
+        bulk_commit();
+      }
+      *sph ^= 1;
+    }
+  }
 }
 
-template <int NL>
+// NL = 1: K1b; NL = 2: K1, with its epilogues staged (STAGED) where the
+// widths leave room (ops/gated_cuda.fwd_plan).  Staged, thread 0 orders its
+// bulk stores (wg_fwd_tile) with what follows: before a tile's xin lands on
+// the slots and the cur part, they have read them; before layer 2 reads
+// layer 1's rows of mid (prev tap; its cur part is layer 1's x', left in
+// shared memory) and loads the skip rows layer 1 stored, they are complete.
+// The staged kernel calls the tile from one place, for the halo tiles and
+// both layers: the tile's code is long (its epilogues unrolled), and when
+// the kernel inlined it three times, fetching a gate epilogue's code cold
+// took as long as its work (a clock64 split of the tile).
+template <int NL, bool STAGED = false>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 wg_fwd_kernel(const __grid_constant__ WgFwdP p) {
+  static_assert(!STAGED || NL == 2, "the staged epilogue is the pair's");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
   const WgDims& d = p.d;
@@ -740,7 +891,8 @@ wg_fwd_kernel(const __grid_constant__ WgFwdP p) {
   if (c0 >= c1) return;
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + p.boff);
   uint64_t* empty = full + MAX_STAGES;
-  init_ring(full, empty, p.nst);
+  if constexpr (STAGED) if (threadIdx.x == 0) mbar_init(skip_bar(p, sm), 1);
+  init_ring(full, empty, p.nst);  // its fence and barrier cover skip_bar's init
   const int dd1 = p.L[0].dd, dd2 = NL == 2 ? p.L[1].dd : 0;
   const int h0 = NL == 2 ? max(c0 - dd2, p.r0) : c0;  // first halo row
   if (threadIdx.x >= CONSUMERS) {
@@ -761,14 +913,6 @@ wg_fwd_kernel(const __grid_constant__ WgFwdP p) {
     };
     auto cur1 = [&](int g) -> const bf16* { return xb + (size_t)g * d.R; };
     bf16* hal = p.halo + (size_t)(blockIdx.y * gridDim.x + blockIdx.x) * dd2 * d.R;
-    for (int t0 = h0; t0 < c0; t0 += TM) {  // layer 1 below the chunk, for layer 2's prev tap
-      const int nr = min(TM, c0 - t0);
-      consumers_sync();
-      wg_load_xin(sm, d, b, t0, nr, p.cond, true, prev1, cur1, 0);
-      fence_async();
-      consumers_sync();
-      wg_fwd_tile(p, p.L[0], b, t0, nr, hal, c0 - dd2, true, sm, pp, full, empty);
-    }
     bf16* midb = p.mid + (size_t)b * d.P * d.R;
     auto prev2 = [&](int g) -> const bf16* {
       const int s = g - dd2;
@@ -777,6 +921,45 @@ wg_fwd_kernel(const __grid_constant__ WgFwdP p) {
       return midb + (size_t)s * d.R;
     };
     auto cur2 = [&](int g) -> const bf16* { return midb + (size_t)g * d.R; };
+    if constexpr (STAGED) {
+      // one call site of the tile, so that its code is in the kernel once:
+      // the halo tiles (layer 1 below the chunk), then layers 1 and 2 of
+      // each tile of the chunk
+      uint32_t sph = 0;  // skip_bar's phase
+      const int nh = (c0 - h0 + TM - 1) / TM, nt = (c1 - c0 + TM - 1) / TM;
+      for (int s = 0; s < nh + 2 * nt; ++s) {
+        const bool halo = s < nh;
+        const int l = halo ? 0 : (s - nh) & 1;
+        const int t0 = halo ? h0 + s * TM : c0 + ((s - nh) >> 1) * TM;
+        const int nr = min(TM, (halo ? c0 : c1) - t0);
+        if (threadIdx.x == 0) {
+          if (l) {
+            bulk_wait<false>();
+            fence_async_global();
+          } else {
+            bulk_wait<true>();
+          }
+        }
+        consumers_sync();
+        if (l) wg_load_xin<false>(sm, d, b, t0, nr, p.cond, true, prev2, cur2, 0);
+        else wg_load_xin(sm, d, b, t0, nr, p.cond, true, prev1, cur1, 0);
+        fence_async();
+        consumers_sync();
+        bf16* out = halo ? hal : (l ? p.xout : p.mid) + (size_t)b * d.P * d.R;
+        wg_fwd_tile<WgFwdP, 16, true>(p, p.L[l], b, t0, nr, out, halo ? c0 - dd2 : 0, halo, sm,
+                                      pp, full, empty, l, &sph);
+      }
+      if (threadIdx.x == 0) bulk_wait<false>();
+      return;
+    }
+    for (int t0 = h0; t0 < c0; t0 += TM) {  // layer 1 below the chunk, for layer 2's prev tap
+      const int nr = min(TM, c0 - t0);
+      consumers_sync();
+      wg_load_xin(sm, d, b, t0, nr, p.cond, true, prev1, cur1, 0);
+      fence_async();
+      consumers_sync();
+      wg_fwd_tile(p, p.L[0], b, t0, nr, hal, c0 - dd2, true, sm, pp, full, empty);
+    }
     bf16* out1 = (NL == 2 ? p.mid : p.xout) + (size_t)b * d.P * d.R;
     for (int t0 = c0; t0 < c1; t0 += TM) {
       const int nr = min(TM, c1 - t0);
@@ -1851,10 +2034,11 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map, 128-byte swizzle, zeros past the edges.  dims and box
-// innermost first; strides in bytes of dims 1.. .
+// A bf16 (or `type`) tensor map, 128-byte swizzle, zeros past the edges.
+// dims and box innermost first; strides in bytes of dims 1.. .
 bool tensor_map(CUtensorMap* m, const void* base, int rank, const uint64_t* dims,
-                const uint64_t* strides, const uint32_t* box) {
+                const uint64_t* strides, const uint32_t* box,
+                CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiled fn = encode_tiled();
   if (!fn) return false;
   cuuint64_t gd[3], gs[2];
@@ -1864,7 +2048,7 @@ bool tensor_map(CUtensorMap* m, const void* base, int rank, const uint64_t* dims
     bx[i] = box[i];
     if (i) gs[i - 1] = strides[i - 1];
   }
-  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), gd, gs,
+  return fn(m, type, rank, const_cast<void*>(base), gd, gs,
             bx, es, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -1886,6 +2070,14 @@ bool map_stream(CUtensorMap* m, const bf16* base, int B, int P, int C) {
   return tensor_map(m, base, 3, dims, strides, box);
 }
 
+// the f32 skip stream [B, P, S], boxes of 64 rows x SKIP_BOX columns
+bool map_skip(CUtensorMap* m, const float* base, int B, int P, int S) {
+  const uint64_t dims[3] = {(uint64_t)S, (uint64_t)P, (uint64_t)B};
+  const uint64_t strides[2] = {(uint64_t)S * 4, (uint64_t)P * S * 4};
+  const uint32_t box[3] = {SKIP_BOX, 64, 1};
+  return tensor_map(m, base, 3, dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+}
+
 WgDims wg_dims(const int* iv) {
   WgDims d;
   d.B = iv[0]; d.P = iv[1]; d.R = iv[2]; d.C = iv[3]; d.D = iv[4]; d.S = iv[5];
@@ -1895,15 +2087,15 @@ WgDims wg_dims(const int* iv) {
 }
 
 // Shared memory of the Hopper kernels: the tiles, then as many ring stages
-// as fit (2 to MAX_STAGES), then the barriers; bytes > SMEM_CAP when even
-// two stages do not fit.
+// as fit (2 to MAX_STAGES), then `bars` bytes of barriers; bytes > SMEM_CAP
+// when even two stages do not fit.
 struct Layout { int tiles, aux, nst, bytes; };
 
-Layout ring_layout(int tiles, int aux, int stage) {
+Layout ring_layout(int tiles, int aux, int stage, int bars = BAR_BYTES) {
   Layout l{tiles, aux, 0, 0};
-  l.nst = (SMEM_CAP - 1024 - BAR_BYTES - tiles) / stage;
+  l.nst = (SMEM_CAP - 1024 - bars - tiles) / stage;
   if (l.nst > MAX_STAGES) l.nst = MAX_STAGES;
-  l.bytes = l.nst < 2 ? SMEM_CAP + 1 : 1024 + tiles + l.nst * stage + BAR_BYTES;
+  l.bytes = l.nst < 2 ? SMEM_CAP + 1 : 1024 + tiles + l.nst * stage + bars;
   return l;
 }
 
@@ -1913,6 +2105,24 @@ Layout fwd_layout(const WgDims& d) {
   const int xin = (2 * d.Ra + d.Ca) * ATOM;
   const bool alias = (d.D + 127) / 128 <= 2 && d.Da <= d.Ra;
   return ring_layout(alias ? xin : xin + d.Da * ATOM, alias ? 0 : xin, SLAB);
+}
+
+// K1's staged epilogue (ops/gated_cuda.fwd_plan), for n_res, n_dil and
+// n_skp multiples of 128 (every 128-column chunk of the epilogues all real,
+// all x' or all skip): the forward's xin with h over its prev part (one gate
+// pass), and as many 8 KB slots as y has atoms or the skip has boxes: xin's
+// prev atoms beyond h, its cond part (both free once the gate pass has read
+// them: layer 2 reloads cond), then the rest after xin (aux = their
+// offset); the skip rows' mbarrier after the ring's.  bytes > SMEM_CAP
+// where the widths are not such multiples, h does not go over prev, the
+// slots pass MAX_SLOTS or two stages do not fit.
+Layout fwd_staged_layout(const WgDims& d) {
+  const int xin = (2 * d.Ra + d.Ca) * ATOM, have = d.Ra - d.Da + d.Ca;
+  const int need = d.Ya > d.S / SKIP_BOX ? d.Ya : d.S / SKIP_BOX;
+  if (d.R % 128 || d.D % 128 || d.S % 128 || d.D > 256 || d.Da > d.Ra || need > MAX_SLOTS)
+    return Layout{xin, xin, 0, SMEM_CAP + 1};
+  const int extra = need > have ? need - have : 0;
+  return ring_layout(xin + extra * ATOM, xin, SLAB, BAR_BYTES + SKIP_BAR);
 }
 
 // backward: g_out at 0, g_y over it when one g_h pass writes it and it
@@ -2019,7 +2229,8 @@ long long awt_gated_rec_slots(const int* iv) {
 // Blocks of a kernel that one SM holds at these widths (negative: a CUDA
 // error).  kind 0: the forward, 1: the backward, 2: the whole stack, 3: the
 // group, 4: the single-layer backward's recompute mode, 5: the pair
-// backward with two tiles in flight.
+// backward with two tiles in flight, 6: the pair forward with its epilogue
+// staged.
 int awt_gated_wg_blocks(int kind, const int* iv) {
   const WgDims d = wg_dims(iv);
   switch (kind) {
@@ -2029,13 +2240,15 @@ int awt_gated_wg_blocks(int kind, const int* iv) {
     case 3: return wg_blocks_per_sm(wg_group_kernel, bwd_layout(d).bytes);
     case 4: return wg_blocks_per_sm(wg_bwd_kernel<1, true>, bwd_rec_layout(d).bytes);
     case 5: return wg_blocks_per_sm(wg_bwd_kernel<2>, bwd_layout(d, 2).bytes);
+    case 6: return wg_blocks_per_sm(wg_fwd_kernel<2, true>, fwd_staged_layout(d).bytes);
   }
   return -(int)cudaErrorInvalidValue;
 }
 
 // ptr: x, cond, skip, mid, xout, halo, then per layer win, bin, wout, bout, y
 // (weights unpadded: win [2R + C][2D], wout [D][R + S] bf16; biases f32)
-// iv: 6 dims, r0, chunk, dd1, dd2, n_chunks
+// iv: 6 dims, r0, chunk, dd1, dd2, n_chunks, staged (1: the pair's epilogue
+// staged, where its layout fits: ops/gated_cuda.fwd_plan)
 int awt_gated_fwd(int nl, void* const* ptr, const int* iv, cudaStream_t stream) {
   WgFwdP p;
   const WgDims d = p.d = wg_dims(iv);
@@ -2052,11 +2265,29 @@ int awt_gated_fwd(int nl, void* const* ptr, const int* iv, cudaStream_t stream) 
     L.dd = iv[8 + l];
   }
   p.r0 = iv[6]; p.chunk = iv[7];
-  const Layout lay = fwd_layout(d);
+  const bool staged = iv[11] != 0;
+  if (staged && nl != 2) return (int)cudaErrorInvalidValue;
+  const Layout lay = staged ? fwd_staged_layout(d) : fwd_layout(d);
   if (lay.nst < 2) return (int)cudaErrorInvalidValue;
-  p.nst = lay.nst; p.hoff = lay.aux; p.roff = lay.tiles;
+  p.nst = lay.nst; p.hoff = staged ? 0 : lay.aux; p.roff = lay.tiles;
   p.boff = lay.tiles + lay.nst * SLAB;
   const dim3 grid(iv[10], d.B);
+  if (staged) {
+    if (!map_stream(&p.om[0], p.mid, d.B, d.P, d.R) ||
+        !map_stream(&p.om[1], p.xout, d.B, d.P, d.R) ||
+        !map_skip(&p.sk, p.skip, d.B, d.P, d.S))
+      return (int)cudaErrorInvalidValue;
+    for (int l = 0; l < 2; ++l)
+      if (p.L[l].y && !map_stream(&p.ym[l], p.L[l].y, d.B, d.P, 2 * d.D))
+        return (int)cudaErrorInvalidValue;
+    // the slots: xin's prev atoms beyond h, its cond part, then after xin
+    const int spare = d.Ra - d.Da;
+    for (int k = 0; k < MAX_SLOTS; ++k)
+      p.slot[k] = k < spare ? (d.Da + k) * ATOM
+                  : k < spare + d.Ca ? (2 * d.Ra + k - spare) * ATOM
+                                     : lay.aux + (k - spare - d.Ca) * ATOM;
+    return wg_launch(wg_fwd_kernel<2, true>, p, grid, lay.bytes, stream);
+  }
   return nl == 2 ? wg_launch(wg_fwd_kernel<2>, p, grid, lay.bytes, stream)
                  : wg_launch(wg_fwd_kernel<1>, p, grid, lay.bytes, stream);
 }

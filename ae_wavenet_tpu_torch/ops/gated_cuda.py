@@ -28,7 +28,12 @@ within one block's 227 KB (a width past it raises ``ValueError``); the
 grouped backward takes saved y only.  The pair backward keeps two tiles in
 flight, one per consumer warpgroup, where two fit beside two ring stages
 (:func:`bwd_plan`); ``gated_pair_bwd.tiles_in_flight`` is the last
-launch's count.  The whole-stack forward and the
+launch's count.  The pair forward stages its epilogue traffic (y, the new
+residual rows, the f32 skip rows) in shared memory and moves it by TMA
+where the widths are multiples of 128 and the slots and two ring stages
+fit (:func:`fwd_plan`);
+``gated_pair_fused.staged_epilogue`` is the last launch's plan (1 staged,
+0 not).  The whole-stack forward and the
 grouped backward are cooperative launches of as many blocks as the card
 holds at once (:func:`coop_plan`), with a barrier across the grid between
 layers; a grid the card cannot hold raises.
@@ -48,6 +53,9 @@ BF16 = torch.bfloat16
 # csrc/gated.cu's shared-memory layout: a 64 x 64 bf16 atom, a ring stage,
 # the most stages, the ring's barriers, the alignment slack
 ATOM, SLAB, MAX_STAGES, BAR_BYTES, ALIGN = 8192, 32768, 4, 64, 1024
+# the pair forward's staged epilogue: the most slots, the f32 skip columns
+# of one slot, the skip rows' barrier
+MAX_SLOTS, SKIP_BOX, SKIP_BAR = 16, 32, 8
 
 
 def _dims(x: torch.Tensor, cond: torch.Tensor, w_in: torch.Tensor,
@@ -101,14 +109,44 @@ def _check(dims, tensors: dict, smem: int) -> None:
                          f"block; the kernel has at most {SMEM_LIMIT}")
 
 
-def _ring(tile_bytes: int) -> tuple[int, int]:
+def _ring(tile_bytes: int, bars: int = BAR_BYTES) -> tuple[int, int]:
     """csrc/gated.cu ``ring_layout``: (ring stages, bytes) beside
-    ``tile_bytes`` of tiles; bytes past SMEM_LIMIT when two stages do not
-    fit."""
-    stages = min(int((SMEM_LIMIT - ALIGN - BAR_BYTES - tile_bytes) / SLAB), MAX_STAGES)
+    ``tile_bytes`` of tiles and ``bars`` bytes of barriers; bytes past
+    SMEM_LIMIT when two stages do not fit."""
+    stages = min(int((SMEM_LIMIT - ALIGN - bars - tile_bytes) / SLAB), MAX_STAGES)
     if stages < 2:
         return stages, SMEM_LIMIT + 1
-    return stages, ALIGN + tile_bytes + stages * SLAB + BAR_BYTES
+    return stages, ALIGN + tile_bytes + stages * SLAB + bars
+
+
+def fwd_plan(n_res: int, n_dil: int, n_skp: int, n_cond: int) -> tuple[bool, int, int]:
+    """The pair forward's plan from the widths alone (csrc/gated.cu
+    ``fwd_staged_layout`` and ``fwd_layout``): (epilogue staged, ring
+    stages, shared-memory bytes).  A tile is xin [64, 2 n_res + n_cond] in
+    64-column atoms, h over its prev part where one gate pass writes it and
+    it fits there.  Staged, y (2 n_dil wide) and the f32 skip rows (boxes of
+    SKIP_BOX columns) pass through 8 KB slots: xin's prev atoms beyond h,
+    its cond part, and the rest after xin; that plan is taken where n_res,
+    n_dil and n_skp are multiples of 128 (so the epilogues test nothing per
+    element), h goes over prev, the slots are at most MAX_SLOTS and two ring
+    stages fit.  Else the epilogue stores from the registers, as the other
+    forward kernels do.  Raises ValueError where not even that tile fits."""
+    ra, ca, da = -(-n_res // 64), -(-n_cond // 64), -(-n_dil // 64)
+    xin = (2 * ra + ca) * ATOM
+    alias = -(-n_dil // 128) <= 2 and da <= ra
+    need = max(-(-2 * n_dil // 64), -(-n_skp // SKIP_BOX))
+    aligned = n_res % 128 == 0 and n_dil % 128 == 0 and n_skp % 128 == 0
+    if aligned and alias and need <= MAX_SLOTS:
+        extra = max(need - (ra - da + ca), 0)
+        stages, nbytes = _ring(xin + extra * ATOM, BAR_BYTES + SKIP_BAR)
+        if stages >= 2:
+            return True, stages, nbytes
+    tile = xin if alias else xin + da * ATOM
+    stages, nbytes = _ring(tile)
+    if stages >= 2:
+        return False, stages, nbytes
+    raise ValueError(f"these widths need {ALIGN + tile + 2 * SLAB + BAR_BYTES} bytes "
+                     f"of shared memory per block; the kernel has at most {SMEM_LIMIT}")
 
 
 def bwd_plan(n_res: int, n_dil: int, n_skp: int) -> tuple[int, int, int]:
@@ -157,8 +195,9 @@ def coop_plan(rows: int, batch: int, sms: int, per_sm: int) -> tuple[int, int, i
 _BLOCKS: dict = {}
 # awt_gated_wg_blocks: the forward, the backward (saved y), the whole stack,
 # the group, the single-layer backward's recompute mode, the pair backward
-# with two tiles in flight
-_KINDS = {"fwd": 0, "bwd": 1, "stack": 2, "group": 3, "bwd_rec": 4, "bwd2": 5}
+# with two tiles in flight, the pair forward with its epilogue staged
+_KINDS = {"fwd": 0, "bwd": 1, "stack": 2, "group": 3, "bwd_rec": 4, "bwd2": 5,
+          "fwd2": 6}
 
 
 def _per_sm(kind: str, dims) -> int:
@@ -183,7 +222,7 @@ def _sms(dev) -> int:
 
 def _plan(dev, kind: str, dims, rows: int, batch: int, dd2: int) -> tuple[int, int]:
     """``_chunk`` from the card's SM count and the kernel's occupancy at
-    these widths (kind "fwd", "bwd", "bwd2" or "bwd_rec")."""
+    these widths (kind "fwd", "fwd2", "bwd", "bwd2" or "bwd_rec")."""
     return _chunk(rows, batch, dd2, _sms(dev), _per_sm(kind, dims))
 
 
@@ -233,12 +272,14 @@ def _fwd(nl, x, cond, skip, pks, dds, r0, save_y):
     dims = _dims(x, cond, pks[0][0], pks[0][2])
     _check(dims, {"x": x, "cond": cond, "skip": skip},
            _smem("awt_gated_wg_fwd_smem", dims))
-    b, p, r = dims[:3]
+    b, p, r, c, d, s = dims
     dev = x.device
-    chunk, n_chunks = _plan(dev, "fwd", dims, p - r0, b, dds[-1] if nl == 2 else 0)
+    staged = nl == 2 and fwd_plan(r, d, s, c)[0]
+    chunk, n_chunks = _plan(dev, "fwd2" if staged else "fwd", dims, p - r0, b,
+                            dds[-1] if nl == 2 else 0)
     # the kernel writes rows [r0, P) of every output; rows below hold zeros
     outs = [_head_zeroed(torch.empty_like(x), r0) for _ in range(nl)]  # (mid,) x'
-    ys = ([_head_zeroed(x.new_empty(b, p, 2 * dims[4]), r0) for _ in range(nl)]
+    ys = ([_head_zeroed(x.new_empty(b, p, 2 * d), r0) for _ in range(nl)]
           if save_y else [])
     halo = (torch.empty(b * n_chunks, dds[1], r, dtype=BF16, device=dev)
             if nl == 2 else None)
@@ -251,8 +292,10 @@ def _fwd(nl, x, cond, skip, pks, dds, r0, save_y):
     _call("awt_gated_fwd", nl,
           _ptrs(x, cond, skip, outs[0] if nl == 2 else None, outs[-1], halo,
                 *layers),
-          _ints(*dims, r0, chunk, dds[0], dds[1] if nl == 2 else 0, n_chunks),
-          dev)
+          _ints(*dims, r0, chunk, dds[0], dds[1] if nl == 2 else 0, n_chunks,
+                int(staged)), dev)
+    if nl == 2:
+        gated_pair_fused.staged_epilogue = int(staged)
     return (*outs, skip, *ys)
 
 
@@ -269,7 +312,8 @@ def gated_layer_fused(x, cond, skip, w_in, b_in, w_out, b_out, *, dd: int,
 
 def gated_pair_fused(x, cond, skip, pk1, pk2, *, dd1: int, dd2: int, r0: int,
                      save_y: bool = False):
-    """K1: two gated layers forward; see ``gated.gated_pair_fused_reference``."""
+    """K1: two gated layers forward; see ``gated.gated_pair_fused_reference``.
+    ``.staged_epilogue``: the last launch's plan (:func:`fwd_plan`)."""
     if x.device.type == "cpu":
         return gated.gated_pair_fused_reference(
             x, cond, skip, pk1, pk2, dd1=dd1, dd2=dd2, r0=r0, save_y=save_y)
@@ -527,3 +571,4 @@ for _f in (gated_layer_fused, gated_pair_fused, gated_layer_bwd, gated_pair_bwd,
     _f.launches = 0
 gated_layer_bwd.launches_recompute = 0
 gated_pair_bwd.tiles_in_flight = 0
+gated_pair_fused.staged_epilogue = 0

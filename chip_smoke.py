@@ -300,8 +300,10 @@ HBM_BYTES_PER_S = 3.35e12
 # 1.98 GHz boost clock
 SMEM_BYTES_PER_S = 132 * 128 * 1.98e9
 # every kernel of the Hopper tile core, as the ptxas report names them
-# (wg_bwd_kernel<NL, REC>: K2b saved y, K2, K2b's recompute mode)
-HOPPER_KERNELS = ("wg_fwd_kernel<1>", "wg_fwd_kernel<2>", "wg_bwd_kernel<1, false>",
+# (wg_fwd_kernel<NL, STAGED>: K1b, K1, K1 with its epilogue staged;
+# wg_bwd_kernel<NL, REC>: K2b saved y, K2, K2b's recompute mode)
+HOPPER_KERNELS = ("wg_fwd_kernel<1, false>", "wg_fwd_kernel<2, false>",
+                  "wg_fwd_kernel<2, true>", "wg_bwd_kernel<1, false>",
                   "wg_bwd_kernel<2, false>", "wg_bwd_kernel<1, true>", "wg_dw_kernel",
                   "wg_stack_kernel", "wg_group_kernel")
 VQ_TIMING_REPS = 20
@@ -544,8 +546,9 @@ def segment_calls(dils, cond_tm, packed, xs, ys, cot, skip_seed: int = 1):
     layers below the top that end on the largest dilation.  Besides, the
     pair of the schedule below the top whose layer 2 reaches least far, under
     one tile (the prev-tap carry from the tile above, which the pair
-    backward hands between its two tiles in flight).  Every call returns a
-    flat tuple of tensors."""
+    backward hands between its two tiles in flight), forward and backward:
+    the pair forward's layer 2 reads rows of mid that layer 1 stored from
+    the same tile.  Every call returns a flat tuple of tensors."""
     from ae_wavenet_tpu_torch.ops import gated
     from ae_wavenet_tpu_torch.ops.gated_cuda import TM
 
@@ -559,9 +562,9 @@ def segment_calls(dils, cond_tm, packed, xs, ys, cot, skip_seed: int = 1):
     def fresh(d):
         return {k: v.clone() for k, v in d.items()}
 
-    def pair_fwd(fn):
-        return fn(xs[top], cond_tm, skip.clone(), packed[top], packed[top + 1],
-                  dd1=dils[top], dd2=dils[top + 1], r0=vl(top), save_y=True)
+    def pair_fwd(fn, i=top):
+        return fn(xs[i], cond_tm, skip.clone(), packed[i], packed[i + 1],
+                  dd1=dils[i], dd2=dils[i + 1], r0=vl(i), save_y=True)
 
     def layer_fwd(fn):
         i = n - 1
@@ -606,6 +609,7 @@ def segment_calls(dils, cond_tm, packed, xs, ys, cot, skip_seed: int = 1):
         "gated_group_bwd": ("gated_group_bwd", lambda fn: group_bwd(fn, 5)),
         "gated_group_bwd_3": ("gated_group_bwd", lambda fn: group_bwd(fn, 3)),
         "gated_pair_fused": ("gated_pair_fused", pair_fwd),
+        "gated_pair_fused_near": ("gated_pair_fused", lambda fn: pair_fwd(fn, near)),
         "gated_layer_fused": ("gated_layer_fused", layer_fwd),
         "gated_pair_bwd": ("gated_pair_bwd", pair_bwd),
         "gated_pair_bwd_near": ("gated_pair_bwd", lambda fn: pair_bwd(fn, near)),
@@ -1195,6 +1199,9 @@ def _phase_train_kernels(card: str, dev) -> dict:
                   f"({rel:.3g} of its largest)")
         if wrapper == "gated_pair_bwd":
             timing += f"; {gc.gated_pair_bwd.tiles_in_flight} tiles in flight"
+        if wrapper == "gated_pair_fused":
+            timing += (f"; gated_pair_fused.staged_epilogue "
+                       f"{gc.gated_pair_fused.staged_epilogue}")
         if wrapper in ("gated_pair_fused", "gated_pair_bwd"):
             lo = kw["r0"] if "r0" in kw else kw["valid_lo1"]
             y_ms = gemm_yardstick(TRAIN_B * (x0.shape[1] - lo), x0.shape[2],
@@ -1447,15 +1454,22 @@ def mfu_text(cfg, spec, step_s: float) -> str:
 
 
 def _tiles_in_flight(wcfg, label: str) -> str:
-    """The pair backward's last launch kept two tiles in flight, as the plan
-    from the widths says (``gated_cuda.bwd_plan``)."""
+    """The pair backward's last launch kept two tiles in flight and the pair
+    forward's staged its epilogue, as the plans from the widths say
+    (``gated_cuda.bwd_plan``, ``gated_cuda.fwd_plan``)."""
     from ae_wavenet_tpu_torch.ops import gated_cuda as gc
 
     got = gc.gated_pair_bwd.tiles_in_flight
     want = gc.bwd_plan(wcfg.n_res, wcfg.n_dil, wcfg.n_skp)[0]
     check(got == want == 2, f"{label}: the pair backward kept {got} tiles in flight, "
           f"the plan {want}")
-    return f"the pair backward's tiles in flight {got}"
+    staged = gc.gated_pair_fused.staged_epilogue
+    plan = gc.fwd_plan(wcfg.n_res, wcfg.n_dil, wcfg.n_skp,
+                       wcfg.n_lc_out + wcfg.n_global_embed)[0]
+    check(staged == plan == 1, f"{label}: the pair forward's staged epilogue {staged}, "
+          f"the plan {int(plan)}")
+    return (f"the pair backward's tiles in flight {got}, the pair forward's staged "
+            f"epilogue {staged}")
 
 
 def phase_train(card: str, dev, tmp: str) -> dict:
@@ -1755,6 +1769,7 @@ def zero_launch_counts() -> None:
         f.launches = 0
     gc.gated_layer_bwd.launches_recompute = 0
     gc.gated_pair_bwd.tiles_in_flight = 0
+    gc.gated_pair_fused.staged_epilogue = 0
     for name in ("launches", "launches_int8", "launches_int4", "mol_launches",
                  "streamed_bytes"):
         setattr(fc.generate_fused, name, 0)

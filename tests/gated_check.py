@@ -134,8 +134,13 @@ def planted_segment_faults() -> dict:
     pair below one tile's reach) with layer 1 reading none of the prev-tap
     cotangents that layer 2 wrote from the tile just above: what a layer 1
     tile that ran before the other tile in flight had stored them would
-    give."""
+    give.  The pair forward (the pair below one tile's reach) with layer 2
+    reading zeros for the rows of mid that layer 1 stored from its own tile:
+    what it reads before those bulk stores have completed.  The pair forward
+    with the incoming skip rows lost (its skip terms added to zeros): what
+    it adds to before the tile's skip rows have landed."""
     inner_upstream = gated._inner_upstream
+    shift_down = gated._shift_down
 
     def dropped(keep):
         def upstream(gxn, g_xin, n_res, dd_up):
@@ -164,6 +169,26 @@ def planted_segment_faults() -> dict:
     def pair_bwd_off(*args, dd2, **kw):
         return gated.gated_pair_bwd_reference(*args, dd2=dd2 + 1, **kw)
 
+    def pair_fwd_stale_mid(*args, **kw):
+        taps = []
+
+        def shift(x, d, lo, hi):
+            # the second shift is layer 2's prev tap, from mid; tiles from lo
+            out = shift_down(x, d, lo, hi)
+            taps.append(d)
+            if len(taps) == 2:
+                g = torch.arange(lo, hi, device=x.device)
+                same = (g - d >= lo) & ((g - d - lo) // TM == (g - lo) // TM)
+                out = torch.where(same[None, :, None], torch.zeros_like(out), out)
+            return out
+
+        with mock.patch.object(gated, "_shift_down", shift):
+            return gated.gated_pair_fused_reference(*args, **kw)
+
+    def pair_fwd_skip_unloaded(x, cond, skip, pk1, pk2, **kw):
+        return gated.gated_pair_fused_reference(x, cond, torch.zeros_like(skip), pk1,
+                                                pk2, **kw)
+
     def layer_bwd_no_bias(x, cond, gxcur, gxprev, gskip, gcond, w_in, w_out, b_in,
                           **kw):
         return gated.gated_layer_bwd_reference(x, cond, gxcur, gxprev, gskip, gcond,
@@ -179,4 +204,8 @@ def planted_segment_faults() -> dict:
             "pair backward: layer 1 before the tile above's prev-tap stores":
             ("gated_pair_bwd_near", pair_no_carry),
             "single-layer backward, recompute mode: b_in dropped from y":
-            ("gated_layer_bwd_recompute", layer_bwd_no_bias)}
+            ("gated_layer_bwd_recompute", layer_bwd_no_bias),
+            "pair forward: layer 2 reads mid before layer 1's bulk stores complete":
+            ("gated_pair_fused_near", pair_fwd_stale_mid),
+            "pair forward: skip terms added before the skip rows landed":
+            ("gated_pair_fused", pair_fwd_skip_unloaded)}

@@ -910,10 +910,10 @@ from ae_wavenet_tpu_torch.ops import gated_cuda as tgc  # noqa: E402
 GCFG = WaveNetConfig(n_blocks=1, n_block_layers=8, n_res=32, n_dil=32,
                      n_skp=32, n_post=32, n_lc_in=16, n_lc_out=32,
                      n_global_embed=8, n_speakers=10)
-SEGMENTS = ["gated_pair_fused", "gated_layer_fused", "gated_pair_bwd",
-            "gated_pair_bwd_near", "gated_layer_bwd", "gated_layer_bwd_recompute",
-            "gated_stack_fused", "gated_stack_fused_no_save", "gated_group_bwd",
-            "gated_group_bwd_3"]
+SEGMENTS = ["gated_pair_fused", "gated_pair_fused_near", "gated_layer_fused",
+            "gated_pair_bwd", "gated_pair_bwd_near", "gated_layer_bwd",
+            "gated_layer_bwd_recompute", "gated_stack_fused", "gated_stack_fused_no_save",
+            "gated_group_bwd", "gated_group_bwd_3"]
 # (batch, loss samples) at the ``chorowski`` widths: a short ragged T (4,100
 # = 64 x 64 + 4), and the training path's shape (every block of the card at
 # work, rows handed between blocks, the full split-K)
@@ -1200,16 +1200,16 @@ def _pair_bwd_held(dev, widths, batch, rows, dd1, dd2, prev_dd=4, seed=0):
     return tiles
 
 
-def _tiles_per_chunk(dev, widths, batch, tiles, ragged):
-    """Rows per batch row for which the pair backward's chunks (one wave of
-    blocks over the card) hold ``tiles`` tiles each, the last chunk's top
-    tile ``ragged`` rows short."""
+def _tiles_per_chunk(dev, widths, batch, tiles, ragged, kind="bwd2", dd2=0):
+    """Rows per batch row for which the chunks of the kernel ``kind`` (one
+    wave of blocks over the card; by default the pair backward's) hold
+    ``tiles`` tiles each, the last chunk's top tile ``ragged`` rows short."""
     r, c, d, s = widths
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    per_sm = tgc._per_sm("bwd2", [batch, 1, r, c, d, s])
+    per_sm = tgc._per_sm(kind, [batch, 1, r, c, d, s])
     per_row = sms * per_sm // batch
     rows = per_row * tiles * tgc.TM - ragged
-    assert tgc._chunk(rows, batch, 0, sms, per_sm) == (tiles * tgc.TM, per_row)
+    assert tgc._chunk(rows, batch, dd2, sms, per_sm) == (tiles * tgc.TM, per_row)
     return rows
 
 
@@ -1258,6 +1258,89 @@ def test_pair_bwd_with_an_odd_tile_count_and_a_ragged_last_tile(cuda_device):
     widths = (32, 40, 32, 32)
     rows = _tiles_per_chunk(cuda_device, widths, 1, 3, 28)
     assert _pair_bwd_held(cuda_device, widths, 1, rows, 16, 32) == 2
+
+
+def _pair_fwd_held(dev, widths, batch, rows, dd1, dd2, seed=0):
+    """The pair forward on random operands of these widths (saved y, every
+    bias), ``rows`` rows from r0 of each of ``batch`` rows, against its plain
+    version at SEGMENT_REL_TOL and the same bits on a second launch; with its
+    epilogue staged, bit for bit the launch whose plan is forced to store
+    from the registers.  -> the launch's plan (``staged_epilogue``)."""
+    from unittest import mock
+
+    r, c, d, s = widths
+    gen = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=gen) * scale).to(dtype).to(dev)
+
+    f32 = torch.float32
+
+    def weights():
+        return (rnd(2 * r + c, 2 * d, scale=(2 * r + c) ** -0.5, dtype=f32),
+                rnd(2 * d, scale=0.3, dtype=f32), rnd(d, r + s, scale=d ** -0.5, dtype=f32),
+                rnd(r + s, scale=0.3, dtype=f32))
+
+    r0 = 5 + dd1
+    p = r0 + rows
+    x, cond, skip = rnd(batch, p, r), rnd(batch, p, c), rnd(batch, p, s, dtype=f32)
+    pk1, pk2 = weights(), weights()
+
+    def call(fn):
+        return fn(x, cond, skip.clone(), pk1, pk2, dd1=dd1, dd2=dd2, r0=r0, save_y=True)
+
+    got = call(tgc.gated_pair_fused)
+    staged = tgc.gated_pair_fused.staged_epilogue
+    again = call(tgc.gated_pair_fused)
+    want = call(tgt.gated_pair_fused_reference)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(bool(torch.isfinite(g.float()).all()) for g in got)
+    _, rel = chip_smoke.compare_outputs(got, want)
+    assert rel < chip_smoke.SEGMENT_REL_TOL, rel
+    if staged:
+        with mock.patch.object(tgc, "fwd_plan", lambda *w: (False, 0, 0)):
+            regs = call(tgc.gated_pair_fused)
+        assert tgc.gated_pair_fused.staged_epilogue == 0
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, regs))
+    return staged
+
+
+# (n_res, n_cond, n_dil, n_skp) that the staged epilogue does not take
+# (n_res 576: not a multiple of 128, and its slots and two ring stages would
+# not fit beside xin): the pair forward stores from the registers
+UNSTAGED_WIDTHS = (576, 80, 256, 256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["chorowski_vq", "mfcc_inverter", "wavenet_mol_24k",
+                                    "unstaged"])
+def test_gated_kernel_matches_plain_pair_forward_at_the_configurations_widths(cuda_device,
+                                                                             config):
+    """The three configurations' stacks (n_res 384 and 512) stage the pair
+    forward's epilogue (``fwd_plan``), and widths it does not take store
+    from the registers; held to the plain version at
+    B = 2, 4,100 rows (a ragged last tile), dd2 = 128 (a two-tile halo), and
+    staged, bit for bit the launch that stores from the registers."""
+    widths = UNSTAGED_WIDTHS if config == "unstaged" else _config_widths(config)
+    r, c, d, s = widths
+    plan = tgc.fwd_plan(r, d, s, c)
+    assert plan[0] == (config != "unstaged") and plan[1] == 2
+    assert _pair_fwd_held(cuda_device, widths, 2, 4100, 64, 128) == int(plan[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dd2", [2, 32, 64, 96, 128, 512])
+def test_gated_kernel_matches_plain_pair_forward_dilations(cuda_device, dd2):
+    """The staged pair forward at the flagship's widths, eight tiles to each
+    chunk, the last chunk's top tile ragged, B = 2: layer 2 reads rows of mid
+    that layer 1 stored from the same tile (dd2 < 64), from the tiles below
+    and from the halo below the chunk; each tile's skip rows pass through
+    both layers' slots."""
+    widths = _config_widths("chorowski_vq")
+    rows = _tiles_per_chunk(cuda_device, widths, 2, 8, 37, kind="fwd2", dd2=dd2)
+    assert _pair_fwd_held(cuda_device, widths, 2, rows, dd2 // 2 or 1, dd2) == 1
 
 
 @pytest.mark.cuda

@@ -558,3 +558,98 @@ def test_pair_bwd_plan_refuses_widths_past_one_block(n_res, n_dil, n_skp):
 
     with pytest.raises(ValueError, match="shared memory"):
         gated_cuda.bwd_plan(n_res, n_dil, n_skp)
+
+
+def _fwd_widths(config: str) -> tuple:
+    """(n_res, n_dil, n_skp, n_cond) of a benchmark configuration's stack."""
+    import pathlib
+
+    from ae_wavenet_tpu_torch.utils import config as tcfg
+
+    doc = (pathlib.Path(__file__).resolve().parent.parent / "benchmark/configs"
+           / f"{config}.json").read_text()
+    w = tcfg.from_json(doc).wavenet
+    return w.n_res, w.n_dil, w.n_skp, w.n_lc_out + w.n_global_embed
+
+
+@pytest.mark.parametrize("config,plan", [
+    ("chorowski_vq", (True, 2, 214088)),     # xin 15 atoms + 3 slots, two stages
+    ("mfcc_inverter", (True, 2, 214088)),    # the same stack widths
+    ("wavenet_mol_24k", (True, 2, 230472)),  # n_res 512: xin 18 atoms + 2 slots
+])
+def test_pair_fwd_plan_at_the_configurations_widths(config, plan):
+    """The pair forward's (epilogue staged, ring stages, bytes), from the
+    widths alone: y's eight atoms and the skip's eight boxes pass through
+    xin's free atoms (prev beyond h, cond) and the slots after xin, beside
+    two ring stages (the third that the forward kept before gives way)."""
+    from ae_wavenet_tpu_torch.ops import gated_cuda
+
+    assert gated_cuda.fwd_plan(*_fwd_widths(config)) == plan
+
+
+@pytest.mark.parametrize("n_dil,n_skp,n_cond", [(32, 32, 40), (256, 256, 160),
+                                                (128, 512, 80), (256, 640, 80),
+                                                (384, 128, 160), (256, 192, 160)])
+def test_pair_fwd_plan_fits_one_block(n_dil, n_skp, n_cond):
+    """Over n_res from 8 to 1,536: every plan fits one block's 232,448 bytes
+    with at least two ring stages; the epilogue is staged exactly where
+    n_res, n_dil and n_skp are multiples of 128, h goes over xin's prev
+    part, the slots are at most MAX_SLOTS and they fit with two stages, else
+    it stores from the registers; widths past one unstaged tile raise."""
+    from ae_wavenet_tpu_torch.ops import gated_cuda as gc
+
+    limit, seen = gc.SMEM_LIMIT, set()
+    for n_res in range(8, 1537, 8):
+        ra, ca, da = -(-n_res // 64), -(-n_cond // 64), -(-n_dil // 64)
+        xin = (2 * ra + ca) * 8192
+        alias = -(-n_dil // 128) <= 2 and da <= ra
+        slots = max(-(-2 * n_dil // 64), -(-n_skp // 32))
+        extra = max(slots - (ra - da + ca), 0) * 8192
+        staged_need = 1024 + xin + extra + 2 * 32768 + 72
+        plain_tile = xin if alias else xin + da * 8192
+        if 1024 + plain_tile + 2 * 32768 + 64 > limit:
+            with pytest.raises(ValueError, match="shared memory"):
+                gc.fwd_plan(n_res, n_dil, n_skp, n_cond)
+            seen.add("raises")
+            continue
+        staged, stages, nbytes = gc.fwd_plan(n_res, n_dil, n_skp, n_cond)
+        aligned = n_res % 128 == 0 and n_dil % 128 == 0 and n_skp % 128 == 0
+        want = aligned and alias and slots <= gc.MAX_SLOTS and staged_need <= limit
+        assert staged == want
+        seen.add(staged)
+        assert 2 <= stages <= gc.MAX_STAGES and nbytes <= limit
+        if staged:
+            assert nbytes == 1024 + xin + extra + stages * 32768 + 72
+        else:
+            assert nbytes == 1024 + plain_tile + stages * 32768 + 64
+    assert "raises" in seen and False in seen
+    assert (True in seen) == (n_dil in (128, 256) and n_skp in (128, 256, 384, 512))
+
+
+@pytest.mark.parametrize("n_res,n_dil,n_skp,n_cond,stages", [
+    (576, 256, 256, 80, 2),     # the slot past xin's free atoms leaves one stage
+    (64, 384, 64, 40, 4),       # three gate passes: h does not go over prev
+    (128, 128, 640, 80, 4),     # the skip's 20 boxes pass MAX_SLOTS
+    (320, 256, 256, 160, 3),    # n_res not a multiple of 128
+    (32, 32, 32, 40, 4),        # the narrow stack the card tests use
+])
+def test_pair_fwd_plan_takes_the_unstaged_plan_where_staging_does_not_fit(
+        n_res, n_dil, n_skp, n_cond, stages):
+    """Widths whose slots do not fit beside two stages keep the epilogue
+    that stores from the registers, with the stages that fit beside xin."""
+    from ae_wavenet_tpu_torch.ops import gated_cuda
+
+    staged, got, _ = gated_cuda.fwd_plan(n_res, n_dil, n_skp, n_cond)
+    assert not staged and got == stages
+
+
+@pytest.mark.parametrize("n_res,n_dil,n_skp,n_cond", [(1536, 32, 32, 40),
+                                                      (384, 512, 256, 160),
+                                                      (640, 256, 256, 80)])
+def test_pair_fwd_plan_refuses_widths_past_one_block(n_res, n_dil, n_skp, n_cond):
+    """Widths whose unstaged tile and two ring stages pass one block's
+    shared memory raise ValueError (nothing falls back)."""
+    from ae_wavenet_tpu_torch.ops import gated_cuda
+
+    with pytest.raises(ValueError, match="shared memory"):
+        gated_cuda.fwd_plan(n_res, n_dil, n_skp, n_cond)

@@ -26,7 +26,7 @@ GATED = "_ZN40_GLOBAL__N__a4712fb8_8_gated_cu_ed8bba29"
 @pytest.mark.parametrize("mangled,name", [
     (GATED + "13wg_bwd_kernelILi1ELb1EEEvNS_6WgBwdPE", "wg_bwd_kernel<1, true>"),
     (GATED + "13wg_bwd_kernelILi2ELb0EEEvNS_6WgBwdPE", "wg_bwd_kernel<2, false>"),
-    (GATED + "13wg_fwd_kernelILi1EEEvNS_6WgFwdPE", "wg_fwd_kernel<1>"),
+    (GATED + "13wg_fwd_kernelILi2ELb1EEEvNS_6WgFwdPE", "wg_fwd_kernel<2, true>"),
     (GATED + "12wg_dw_kernelENS_5WgDwPE", "wg_dw_kernel"),
     (GATED + "19gated_reduce_kernelEPKfPfix", "gated_reduce_kernel"),
     ("_ZN43_GLOBAL__N__b731e597_10_fastgen_cu_cd6989dc14fastgen_kernelILi2EEEvNS_6ParamsE",
