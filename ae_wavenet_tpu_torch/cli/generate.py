@@ -1,7 +1,10 @@
-"""CLI: reconstruction (the autoencoder) or vocoding (the MFCC inverter)
-from a checkpoint on the GPU (fast-queue path).  A mu-law model's ids are
-decoded to the wav; a mixture-of-logistics vocoder's 16-bit samples are
-written as linear PCM.
+"""CLI: reconstruction (the autoencoder) or vocoding (the MFCC inverter,
+WaveGlow) from a checkpoint on the GPU (fast-queue path).  A mu-law
+model's ids are decoded to the wav; a mixture-of-logistics vocoder's
+16-bit samples, and WaveGlow's (all of the clip's mel frames in one pass
+of the flows, at the configuration's rate: 22,050 Hz for
+``waveglow_22k``; ``--temperature`` scales its sigma), are written as
+linear PCM.
 
     python -m ae_wavenet_tpu_torch.cli.generate (--ckpt-dir DIR [--step N] | \
         --ckpt MODEL.pt) --data PREFIX [--clip I] [--n-samples N] \
@@ -86,7 +89,7 @@ def main(argv=None) -> int:
         torch.Generator().manual_seed(a.seed), temperature=a.temperature,
         n_samples=a.n_samples, timings=timings,
         quantized="int4" if a.int4 else a.int8)
-    if cfg.wavenet.n_mix:  # the mixture's 16-bit samples, written as they are
+    if cfg.wavenet.n_mix or cfg.model_kind == "waveglow":  # 16-bit samples as they are
         out = ids[0].cpu().numpy()
     else:
         out = mu_decode(ids, cfg.wavenet.n_quant)[0].cpu().numpy()

@@ -5,6 +5,7 @@
 //
 // Replaces the TPU kernels of ae_wavenet_tpu/ops/gated_pallas.py:
 //   gated_layer_fused (K1b) and gated_pair_fused (K1)  -> wg_fwd_kernel<1|2>
+//     (K1b's non-causal three-tap mode, WaveGlow's:      wg_same_kernel)
 //   gated_layer_bwd (K2b) and gated_pair_bwd (K2)      -> wg_bwd_kernel<1|2>
 //                                                         + wg_dw_kernel
 //     (K2b's recompute mode, no saved y: wg_bwd_kernel<1, true>)
@@ -13,6 +14,12 @@
 //                                                         + wg_dw_kernel
 // The contract (rounding points and masks) is written out at the top of
 // ops/gated.py, which also holds the plain PyTorch version of each.
+// K1b has a second, non-causal mode with three taps (WaveGlow's layers,
+// wg_same_kernel): on every row g of [0, P),
+//   y = [x[g-dd] | x[g] | x[g+dd]] @ bf16(w_in) + b_in + f32(addend[g])
+// with zeros for indices outside [0, P) and the addend [B, P, 2D] bf16
+// optional; w_in is [3R][2D] (the third part's rows take the cond rows'
+// place, C = R) and no y is saved; the rest as the two-tap contract.
 //
 // Layout: time-major [B, P, C] bf16 streams (f32 skip / gcond), P = t_in
 // rows, layer i valid from row vl_i.
@@ -561,7 +568,16 @@ struct WgFwdP {
   // in slot a, the skip's box j in slot j
   CUtensorMap om[2], ym[2], sk;
   int slot[MAX_SLOTS];
+  // K1b's three-tap mode (wg_same_kernel): x [B, P, R] read by TMA (boxes
+  // of 64 rows x 64 columns), and the bf16 addend [B, P, 2D] of y, or null
+  CUtensorMap xm;
+  const bf16* add;
 };
+
+// K1b's three-tap mode's mbarrier: the tile's xin has landed
+__device__ __forceinline__ uint64_t* xin_bar(const WgFwdP& p, unsigned char* sm) {
+  return reinterpret_cast<uint64_t*>(sm + p.boff + BAR_BYTES);
+}
 
 // the staged epilogue's mbarrier: the tile's skip rows have landed
 __device__ __forceinline__ uint64_t* skip_bar(const WgFwdP& p, unsigned char* sm) {
@@ -673,7 +689,9 @@ __device__ void wg_fwd_produce(const WgFwdLayer& L, const WgDims& d, Pipe& pp,
 // nothing per element: they write every row, since rows past nr lie past P
 // and TMA stores none of them, and y of a halo tile lands in slots that
 // nothing stores (halo tiles take the epilogue of out above).
-template <typename P, int NCB = 16, bool STAGED = false>
+// SAME (K1b's three-tap mode, WgFwdP): y takes p.add's row (f32 of bf16)
+// before the gate, where p.add is not null.
+template <typename P, int NCB = 16, bool STAGED = false, bool SAME = false>
 __device__ void wg_fwd_tile(const P& p, const WgFwdLayer& L, int b, int t0, int nr,
                             bf16* out, int out_row0, bool halo, unsigned char* sm,
                             Pipe& pp, uint64_t* full, uint64_t* empty, int layer = 0,
@@ -725,9 +743,19 @@ __device__ void wg_fwd_tile(const P& p, const WgFwdLayer& L, int b, int t0, int 
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
         const int row = r_lo + hf * 8, g = t0 + row;
-        const float yf0 = acc[i * 4 + hf * 2] + bf0, yf1 = acc[i * 4 + hf * 2 + 1] + bf1;
-        const float yg0 = acc[(i + 16) * 4 + hf * 2] + bg0;
-        const float yg1 = acc[(i + 16) * 4 + hf * 2 + 1] + bg1;
+        float yf0 = acc[i * 4 + hf * 2] + bf0, yf1 = acc[i * 4 + hf * 2 + 1] + bf1;
+        float yg0 = acc[(i + 16) * 4 + hf * 2] + bg0;
+        float yg1 = acc[(i + 16) * 4 + hf * 2 + 1] + bg1;
+        if constexpr (SAME) {
+          if (p.add && nin && row < nr) {
+            const bf16* ap = p.add + (rowb + g) * 2 * d.D + n;
+            float a0, a1;
+            ld2(ap, a0, a1);
+            yf0 += a0; yf1 += a1;
+            ld2(ap + d.D, a0, a1);
+            yg0 += a0; yg1 += a1;
+          }
+        }
         if (!halo && L.y && nin && row < nr) {
           bf16* yp = L.y + (rowb + g) * 2 * d.D + n;
           st2(yp, yf0, yf1);
@@ -977,6 +1005,60 @@ wg_fwd_kernel(const __grid_constant__ WgFwdP p) {
                     pp, full, empty);
       }
     }
+  }
+}
+
+// K1b's three-tap mode (WaveGlow's non-causal layer; C = R, the cond part of
+// xin and of w_in the next tap's): one layer on every row of each block's
+// chunk, xin = [x[g - dd] | x[g] | x[g + dd]], y plus the addend p.add where
+// it is not null, no y saved.  The two-tap kernel's single-layer loop with
+// the tile's SAME mode, xin loaded by TMA: thread 0 loads each part's atoms
+// as boxes of x at rows t0 - dd, t0 and t0 + dd, and TMA fills the rows
+// outside [0, P) (and the columns past R) with zeros: the padding at both
+// ends.  Every thread orders its accesses to the previous tile's xin and h
+// (generic proxy) before those loads (async proxy) by a proxy fence and the
+// consumers' barrier.
+__global__ void __launch_bounds__(WG_THREADS, 1)
+wg_same_kernel(const __grid_constant__ WgFwdP p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  const WgDims& d = p.d;
+  const int b = blockIdx.y;
+  const int c0 = blockIdx.x * p.chunk;
+  const int c1 = min(c0 + p.chunk, d.P);
+  if (c0 >= c1) return;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + p.boff);
+  uint64_t* empty = full + MAX_STAGES;
+  uint64_t* xbar = xin_bar(p, sm);
+  if (threadIdx.x == 0) mbar_init(xbar, 1);
+  init_ring(full, empty, p.nst);  // its fence and barrier cover xbar's init
+  const int dd = p.L[0].dd;
+  if (threadIdx.x >= CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (threadIdx.x == CONSUMERS) {
+      Pipe pp{0, p.nst, 0};
+      for (int t0 = c0; t0 < c1; t0 += TM) wg_fwd_produce(p.L[0], d, pp, full, empty, sm + p.roff);
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+  Pipe pp{0, p.nst, 0};
+  uint32_t xph = 0;  // xbar's phase
+  bf16* out = p.xout + (size_t)b * d.P * d.R;
+  for (int t0 = c0; t0 < c1; t0 += TM) {
+    const int nr = min(TM, c1 - t0);
+    fence_async();
+    consumers_sync();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(xbar, 3 * d.Ra * ATOM);
+      for (int part = 0; part < 3; ++part)
+        for (int a = 0; a < d.Ra; ++a)
+          tma3(sm + (part * d.Ra + a) * ATOM, &p.xm, xbar, a * 64, t0 + (part - 1) * dd, b);
+    }
+    mbar_wait(xbar, xph);
+    xph ^= 1;
+    wg_fwd_tile<WgFwdP, 16, false, true>(p, p.L[0], b, t0, nr, out, 0, false, sm, pp, full,
+                                        empty);
   }
 }
 
@@ -2107,6 +2189,13 @@ Layout fwd_layout(const WgDims& d) {
   return ring_layout(alias ? xin : xin + d.Da * ATOM, alias ? 0 : xin, SLAB);
 }
 
+// K1b's three-tap mode: the forward's tiles (C = R), its xin barrier after
+// the ring's
+Layout same_layout(const WgDims& d) {
+  const Layout l = fwd_layout(d);
+  return ring_layout(l.tiles, l.aux, SLAB, BAR_BYTES + 8);
+}
+
 // K1's staged epilogue (ops/gated_cuda.fwd_plan), for n_res, n_dil and
 // n_skp multiples of 128 (every 128-column chunk of the epilogues all real,
 // all x' or all skip): the forward's xin with h over its prev part (one gate
@@ -2218,6 +2307,7 @@ extern "C" {
 // The kernels' shared memory: > 232,448 when the widths do not fit.  iv
 // (here and below): the 6 dims B, P, R, C, D, S, then each entry point's own.
 int awt_gated_wg_fwd_smem(const int* iv) { return fwd_layout(wg_dims(iv)).bytes; }
+int awt_gated_wg_same_smem(const int* iv) { return same_layout(wg_dims(iv)).bytes; }
 int awt_gated_wg_bwd_smem(const int* iv) { return bwd_layout(wg_dims(iv)).bytes; }
 int awt_gated_wg_bwd_rec_smem(const int* iv) { return bwd_rec_layout(wg_dims(iv)).bytes; }
 
@@ -2230,7 +2320,7 @@ long long awt_gated_rec_slots(const int* iv) {
 // error).  kind 0: the forward, 1: the backward, 2: the whole stack, 3: the
 // group, 4: the single-layer backward's recompute mode, 5: the pair
 // backward with two tiles in flight, 6: the pair forward with its epilogue
-// staged.
+// staged, 7: K1b's three-tap mode.
 int awt_gated_wg_blocks(int kind, const int* iv) {
   const WgDims d = wg_dims(iv);
   switch (kind) {
@@ -2241,14 +2331,17 @@ int awt_gated_wg_blocks(int kind, const int* iv) {
     case 4: return wg_blocks_per_sm(wg_bwd_kernel<1, true>, bwd_rec_layout(d).bytes);
     case 5: return wg_blocks_per_sm(wg_bwd_kernel<2>, bwd_layout(d, 2).bytes);
     case 6: return wg_blocks_per_sm(wg_fwd_kernel<2, true>, fwd_staged_layout(d).bytes);
+    case 7: return wg_blocks_per_sm(wg_same_kernel, same_layout(d).bytes);
   }
   return -(int)cudaErrorInvalidValue;
 }
 
-// ptr: x, cond, skip, mid, xout, halo, then per layer win, bin, wout, bout, y
-// (weights unpadded: win [2R + C][2D], wout [D][R + S] bf16; biases f32)
+// ptr: x, cond, skip, mid, xout, halo, then per layer (two slots) win, bin,
+// wout, bout, y (weights unpadded: win [2R + C][2D], wout [D][R + S] bf16;
+// biases f32), then the three-tap mode's addend (or null)
 // iv: 6 dims, r0, chunk, dd1, dd2, n_chunks, staged (1: the pair's epilogue
-// staged, where its layout fits: ops/gated_cuda.fwd_plan)
+// staged, where its layout fits: ops/gated_cuda.fwd_plan), taps (3: K1b's
+// three-tap mode, C = R and w_in's cond rows the next tap's; r0 = 0, no y)
 int awt_gated_fwd(int nl, void* const* ptr, const int* iv, cudaStream_t stream) {
   WgFwdP p;
   const WgDims d = p.d = wg_dims(iv);
@@ -2265,9 +2358,12 @@ int awt_gated_fwd(int nl, void* const* ptr, const int* iv, cudaStream_t stream) 
     L.dd = iv[8 + l];
   }
   p.r0 = iv[6]; p.chunk = iv[7];
-  const bool staged = iv[11] != 0;
+  p.add = (const bf16*)ptr[16];
+  const bool staged = iv[11] != 0, same = iv[12] == 3;
   if (staged && nl != 2) return (int)cudaErrorInvalidValue;
-  const Layout lay = staged ? fwd_staged_layout(d) : fwd_layout(d);
+  if (same && (nl != 1 || d.C != d.R || p.r0 != 0 || p.L[0].y))
+    return (int)cudaErrorInvalidValue;
+  const Layout lay = staged ? fwd_staged_layout(d) : same ? same_layout(d) : fwd_layout(d);
   if (lay.nst < 2) return (int)cudaErrorInvalidValue;
   p.nst = lay.nst; p.hoff = staged ? 0 : lay.aux; p.roff = lay.tiles;
   p.boff = lay.tiles + lay.nst * SLAB;
@@ -2287,6 +2383,10 @@ int awt_gated_fwd(int nl, void* const* ptr, const int* iv, cudaStream_t stream) 
                   : k < spare + d.Ca ? (2 * d.Ra + k - spare) * ATOM
                                      : lay.aux + (k - spare - d.Ca) * ATOM;
     return wg_launch(wg_fwd_kernel<2, true>, p, grid, lay.bytes, stream);
+  }
+  if (same) {
+    if (!map_stream(&p.xm, p.x, d.B, d.P, d.R)) return (int)cudaErrorInvalidValue;
+    return wg_launch(wg_same_kernel, p, grid, lay.bytes, stream);
   }
   return nl == 2 ? wg_launch(wg_fwd_kernel<2>, p, grid, lay.bytes, stream)
                  : wg_launch(wg_fwd_kernel<1>, p, grid, lay.bytes, stream);

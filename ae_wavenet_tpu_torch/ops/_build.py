@@ -54,7 +54,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     for name in ("awt_gated_dw", "awt_gated_stack", "awt_gated_group"):
         getattr(lib, name).argtypes = [p, p, p]
         getattr(lib, name).restype = i
-    for name in ("awt_gated_wg_fwd_smem", "awt_gated_wg_bwd_smem",
+    for name in ("awt_gated_wg_fwd_smem", "awt_gated_wg_same_smem", "awt_gated_wg_bwd_smem",
                  "awt_gated_wg_bwd_rec_smem"):
         getattr(lib, name).argtypes = [p]
         getattr(lib, name).restype = i

@@ -26,7 +26,14 @@ the kernels both follow.  Forward, per layer, on rows [r0, P):
     out = h @ bf16(w_out) + b_out                     f32
     x'  = bf16(x[g] + bf16(out_res));  skip += out_skip (f32)
 
-y is saved in bf16; rows below r0 of every output hold zeros.  A pair runs
+y is saved in bf16; rows below r0 of every output hold zeros.  The
+single-layer forward has a second, non-causal mode with three taps
+(WaveGlow's layers: ``cond`` None, w_in [3 n_res, 2 n_dil]), on every row:
+
+    xin = [x[g-dd] | x[g] | x[g+dd]]                  zero outside [0, P)
+    y   = xin @ bf16(w_in) + b_in + f32(addend[g])    addend [B, P, 2 n_dil] bf16
+
+and the rest as above, with no y saved.  A pair runs
 layer 2 on the same rows, its prev tap reading mid[g - dd2] (zero below
 r0), and adds both layers' skip terms in order.  Backward, per layer:
 
@@ -112,12 +119,15 @@ def _gate(y: torch.Tensor):
     return tf, sg, (tf * sg).to(BF16)
 
 
-def _fwd_rows(x_prev, x_cur, cond, skip_rows, w_in, b_in, w_out, b_out):
+def _fwd_rows(x_prev, x_cur, cond, skip_rows, w_in, b_in, w_out, b_out, addend=None):
     """One layer on a block of rows: returns (x' bf16, y f32) and adds the
-    skip term into ``skip_rows`` in place."""
+    skip term into ``skip_rows`` in place.  ``cond``: the third part of xin
+    (the next tap in the three-tap mode, which adds ``addend`` to y)."""
     n_res = x_cur.shape[-1]
     xin = torch.cat([x_prev, x_cur, cond], -1).float()
     y = xin @ w_in.to(BF16).float() + b_in
+    if addend is not None:
+        y = y + addend.float()
     _, _, h = _gate(y)
     out = h.float() @ w_out.to(BF16).float() + b_out
     skip_rows += out[..., n_res:]
@@ -125,18 +135,26 @@ def _fwd_rows(x_prev, x_cur, cond, skip_rows, w_in, b_in, w_out, b_out):
 
 
 def gated_layer_fused_reference(x, cond, skip, w_in, b_in, w_out, b_out, *,
-                                dd: int, r0: int, save_y: bool = False):
+                                dd: int, r0: int, save_y: bool = False, addend=None):
     """Plain version of the single-layer forward (``gated_layer_fused``).
 
     x [B, P, n_res] bf16, cond [B, P, n_cond] bf16, skip [B, P, n_skp] f32
     (updated in place).  Computes rows [r0, P).  Returns (x', skip) and,
-    with ``save_y``, y [B, P, 2*n_dil] bf16."""
+    with ``save_y``, y [B, P, 2*n_dil] bf16.  ``cond`` None: the three-tap
+    mode (r0 = 0, w_in [3 n_res, 2 n_dil], ``addend`` [B, P, 2 n_dil] bf16
+    or None)."""
     gated_layer_fused_reference.launches += 1
     p_len = x.shape[1]
+    if cond is None:
+        if r0 or save_y:
+            raise ValueError("the three-tap mode runs every row and saves no y")
+        cond = _shift_up(x, dd, 0)
+    elif addend is not None:
+        raise ValueError("the addend is the three-tap mode's")
     x_new = torch.zeros_like(x)
     x_new[:, r0:], y = _fwd_rows(_shift_down(x, dd, r0, p_len), x[:, r0:],
                                  cond[:, r0:], skip[:, r0:], w_in, b_in,
-                                 w_out, b_out)
+                                 w_out, b_out, addend)
     if not save_y:
         return x_new, skip
     y_out = x.new_zeros(*x.shape[:2], y.shape[-1])

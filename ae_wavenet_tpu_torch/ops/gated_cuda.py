@@ -22,7 +22,10 @@ the weights as they are: K1, K1b, K7, K2, K2b in both modes, K8's
 data-gradient tiles and every weight gradient.  K2b's recompute mode runs
 the forward's gate pass ahead of each backward tile and keeps its f32 gate
 in a per-block scratch (:func:`_rec_scratch`).  Shape limits:
-``filter_sz == 2``; n_res, n_cond, n_dil and
+``filter_sz == 2`` (K1b also takes WaveGlow's non-causal three-tap layer:
+``cond`` None, ``w_in`` [3 n_res, 2 n_dil], an optional bf16 addend of y;
+``gated_layer_fused.taps`` is the last call's taps, 3 or 2); n_res, n_cond,
+n_dil and
 n_skp multiples of 8 (16-byte rows); the widths' shared-memory footprint
 within one block's 227 KB (a width past it raises ``ValueError``); the
 grouped backward takes saved y only.  The pair backward keeps two tiles in
@@ -58,11 +61,14 @@ ATOM, SLAB, MAX_STAGES, BAR_BYTES, ALIGN = 8192, 32768, 4, 64, 1024
 MAX_SLOTS, SKIP_BOX, SKIP_BAR = 16, 32, 8
 
 
-def _dims(x: torch.Tensor, cond: torch.Tensor, w_in: torch.Tensor,
+def _dims(x: torch.Tensor, cond: torch.Tensor | None, w_in: torch.Tensor,
           w_out: torch.Tensor) -> list:
-    """[B, P, n_res, n_cond, n_dil, n_skp]: the kernels' six dims."""
+    """[B, P, n_res, n_cond, n_dil, n_skp]: the kernels' six dims (n_cond =
+    n_res in K1b's three-tap mode, ``cond`` None: the next tap takes the
+    cond part's place)."""
     b, p, r = x.shape
-    return [b, p, r, cond.shape[-1], w_in.shape[1] // 2, w_out.shape[1] - r]
+    c = r if cond is None else cond.shape[-1]
+    return [b, p, r, c, w_in.shape[1] // 2, w_out.shape[1] - r]
 
 
 def _cast_weights(w_in, b_in, w_out, b_out):
@@ -83,7 +89,8 @@ def _check(dims, tensors: dict, smem: int) -> None:
     b, p, r, c, d, s = dims[:6]
     want = {"x": ((b, p, r), BF16), "cond": ((b, p, c), BF16),
             "skip": ((b, p, s), torch.float32), "gskip": ((b, p, s), BF16),
-            "gcond": ((b, p, c), torch.float32), "y": ((b, p, 2 * d), BF16)}
+            "gcond": ((b, p, c), torch.float32), "y": ((b, p, 2 * d), BF16),
+            "addend": ((b, p, 2 * d), BF16)}
     dev = None
     for name, v in tensors.items():
         if v is None:
@@ -195,9 +202,10 @@ def coop_plan(rows: int, batch: int, sms: int, per_sm: int) -> tuple[int, int, i
 _BLOCKS: dict = {}
 # awt_gated_wg_blocks: the forward, the backward (saved y), the whole stack,
 # the group, the single-layer backward's recompute mode, the pair backward
-# with two tiles in flight, the pair forward with its epilogue staged
+# with two tiles in flight, the pair forward with its epilogue staged, K1b's
+# three-tap mode
 _KINDS = {"fwd": 0, "bwd": 1, "stack": 2, "group": 3, "bwd_rec": 4, "bwd2": 5,
-          "fwd2": 6}
+          "fwd2": 6, "same": 7}
 
 
 def _per_sm(kind: str, dims) -> int:
@@ -222,7 +230,7 @@ def _sms(dev) -> int:
 
 def _plan(dev, kind: str, dims, rows: int, batch: int, dd2: int) -> tuple[int, int]:
     """``_chunk`` from the card's SM count and the kernel's occupancy at
-    these widths (kind "fwd", "fwd2", "bwd", "bwd2" or "bwd_rec")."""
+    these widths (kind "fwd", "fwd2", "same", "bwd", "bwd2" or "bwd_rec")."""
     return _chunk(rows, batch, dd2, _sms(dev), _per_sm(kind, dims))
 
 
@@ -268,15 +276,20 @@ def _smem(fn_name: str, dims) -> int:
 
 # ---------------------------------------------------------------- forward
 
-def _fwd(nl, x, cond, skip, pks, dds, r0, save_y):
+def _fwd(nl, x, cond, skip, pks, dds, r0, save_y, addend=None):
     dims = _dims(x, cond, pks[0][0], pks[0][2])
-    _check(dims, {"x": x, "cond": cond, "skip": skip},
-           _smem("awt_gated_wg_fwd_smem", dims))
+    taps = 3 if cond is None else 2
+    if taps == 3 and (nl != 1 or r0 or save_y
+                      or pks[0][0].shape[0] != 3 * dims[2]):
+        raise ValueError("the three-tap mode is one layer on every row (r0 = 0), "
+                         "saves no y and takes w_in [3 n_res, 2 n_dil]")
+    _check(dims, {"x": x, "cond": cond, "skip": skip, "addend": addend},
+           _smem("awt_gated_wg_same_smem" if taps == 3 else "awt_gated_wg_fwd_smem", dims))
     b, p, r, c, d, s = dims
     dev = x.device
     staged = nl == 2 and fwd_plan(r, d, s, c)[0]
-    chunk, n_chunks = _plan(dev, "fwd2" if staged else "fwd", dims, p - r0, b,
-                            dds[-1] if nl == 2 else 0)
+    chunk, n_chunks = _plan(dev, "fwd2" if staged else "same" if taps == 3 else "fwd", dims,
+                            p - r0, b, dds[-1] if nl == 2 else 0)
     # the kernel writes rows [r0, P) of every output; rows below hold zeros
     outs = [_head_zeroed(torch.empty_like(x), r0) for _ in range(nl)]  # (mid,) x'
     ys = ([_head_zeroed(x.new_empty(b, p, 2 * d), r0) for _ in range(nl)]
@@ -290,22 +303,26 @@ def _fwd(nl, x, cond, skip, pks, dds, r0, save_y):
         else:
             layers += [None] * 5
     _call("awt_gated_fwd", nl,
-          _ptrs(x, cond, skip, outs[0] if nl == 2 else None, outs[-1], halo,
-                *layers),
+          _ptrs(x, cond, skip, outs[0] if nl == 2 else None, outs[-1], halo, *layers,
+                addend),
           _ints(*dims, r0, chunk, dds[0], dds[1] if nl == 2 else 0, n_chunks,
-                int(staged)), dev)
+                int(staged), taps), dev)
     if nl == 2:
         gated_pair_fused.staged_epilogue = int(staged)
     return (*outs, skip, *ys)
 
 
 def gated_layer_fused(x, cond, skip, w_in, b_in, w_out, b_out, *, dd: int,
-                      r0: int, save_y: bool = False):
-    """K1b: one gated layer forward; see ``gated.gated_layer_fused_reference``."""
+                      r0: int, save_y: bool = False, addend=None):
+    """K1b: one gated layer forward; see ``gated.gated_layer_fused_reference``
+    (``cond`` None: the non-causal three-tap mode, with ``addend``).
+    ``.taps``: the last call's taps."""
+    gated_layer_fused.taps = 2 if cond is not None else 3
     if x.device.type == "cpu":
         return gated.gated_layer_fused_reference(
-            x, cond, skip, w_in, b_in, w_out, b_out, dd=dd, r0=r0, save_y=save_y)
-    out = _fwd(1, x, cond, skip, [(w_in, b_in, w_out, b_out)], (dd,), r0, save_y)
+            x, cond, skip, w_in, b_in, w_out, b_out, dd=dd, r0=r0, save_y=save_y,
+            addend=addend)
+    out = _fwd(1, x, cond, skip, [(w_in, b_in, w_out, b_out)], (dd,), r0, save_y, addend)
     gated_layer_fused.launches += 1
     return out
 
@@ -572,3 +589,4 @@ for _f in (gated_layer_fused, gated_pair_fused, gated_layer_bwd, gated_pair_bwd,
 gated_layer_bwd.launches_recompute = 0
 gated_pair_bwd.tiles_in_flight = 0
 gated_pair_fused.staged_epilogue = 0
+gated_layer_fused.taps = 0

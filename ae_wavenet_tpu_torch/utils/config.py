@@ -6,8 +6,9 @@ config serialized by either package loads in the other.  The reference
 module cannot be imported here: it reaches jax through ``audio.mfcc``.
 Kernel knobs of the TPU package (``gated_*``, ``fastgen_vmem_dil_max``)
 stay in the schema for round trips; the port reads none of them.  The
-port's own keys (:data:`PORT_KEYS`: the mixture-of-logistics output) are
-written only where they differ from their defaults, so every configuration
+port's own keys (:data:`PORT_KEYS`: the mixture-of-logistics output and
+the ``flow`` group of WaveGlow's flows) are written only where they differ
+from their defaults, so every configuration
 the reference can express reads and writes as the reference's JSON.
 ``SpecConfig.n_mfcc = 0`` asks for log-mel conditioning (the bands alone),
 a value the reference's schema holds and its frontend does not read so.
@@ -218,6 +219,19 @@ class WaveNetConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class FlowConfig:
+    """WaveGlow's flows (the port's own group; model_kind 'waveglow',
+    Prenger et al. 2018, arXiv:1811.00002): the defaults are NVIDIA's
+    published ``waveglow_256channels`` checkpoint's."""
+
+    n_flows: int = 12         # affine couplings, each after an invertible 1x1
+    n_group: int = 8          # audio samples folded into one 8-channel row
+    n_early_every: int = 4    # every this many flows (counted in the
+    n_early_size: int = 2     # forward direction) this many channels leave
+    sigma: float = 0.6        # the prior's scale at inference
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
     batch_sz: int = 16
     n_win: int = 1600         # loss samples per window (like reference n_win)
@@ -272,11 +286,14 @@ class RunConfig:
     bottleneck: BottleneckConfig = BottleneckConfig()
     wavenet: WaveNetConfig = WaveNetConfig()
     train: TrainConfig = TrainConfig()
-    model_kind: str = "autoencoder"  # 'autoencoder' | 'mfcc_inverter'
+    model_kind: str = "autoencoder"  # 'autoencoder' | 'mfcc_inverter' | 'waveglow'
+    flow: FlowConfig = FlowConfig()
 
 
-#: keys the reference's schema lacks, by group, with their defaults
-PORT_KEYS = {"wavenet": {"n_mix": 0, "log_scale_min": math.log(1e-14)}}
+#: keys the reference's schema lacks, by group, with their defaults (a group
+#: the reference lacks whole is left out where every key is at its default)
+PORT_KEYS = {"wavenet": {"n_mix": 0, "log_scale_min": math.log(1e-14)},
+             "flow": dataclasses.asdict(FlowConfig())}
 
 
 def _to_dict(cfg) -> dict:
@@ -287,6 +304,8 @@ def _to_dict(cfg) -> dict:
         for k, default in keys.items():
             if d[group][k] == default:
                 del d[group][k]
+        if not d[group]:
+            del d[group]
     return d
 
 
@@ -315,6 +334,7 @@ def from_json(s: str) -> RunConfig:
         wavenet=_build(WaveNetConfig, d["wavenet"]),
         train=_build(TrainConfig, d["train"]),
         model_kind=d.get("model_kind", "autoencoder"),
+        flow=_build(FlowConfig, d.get("flow", {})),
     )
 
 

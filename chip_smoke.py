@@ -48,7 +48,11 @@ every measurement beside the card's name and power limit:
    beside its bound and its plain version (the pair kernels also beside
    their bytes bound and a cuBLAS yardstick of their products alone); the
    stack's forward and backward timed under pairs, full fusion, and full
-   fusion with groups of 5;
+   fusion with groups of 5; then K1b's non-causal three-tap mode
+   (WaveGlow's layer, ``wg_same_kernel``) at its cell's shape, B = 16 x
+   16,384 rows at 256 channels with a layer's slice of the cond projection
+   as the addend, beside its bound and plain version (``--three-tap`` runs
+   it alone after the build);
 7. train: the train CLI at B = 4, n_win = 48,000.  ``new --preset chorowski
    --pallas-stack`` for 4 steps and ``resume`` for 2 more (the main path:
    pairs, saved y); 4 steps of the single-layer schedule
@@ -301,9 +305,10 @@ HBM_BYTES_PER_S = 3.35e12
 SMEM_BYTES_PER_S = 132 * 128 * 1.98e9
 # every kernel of the Hopper tile core, as the ptxas report names them
 # (wg_fwd_kernel<NL, STAGED>: K1b, K1, K1 with its epilogue staged;
+# wg_same_kernel: K1b's three-tap mode;
 # wg_bwd_kernel<NL, REC>: K2b saved y, K2, K2b's recompute mode)
 HOPPER_KERNELS = ("wg_fwd_kernel<1, false>", "wg_fwd_kernel<2, false>",
-                  "wg_fwd_kernel<2, true>", "wg_bwd_kernel<1, false>",
+                  "wg_fwd_kernel<2, true>", "wg_same_kernel", "wg_bwd_kernel<1, false>",
                   "wg_bwd_kernel<2, false>", "wg_bwd_kernel<1, true>", "wg_dw_kernel",
                   "wg_stack_kernel", "wg_group_kernel")
 VQ_TIMING_REPS = 20
@@ -495,6 +500,78 @@ def random_stack(cfg, batch: int, t_out: int, seed: int, dev):
     cond = torch.randn(batch, cfg.n_lc_out, t_in, generator=gen) * 0.5
     spk = torch.randint(0, cfg.n_speakers, (batch,), generator=gen)
     return wn.to(dev), ids.to(dev), cond.to(dev), spk.to(dev)
+
+
+# K1b's three-tap mode at WaveGlow's cell (serve.waveglow_22k.b16): 16 rows of
+# 512 mel frames x 256 samples in groups of 8, 256 channels, 8 layers a WN
+# whose cond projection is 640 -> 8 x 512; the layer timed and its dilation
+FLOW_B, FLOW_P, FLOW_W, FLOW_COND, FLOW_LAYERS = 16, 16384, 256, 640, 8
+FLOW_LAYER, FLOW_DD = 3, 8
+
+
+def three_tap_inputs(batch: int, rows: int, width: int, seed: int, dev, addend: bool = True,
+                     n_cond: int = FLOW_COND, layers: int = FLOW_LAYERS,
+                     layer: int = FLOW_LAYER) -> dict:
+    """K1b's three-tap mode's inputs (n_res = n_dil = n_skp = ``width``):
+    x bf16, skip f32, w_in [3 width, 2 width], b_in, w_out, b_out and, with
+    ``addend``, the layer's 2 width-wide slice of one cond projection
+    [n_cond -> layers x 2 width] of a seeded c [B, P, n_cond], as WaveGlow's
+    WN takes it."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, sd=1.0):
+        return (torch.randn(*shape, generator=gen) * sd).to(dev)
+
+    w = width
+    out = {"x": rnd(batch, rows, w, sd=0.7).to(torch.bfloat16), "skip": rnd(batch, rows, w),
+           "w_in": rnd(3 * w, 2 * w, sd=(3 * w) ** -0.5), "b_in": rnd(2 * w, sd=0.3),
+           "w_out": rnd(w, 2 * w, sd=w ** -0.5), "b_out": rnd(2 * w, sd=0.3), "addend": None}
+    if addend:
+        c = rnd(batch, rows, n_cond).to(torch.bfloat16)
+        proj = rnd(n_cond, layers * 2 * w, sd=n_cond ** -0.5).to(torch.bfloat16)
+        out["addend"] = (c @ proj[:, layer * 2 * w : (layer + 1) * 2 * w]).contiguous()
+    return out
+
+
+def three_tap_call(fn, inp: dict, dd: int):
+    """``fn`` (the kernel's wrapper or its plain version) on copies of the
+    inputs it updates in place: -> (x', skip)."""
+    return fn(inp["x"], None, inp["skip"].clone(), inp["w_in"], inp["b_in"], inp["w_out"],
+              inp["b_out"], dd=dd, r0=0, addend=inp["addend"])
+
+
+def phase_three_tap(card: str, dev) -> dict:
+    """K1b's three-tap mode timed at WaveGlow's cell shape beside its bound
+    and its plain version, and held to it (rows next to both ends among
+    them)."""
+    import torch
+
+    from ae_wavenet_tpu_torch.ops import gated, gated_cuda as gc
+
+    inp = three_tap_inputs(FLOW_B, FLOW_P, FLOW_W, 0, dev)
+    got = three_tap_call(gc.gated_layer_fused, inp, FLOW_DD)
+    want = three_tap_call(gated.gated_layer_fused_reference, inp, FLOW_DD)
+    _, rel = compare_outputs(got, want)
+    check(rel < SEGMENT_REL_TOL and gc.gated_layer_fused.taps == 3,
+          f"three-tap K1b: an output {rel:.4g} from the plain version's, of its largest; "
+          f"taps {gc.gated_layer_fused.taps}")
+    skip = inp["skip"].clone()
+    k_ms = cuda_ms(lambda: gc.gated_layer_fused(inp["x"], None, skip, inp["w_in"], inp["b_in"],
+                                                inp["w_out"], inp["b_out"], dd=FLOW_DD, r0=0,
+                                                addend=inp["addend"]), 5)
+    p_ms = cuda_ms(lambda: three_tap_call(gated.gated_layer_fused_reference, inp, FLOW_DD), 1)
+    n = FLOW_B * FLOW_P
+    ops = 2 * n * (3 * FLOW_W * 2 * FLOW_W + FLOW_W * 2 * FLOW_W)
+    n_bytes = tensor_bytes(inp["x"], inp["w_in"], inp["w_out"], inp["addend"]) + \
+        2 * tensor_bytes(inp["skip"]) + tensor_bytes(got[0])
+    b_ms, by = bound(n_bytes, {"bf16": ops})
+    print(f"[three-tap] K1b's three-tap mode B={FLOW_B} P={FLOW_P} width {FLOW_W} dd {FLOW_DD} "
+          f"with the addend: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.3f} ms "
+          f"by {by}, {100 * b_ms / k_ms:.1f}% of the bound; every output within {rel:.3g} of "
+          f"the plain version's largest | {card}")
+    return {"kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "rel": rel}
 
 
 def segment_inputs(wn, cfg, ids, cond, spk, seed: int = 0):
@@ -3211,6 +3288,10 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--train-rank"]:
         return train_rank(sys.argv[2:])
+    if sys.argv[1:] == ["--three-tap"]:
+        phase_build(card)
+        print(json.dumps({"three_tap": phase_three_tap(card, dev)}))
+        return 0
     if sys.argv[1:] == ["--mol"]:
         phase_build(card)
         print(json.dumps({"mol": phase_mol(card, dev)}))
@@ -3233,6 +3314,7 @@ def main() -> int:
         s = phase_serve(card, dev, data, tmp)
     mol = phase_mol(card, dev)
     g = phase_train_kernels(card, dev)
+    phase_three_tap(card, dev)
     with tempfile.TemporaryDirectory() as tmp:
         t = phase_train(card, dev, tmp)
         e = phase_eval(card, t["data"], t["ckpt_vq"])

@@ -1144,6 +1144,45 @@ def test_gated_kernel_rejects_planted_fault(cuda_device, name, width):
     assert rel >= chip_smoke.SEGMENT_REL_TOL, rel
 
 
+# K1b's three-tap mode: (batch, rows, width, n_cond, cond layers, the layer
+# whose slice is the addend); "published" is WaveGlow's 256 / 256 / 256 with
+# a layer's 512-wide slice of the 640 -> 4,096 projection, over a ragged P
+THREE_TAP = {"narrow": (3, 300, 32, 48, 2, 1), "published": (2, 4100, 256, 640, 8, 3)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", sorted(THREE_TAP))
+@pytest.mark.parametrize("dd", [1, 128])
+@pytest.mark.parametrize("addend", [False, True])
+def test_three_tap_layer_matches_plain(cuda_device, width, dd, addend):
+    """K1b's non-causal three-tap mode (WaveGlow's layer) against its plain
+    version: every output within SEGMENT_REL_TOL of the plain version's
+    largest, and so the first and the last dd rows alone (where one tap
+    reads the zero padding); one launch, ``taps`` 3; the same plain version
+    with the +dd tap dropped is refused on the last dd rows' neighbours."""
+    b, p, w, n_cond, layers, layer = THREE_TAP[width]
+    inp = chip_smoke.three_tap_inputs(b, p, w, 1, cuda_device, addend, n_cond, layers, layer)
+    before = tgc.gated_layer_fused.launches
+    got = chip_smoke.three_tap_call(tgc.gated_layer_fused, inp, dd)
+    torch.cuda.synchronize()
+    assert tgc.gated_layer_fused.launches == before + 1
+    assert tgc.gated_layer_fused.taps == 3
+    want = chip_smoke.three_tap_call(tgt.gated_layer_fused_reference, inp, dd)
+    for g, v in zip(got, want):
+        assert g.shape == v.shape and g.dtype == v.dtype
+        assert bool(torch.isfinite(g.float()).all())
+    for rows in (slice(None), slice(0, dd), slice(p - dd, p)):
+        _, rel = chip_smoke.compare_outputs([t[:, rows] for t in got],
+                                            [t[:, rows] for t in want])
+        assert rel < chip_smoke.SEGMENT_REL_TOL, (rows, rel)
+    dropped = dict(inp, w_in=inp["w_in"].clone())
+    dropped["w_in"][2 * w :] = 0
+    bad = chip_smoke.three_tap_call(tgt.gated_layer_fused_reference, dropped, dd)
+    _, rel = chip_smoke.compare_outputs([t[:, : p - dd] for t in got],
+                                        [t[:, : p - dd] for t in bad])
+    assert rel >= chip_smoke.SEGMENT_REL_TOL, rel
+
+
 def _config_widths(name):
     """(n_res, n_cond, n_dil, n_skp) of a benchmark configuration's stack."""
     import pathlib
